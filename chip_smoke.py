@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py                      # every phase, as a CI smoke run
     python3 chip_smoke.py --profile out.txt    # and a profile of one UNet eval
+    python3 chip_smoke.py --profile-train out.txt  # and a profile of one train step
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA C++ kernel of the port, one nvcc each, in parallel,
      plus the Triton kernel's compile on its first launch;
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card at the shapes the swap path gives it, with the stated tolerance,
-     its time, the plain version's time, the time of one PyTorch library call
-     computing the same function (where one exists) and the card's bound;
+     the card, with the stated tolerance, its time, the plain version's time,
+     the time of one PyTorch library call computing the same function (where
+     one exists) and the card's bound: K1-K3 at the shapes the swap path
+     gives them, K4-K6 (the training attention) at the training shapes;
   4. swap: ``VideoSwapPipeline.swap_window`` at the SD-v1 inpainting widths
      (512^2, latent 64^2, bf16) on a 6-frame window with a random flow and
      seeded random weights, 50 inversion and 50 sampling steps (after a
@@ -21,8 +23,18 @@ Phases, one line each:
      and with their plain versions swapped in, relative L2 error; and the
      tiny fp32 config's swap_window on the card against the same call on the
      CPU (the one the tests hold to the JAX package);
-  6. (``--profile PATH``) CUDA time by kernel of one sampling UNet eval;
-  7. the card line, the ``kernels`` JSON line, then the result line.
+  6. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
+     at full width, batch 1 at 512^2, the reference operating point (4-step
+     DDIM reconstruction with the ArcFace ID loss, LPIPS off), CLIP ViT-L/14
+     and IRSE50 in the conditioner: one warm-up step and 5 timed steps, ms per
+     step, peak memory, the loss terms and the kernels' launches per step;
+  7. train_reference: one full-width step's UNet gradients with the kernels
+     and with their plain versions, relative L2 error, and every trainable
+     group's gradient finite and non-zero; the tiny fp32 ``p_losses_face``
+     and its gradients on the card against the CPU;
+  8. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
+     sampling UNet eval, of one train step;
+  9. the card line, the ``kernels`` JSON line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (the port's float32 ops,
 the FSAI circulant and the warp, run in full float32).
@@ -127,6 +139,26 @@ def _errs(got, want):
     return diff, diff / want.float().abs().max().item()
 
 
+# K6 and K5 keep P and dS at fp32 precision (hi + lo bf16 products). The
+# 2-ulp limit on the max error cannot tell that from rounding them to bf16
+# alone, which moves it by about one ulp; relative L2 error can, since that
+# rounding flips the output's rounding in a large share of the elements.
+# Each output's relative L2 error against its fp32 plain version must stay
+# under this share of the yardstick's: the same plain version with P and dS
+# rounded to bf16 alone (1.0 for a kernel that rounds them so).
+PRECISION_GATE = 0.25
+
+
+def precision_gate(name: str, shape: str, got, want, yardstick) -> None:
+    rel = lambda a: float((a.float() - want.float()).norm() / want.float().norm())
+    ratio = rel(got) / rel(yardstick)
+    log("kernel_precision", name=name, shape=shape, rel_l2=f"{rel(got):.3e}",
+        bf16_p_rel_l2=f"{rel(yardstick):.3e}", ratio=f"{ratio:.3f}", limit=PRECISION_GATE)
+    if not ratio <= PRECISION_GATE:
+        raise SystemExit(f"chip_smoke: {name} is not at fp32 precision in P and dS: "
+                         f"{ratio:.3f} of bf16 rounding's error > {PRECISION_GATE}")
+
+
 def phase_kernels(batch: int, vae_batch: int) -> dict:
     """Each kernel against its plain version at the swap path's shapes; returns the rows.
 
@@ -211,18 +243,32 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
     return rows
 
 
-KERNEL_MODULES = ("flash_attention", "geglu_ff", "gn_sums")
+SWAP_KERNELS = ("flash_attention", "geglu_ff", "gn_sums")
+TRAIN_KERNELS = ("flash_attention_stats", "flash_attention_fp32", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "geglu_ff", "gn_sums")
 
 
-def _counters():
-    import importlib
+def kernel_counts() -> dict:
+    """Every kernel's launches since the last reset, by name."""
+    from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
 
-    return {name: importlib.import_module(f"vface_torch.ops.{name}") for name in KERNEL_MODULES}
+    return {**FA.LAUNCHES, "geglu_ff": FF.LAUNCHES, "gn_sums": GN.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
+
+    for name in FA.LAUNCHES:
+        FA.LAUNCHES[name] = 0
+    FF.LAUNCHES = 0
+    GN.LAUNCHES = 0
 
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the models' three kernel call sites to the plain versions."""
+    """Route the models' three kernel call sites to the plain versions: the
+    attention's forward and backward (K1, or K4 with K6 and K5), GEGLU's
+    forward (its backward is plain already) and the GroupNorm sums."""
     from unittest import mock
 
     from vface_torch.models import layers, unet
@@ -234,7 +280,8 @@ def plain_kernels():
         yield
 
 
-def build_model(seed: int):
+def build_model(seed: int, conditioner: bool = False):
+    """The full-width model with seeded weights; the conditioner only for training."""
     import torch
 
     from vface_torch.models.ldm import ModelConfig, VFaceModel
@@ -242,11 +289,11 @@ def build_model(seed: int):
 
     cfg = ModelConfig.sd_v1_inpaint()
     t0 = time.perf_counter()
-    model = VFaceModel(cfg, device="cuda")
-    model.load_params(init_params(cfg, torch.Generator(device="cuda").manual_seed(seed)))
+    model = VFaceModel(cfg, device="cuda", conditioner=conditioner)
+    model.load_params(init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), conditioner=conditioner))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log("model", config="sd_v1_inpaint", dtype="bfloat16", params=n_params,
+    log("model", config="sd_v1_inpaint", dtype="bfloat16", conditioner=conditioner, params=n_params,
         init_seconds=f"{time.perf_counter() - t0:.1f}")
     return model
 
@@ -291,15 +338,13 @@ def phase_swap(model, frames: int, steps: int, inv_steps: int, seed: int) -> dic
     VideoSwapPipeline(model, short, device="cuda").swap_window(**inputs)
     torch.cuda.synchronize()
     log("warmup", ddim_steps=2, inversion_steps=2, wall_s=f"{time.perf_counter() - t0:.3f}")
-    mods = _counters()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    reset_counts()
     timings = {}
     t0 = time.perf_counter()
     out = pipe.swap_window(**inputs, timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    launches = kernel_counts()
     n_inv = inv_steps - 1  # skip_last=1 at the recon-free operating point
     unet_evals = n_inv + steps
     log("swap", frames=frames, ddim_steps=steps, inversion_steps=inv_steps, inversion_evals=n_inv,
@@ -309,7 +354,7 @@ def phase_swap(model, frames: int, steps: int, inv_steps: int, seed: int) -> dic
         invert_ms_per_eval=f"{timings['invert'] / max(n_inv, 1) * 1e3:.1f}",
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.1f}")
     log("launches", **launches, unet_evals=unet_evals,
-        per_unet_eval=",".join(f"{k}:{v / unet_evals:g}" for k, v in launches.items() if k != "gn_sums"),
+        per_unet_eval=",".join(f"{k}:{launches[k] / unet_evals:g}" for k in SWAP_KERNELS if k != "gn_sums"),
         gn_sums_per_vae_pass=f"{launches['gn_sums'] / 3:g}")
     ok = (tuple(out.shape) == (frames, opts.image_size, opts.image_size, 3)
           and bool(torch.isfinite(out).all()) and float(out.min()) >= 0.0 and float(out.max()) <= 1.0)
@@ -317,9 +362,12 @@ def phase_swap(model, frames: int, steps: int, inv_steps: int, seed: int) -> dic
         min=f"{float(out.min()):.4f}", max=f"{float(out.max()):.4f}", std=f"{float(out.float().std()):.4f}")
     if not ok:
         raise SystemExit("chip_smoke: swap output has the wrong shape, is not finite or leaves [0, 1]")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in SWAP_KERNELS if launches[k] == 0]
     if missing:
         raise SystemExit(f"chip_smoke: the swap path launched no {missing} kernel")
+    stray = [k for k in launches if k not in SWAP_KERNELS and launches[k]]
+    if stray:  # serving runs without gradients: the training kernels must not run
+        raise SystemExit(f"chip_smoke: the swap path launched training kernels {stray}")
     return launches
 
 
@@ -436,13 +484,311 @@ def phase_small_reference(seed: int) -> None:
         raise SystemExit("chip_smoke: the card's tiny swap disagrees with the CPU's")
 
 
+def phase_train_kernels() -> dict:
+    """K4, K6 and K5 against their plain versions at the training shapes, batch 1:
+    ds1 (1, 4096, 320) and ds2 (1, 1024, 640), 8 heads, bf16. Limit: 2 bf16 ulps
+    at the peak of each output (K4 also checks m and l to 1e-5 relative); K6
+    and K5 also pass :func:`precision_gate`.
+
+    Bound: the function's least FLOPs (2 N^2-products for K4 and K6, 5 for K5:
+    S, dP, dQ, dK, dV) at the bf16 tensor-core peak, which all three use (K6
+    and K5 run their fp32-valued P and dS as two bf16 products each, hi + lo:
+    the bound counts the function's products once), or its bytes. Library:
+    one SDPA forward (K4), the autograd backward of SDPA's output (K5), SDPA
+    on fp32 inputs (K6)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vface_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+    rows = {"flash_attention_stats": [], "flash_attention_bwd": [], "flash_attention_fp32": []}
+    src = "vface_torch/csrc/flash_attention_bwd.cu"
+    for n, c in ((4096, 320), (1024, 640)):
+        h, b = 8, 1
+        dh = c // h
+        q, k, v, do = randn(b, n, c), randn(b, n, c), randn(b, n, c), randn(b, n, c)
+        shape = f"({b},{n},{c})h{h}"
+        split = lambda t: t.view(b, n, h, dh).transpose(1, 2)
+        n2dh = float(b * h * n * n * dh)
+        act = q.numel() * 2  # bytes of one (B, N, C) bf16 tensor
+        stat = b * h * n * 4  # bytes of one fp32 (B*H, N) statistic
+
+        out, m, l = FA.flash_attention_stats(q, k, v, h)
+        want, wm, wl = FA.flash_attention_stats_ref(q, k, v, h)
+        torch.cuda.synchronize()
+        rel_ml = max(((m - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(),
+                     ((l - wl).abs() / wl).max().item())
+        if not rel_ml <= 1e-5:
+            raise SystemExit(f"chip_smoke: flash_attention_stats m/l disagree: {rel_ml} > 1e-5")
+        if not torch.equal(out, FA.flash_attention(q, k, v, h)):
+            raise SystemExit("chip_smoke: flash_attention_stats's output is not K1's bit for bit")
+        rows["flash_attention_stats"].append(_row(
+            "flash_attention_stats", "cuda", "vface_torch/csrc/flash_attention.cu",
+            "vface_tpu/ops/pallas_attention.py:658", _errs(out, want),
+            ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
+            cuda_ms(lambda: FA.flash_attention_stats(q, k, v, h)),
+            cuda_ms(lambda: FA.flash_attention_stats_ref(q, k, v, h), reps=3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))),
+            bound(4.0 * n2dh, 4 * act + 2 * stat), shape))
+        log("kernel_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05",
+            equals_k1="bitwise")
+
+        o6 = FA.flash_attention_fp32(q, k, v, h)
+        want6 = FA.flash_attention_fp32_ref(q, k, v, h)
+        torch.cuda.synchronize()
+        # the yardstick: K4's plain version, which rounds P to bf16 alone
+        precision_gate("flash_attention_fp32", shape, o6, want6, want)
+        qf, kf, vf = (split(t).float() for t in (q, k, v))
+        rows["flash_attention_fp32"].append(_row(
+            "flash_attention_fp32", "cuda", src, "vface_tpu/ops/pallas_attention.py:143", _errs(o6, want6),
+            ("abs", 2 * bf16_ulp(want6.float().abs().max().item())),
+            cuda_ms(lambda: FA.flash_attention_fp32(q, k, v, h)),
+            cuda_ms(lambda: FA.flash_attention_fp32_ref(q, k, v, h), reps=3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
+            bound(4.0 * n2dh, 4 * act), shape))
+
+        dd = FA.rowsum_do_o(do, o6, h)
+        got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+        want5 = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
+        torch.cuda.synchronize()
+        # each gradient against 2 ulps of its own peak; the row reports the worst margin
+        ratios = [_errs(gi, wi)[0] / (2 * bf16_ulp(wi.float().abs().max().item())) for gi, wi in zip(got, want5)]
+        worst = max(range(3), key=lambda i: ratios[i])
+        errs = _errs(got[worst], want5[worst])
+        log("kernel_bwd_check", shape=shape, dq_dk_dv_err_over_tol=",".join(f"{r:.3f}" for r in ratios))
+        yard = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h, round_p=True)
+        for gname, gi, wi, yi in zip(("dq", "dk", "dv"), got, want5, yard):
+            precision_gate(f"flash_attention_bwd.{gname}", shape, gi, wi, yi)
+        leaves = [split(t).detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+        dsplit = split(do)
+        rows["flash_attention_bwd"].append(_row(
+            "flash_attention_bwd", "cuda", src, "vface_tpu/ops/pallas_attention.py:444", errs,
+            ("abs", 2 * bf16_ulp(want5[worst].float().abs().max().item())),
+            cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)),
+            cuda_ms(lambda: FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h), reps=3, warmup=1),
+            cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
+            bound(10.0 * n2dh, 7 * act + 3 * stat), shape))
+    return rows
+
+
+def train_batch(model, batch: int, seed: int, device="cuda") -> dict:
+    """A seeded synthetic batch shaped as the JAX package's train-step bench:
+    images and mask at the model's size, the 224^2 CLIP reference, the 112^2
+    ArcFace reference and 136 landmark coordinates."""
+    import torch
+
+    s, clip = model.cfg.image_size, model.cfg.cond.clip.image_size
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, device=device)
+    return {
+        "gt_image": u(batch, s, s, 3) * 2 - 1,
+        "inpaint": u(batch, s, s, 3) * 2 - 1,
+        "mask": (u(batch, s, s, 1) > 0.3).to(torch.float32),
+        "ref_clip": torch.randn((batch, clip, clip, 3), generator=g, device=device) * 0.3,
+        "ref_face01": u(batch, 112, 112, 3),
+        "landmarks": u(batch, 136),
+    }
+
+
+TRAIN_STEPS = 5  # timed steps after one warm-up step
+
+
+def phase_train(model, seed: int) -> dict:
+    """The main training path at full width; returns the kernels' launches over the timed steps."""
+    import torch
+
+    from vface_torch.pipelines.train import TrainConfig, make_optimizer, make_train_step
+
+    cfg = TrainConfig()  # reconstruct_steps 4, ID weight 0.3, lr 1e-5, 10k warm-up; no LPIPS term
+    opt, sched = make_optimizer(cfg, model)
+    step = make_train_step(model, opt, sched, cfg)
+    batch = train_batch(model, 1, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step(batch, gen)
+    torch.cuda.synchronize()
+    log("train_warmup", wall_s=f"{time.perf_counter() - t0:.3f}")
+    reset_counts()
+    times, logs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        logs.append(step(batch, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    terms = {k: [float(x[k]) for x in logs] for k in logs[0]}
+    log("train", config="sd_v1_inpaint 512^2 b1", reconstruct_steps=cfg.reconstruct_steps,
+        id_loss_weight=cfg.id_loss_weight, trainable_params=n_train, steps=TRAIN_STEPS,
+        ms_per_step=f"{sum(times) / len(times) * 1e3:.1f}",
+        ms_steps=",".join(f"{t * 1e3:.1f}" for t in times), peak_gib=f"{peak:.2f}",
+        **{k: ",".join(f"{x:.5f}" for x in v) for k, v in terms.items()})
+    log("train_launches", **{k: f"{v / TRAIN_STEPS:g}" for k, v in launches.items()}, note="per step")
+    if not all(math.isfinite(x) for v in terms.values() for x in v):
+        raise SystemExit("chip_smoke: a training loss is not finite")
+    changed = [n for n, p in model.named_parameters() if n in frozen and not torch.equal(p, frozen[n])]
+    if changed:
+        raise SystemExit(f"chip_smoke: frozen parameters changed in training: {changed[:5]}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: the training path launched no {missing} kernel")
+    return launches
+
+
+def _train_fixed(model, batch: int, seed: int, device="cuda") -> dict:
+    """Fixed draws for a reproducible step: dropout on (so the uncond vector
+    and, through the reconstruction, every conditioning head get gradients)."""
+    import torch
+
+    hl = model.cfg.latent_size
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda: torch.randn((batch, hl, hl, 4), generator=g, device=device)
+    return {"t": torch.full((batch,), 613, dtype=torch.long, device=device), "noise": r(),
+            "drop": torch.ones((batch, 1, 1), dtype=torch.bool, device=device), "enc_eps0": r(), "enc_eps1": r()}
+
+
+def _loss_grads(model, batch, fixed, cfg):
+    from vface_torch.pipelines.train import p_losses_face
+
+    model.zero_grad(set_to_none=True)
+    loss, logs = p_losses_face(model, batch, None, cfg, fixed)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    return {k: v.item() for k, v in logs.items()}, grads
+
+
+TRAIN_GROUPS = ("unet.", "unet.in_0_0_attn.block_0.attn1.to_q.", "conditioner.clip_encoder.mapper2_",
+                "conditioner.clip_encoder.final_ln2.", "conditioner.proj_out_source.",
+                "conditioner.proj_out_target.", "conditioner.id_proj_out.", "conditioner.landmark_proj_out.",
+                "conditioner.learnable_vector")
+
+
+def phase_train_reference(model, seed: int) -> None:
+    """One full-width step's gradients with the kernels and with their plain
+    versions; every trainable group's gradient; the tiny fp32 loss and
+    gradients on the card against the CPU."""
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.pipelines.train import TrainConfig, p_losses_face, trainable_mask
+    from vface_torch.utils.convert import init_params
+
+    cfg = TrainConfig()
+    batch, fixed = train_batch(model, 1, seed + 5), _train_fixed(model, 1, seed + 6)
+    logs_k, grads_k = _loss_grads(model, batch, fixed, cfg)
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    for group in TRAIN_GROUPS:
+        names = [n for n in trainable if n.startswith(group)]
+        norm = math.sqrt(sum(float(grads_k[n].float().norm()) ** 2 for n in names if n in grads_k))
+        finite = all(bool(torch.isfinite(grads_k[n]).all()) for n in names if n in grads_k)
+        log("train_grad_group", group=group, leaves=len(names), with_grad=sum(n in grads_k for n in names),
+            l2=f"{norm:.4e}", finite=finite)
+        if not names or not finite or not norm > 0:
+            raise SystemExit(f"chip_smoke: trainable group {group} has no finite non-zero gradient")
+    with plain_kernels():
+        logs_p, grads_p = _loss_grads(model, batch, fixed, cfg)
+    names = [n for n in grads_p if n.startswith("unet.")]
+    diff = math.sqrt(sum(float((grads_k[n].float() - grads_p[n].float()).norm()) ** 2 for n in names))
+    ref = math.sqrt(sum(float(grads_p[n].float().norm()) ** 2 for n in names))
+    worst = max(names, key=lambda n: float((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm().clamp(min=1e-30)))
+    worst_rel = float((grads_k[worst] - grads_p[worst]).norm() / grads_p[worst].norm())
+    model.zero_grad(set_to_none=True)
+    del grads_k, grads_p
+    # the same bound as the full-width eval: the plain versions share the
+    # kernels' rounding points; other fp32 sums move bf16 roundings by an ulp
+    tol = 3e-2
+    log("train_reference", unet_grad_rel_l2=f"{diff / ref:.3e}", tol=tol, leaves=len(names),
+        worst_leaf=worst, worst_leaf_rel_l2=f"{worst_rel:.3e}",
+        loss_kernels=f"{logs_k['loss']:.6f}", loss_plain=f"{logs_p['loss']:.6f}")
+    if not diff / ref <= tol:
+        raise SystemExit("chip_smoke: the training gradients with the kernels disagree with the plain path")
+
+    # the tiny fp32 loss and gradients: card against CPU (the CPU run is held to JAX by the tests)
+    tiny = ModelConfig.tiny(image_size=32)
+    params = init_params(tiny, torch.Generator().manual_seed(seed), conditioner=True)
+    cfg_t = TrainConfig(reconstruct_steps=2, id_loss_weight=0.3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = VFaceModel(tiny, device=dev, conditioner=True)
+        m.load_params(params)
+        trainable_mask(m)
+        tb = train_batch(m, 2, seed + 7, device="cpu")
+        tf = _train_fixed(m, 2, seed + 8, device="cpu")
+        tf["drop"] = torch.tensor([True, False])[:, None, None]
+        mv = lambda d: {k: v.to(dev) for k, v in d.items()}
+        m.zero_grad(set_to_none=True)
+        loss, logs = p_losses_face(m, mv(tb), None, cfg_t, mv(tf))
+        loss.backward()
+        out[dev] = ({k: v.item() for k, v in logs.items()},
+                    {n: p.grad.detach().cpu() for n, p in m.named_parameters() if p.grad is not None})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    log_err = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc)
+    gmax = max(float(g.abs().max()) for g in gc.values())
+    # each leaf within 1e-4 of its own peak, plus 1e-6 of the largest gradient:
+    # the fp32 noise floor of leaves a GroupNorm zeroes in exact arithmetic
+    ratio = max(float((gg[n] - gc[n]).abs().max()) / (1e-4 * float(gc[n].abs().max()) + 1e-6 * gmax) for n in gc)
+    log("train_small_reference", config="tiny fp32 32^2 b2, recon 2 + ID", loss_max_rel_err=f"{log_err:.3e}",
+        grad_err_over_tol=f"{ratio:.3f}", tol="1e-4", leaves=len(gc))
+    if not (gg.keys() == gc.keys() and log_err <= 1e-4 and ratio <= 1.0):
+        raise SystemExit("chip_smoke: the card's tiny training loss or gradients disagree with the CPU's")
+
+
+def phase_profile_train(model, seed: int, path: str) -> None:
+    """CUDA time by kernel over one full-width train step (torch.profiler)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vface_torch.pipelines.train import TrainConfig, p_losses_face
+
+    cfg = TrainConfig()
+    batch, fixed = train_batch(model, 1, seed + 9), _train_fixed(model, 1, seed + 10)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        p_losses_face(model, batch, None, cfg, fixed)[0].backward()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
+    log("profile_train", what="loss + backward, no optimizer step", wall_ms=f"{wall_ms:.1f}",
+        device_ms=f"{total:.1f}", device_busy=f"{total / wall_ms:.3f}", table=path)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
+
+
 def kernels_line(rows: dict, launches: dict) -> dict:
-    """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites"."""
+    """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
+
+    ``launches`` is each kernel's count over its main path's run (K1-K3 the
+    swap window, K4-K6 the timed train steps); K5's two kernels launch
+    together, and its entry carries the dQ kernel's count."""
     out = []
     for name, sites in rows.items():
         head = dict(sites[0])
         head["max_abs_err"] = max(r["max_abs_err"] for r in sites)
-        head["launches"] = launches.get(name, 0)
+        head["launches"] = launches[name + "_dq" if name == "flash_attention_bwd" else name]
         head["sites"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                                              "max_abs_err")} for r in sites]
         head.pop("shape")
@@ -453,6 +799,7 @@ def kernels_line(rows: dict, launches: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", metavar="PATH", help="also profile one sampling UNet eval, table to PATH")
+    ap.add_argument("--profile-train", metavar="PATH", help="also profile one train step, table to PATH")
     args = ap.parse_args()
 
     import torch
@@ -462,12 +809,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     rows = phase_kernels(batch=2 * FRAMES, vae_batch=FRAMES)
+    rows.update(phase_train_kernels())
     model = build_model(SEED)
     launches = phase_swap(model, FRAMES, DDIM_STEPS, INVERSION_STEPS, SEED)
     phase_reference(model, FRAMES, SEED)
     phase_small_reference(SEED)
     if args.profile:
         phase_profile(model, FRAMES, SEED, args.profile)
+    del model  # serving's model has no conditioner; training builds its own
+    torch.cuda.empty_cache()
+    model = build_model(SEED, conditioner=True)
+    train_launches = phase_train(model, SEED)
+    phase_train_reference(model, SEED)
+    if args.profile_train:
+        phase_profile_train(model, SEED, args.profile_train)
+    launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     print(smi, flush=True)
     print(json.dumps(kernels_line(rows, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -147,7 +147,7 @@ def test_full_topology_with_kernel_routing_matches_jax():
             return real(*args)
         return call
 
-    before = FA.LAUNCHES
+    before = dict(FA.LAUNCHES)
     with torch.no_grad(), mock.patch.object(unet_mod, "flash_attention", spy("flash_attention")), \
             mock.patch.object(unet_mod, "geglu_ff", spy("geglu_ff")):
         got = net(t(x), t(ts).long(), t(ctx), flow=t(flow), injection=tinj)

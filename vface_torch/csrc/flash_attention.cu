@@ -6,6 +6,11 @@
 // m and sum l stay in fp32, P rounded to bf16 before the P.V product, fp32
 // accumulation, and out = bf16(acc / l).
 //
+// The STATS instantiation also replaces _flash_v5_stats (_flash_kernel_v5_stats),
+// the forward of the training VJP: the same kernel, which in addition writes
+// each row's final m and l in fp32 to (B*H, N). Its output is the plain
+// instantiation's bit for bit: only the epilogue differs.
+//
 // What bounds it on the H100: the UNet's self-attention sites (N = 4096 with
 // dh = 40, N = 1024 with dh = 80) do 4*N*dh FLOPs for every 2*dh*3 bytes of
 // q/k/v per token and head, so the work is tensor-core bound. The design keeps
@@ -55,12 +60,13 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
 // [row][dh] with a row stride of DHP + 8 elements (16 bytes of padding to
 // spread the fragment loads over the banks); V is stored transposed
 // [dh][key] so that the B fragment of P.V is one 32-bit load per register.
-template <int DHP>
+template <int DHP, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ m_out, float* __restrict__ l_out,
                       int n, int heads, int dh, float scale) {
   constexpr int QS = DHP + 8;
   constexpr int VS = kBlockK + 8;
@@ -215,16 +221,40 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             __floats2bfloat162_rn(acc[d][2] * il1, acc[d][3] * il1);
     }
   }
+  if (STATS && t4 == 0) {  // the quad's four lanes hold the same m and l
+    if (r0 < n) {
+      m_out[(long long)bh * n + r0] = m0;
+      l_out[(long long)bh * n + r0] = l0;
+    }
+    if (r1 < n) {
+      m_out[(long long)bh * n + r1] = m1;
+      l_out[(long long)bh * n + r1] = l1;
+    }
+  }
 }
 
-template <int DHP>
-void launch(const void* q, const void* k, const void* v, void* o, int b, int n,
-            int heads, int dh, float scale, cudaStream_t stream) {
+template <int DHP, bool STATS>
+void launch(const void* q, const void* k, const void* v, void* o, float* m, float* l,
+            int b, int n, int heads, int dh, float scale, cudaStream_t stream) {
   dim3 grid((n + kBlockQ - 1) / kBlockQ, b * heads);
-  flash_fwd_bf16_kernel<DHP><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_bf16_kernel<DHP, STATS><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, heads,
-      dh, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), m, l, n,
+      heads, dh, scale);
+}
+
+template <bool STATS>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* m, float* l,
+             int b, int n, int heads, int dh, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dh % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((dh + 15) / 16 * 16) {
+    case 16: launch<16, STATS>(q, k, v, o, m, l, b, n, heads, dh, scale, st); break;
+    case 48: launch<48, STATS>(q, k, v, o, m, l, b, n, heads, dh, scale, st); break;
+    case 80: launch<80, STATS>(q, k, v, o, m, l, b, n, heads, dh, scale, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -236,13 +266,15 @@ void launch(const void* q, const void* k, const void* v, void* o, int b, int n,
 extern "C" int vface_flash_attention_bf16(const void* q, const void* k, const void* v,
                                           void* o, int b, int n, int heads, int dh,
                                           float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((dh + 15) / 16 * 16) {
-    case 16: launch<16>(q, k, v, o, b, n, heads, dh, scale, st); break;
-    case 48: launch<48>(q, k, v, o, b, n, heads, dh, scale, st); break;
-    case 80: launch<80>(q, k, v, o, b, n, heads, dh, scale, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(q, k, v, o, nullptr, nullptr, b, n, heads, dh, scale, stream);
+}
+
+// As above, and m, l: (b * heads, n) fp32, each row's final running max (of
+// the scaled scores) and softmax denominator.
+extern "C" int vface_flash_attention_stats_bf16(const void* q, const void* k, const void* v,
+                                                void* o, void* m, void* l, int b, int n,
+                                                int heads, int dh, float scale,
+                                                void* stream) {
+  return dispatch<true>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), b, n,
+                        heads, dh, scale, stream);
 }

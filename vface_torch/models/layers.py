@@ -105,22 +105,24 @@ class Conv(nn.Module):
     ``padding="torch"`` is the symmetric (k-1)//2 on both sides, as
     ``torch.nn.Conv2d(padding=k//2)``; an int pads that much on every side.
     ``zero_init`` marks the convs the reference zero-initialises (for
-    :func:`vface_torch.utils.convert.init_params`).
+    :func:`vface_torch.utils.convert.init_params`); ``bias=False`` is a
+    bias-free conv (the CLIP patch embedding, ArcFace).
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
-                 padding="torch", zero_init: bool = False, dtype=torch.float32):
+                 padding="torch", zero_init: bool = False, dtype=torch.float32, bias: bool = True):
         super().__init__()
         self.stride = stride
         self.padding = (kernel - 1) // 2 if padding == "torch" else int(padding)
         self.zero_init = zero_init
         self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride, self.padding)
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
 
 
 class Dense(nn.Module):

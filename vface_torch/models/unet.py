@@ -6,13 +6,19 @@ float32). The public ``UNetModel.forward`` takes and returns NHWC like the JAX
 module; activations run NCHW inside.
 
 Self-attention sites route by token count: N >= 512 (ds1, N = 4096, dh = 40
-and ds2, N = 1024, dh = 80 at 512^2) go to the flash-attention kernel K1;
-smaller sites (ds4) to :func:`multi_head_attention`. The transformer
-feed-forward goes to the fused GEGLU kernel K2 at C <= 768 when
-``use_fused_ff``.
+and ds2, N = 1024, dh = 80 at 512^2) go to the flash-attention kernels (K1
+without a gradient; K4 forward, K6 and K5 backward with one); smaller sites
+(ds4) to :func:`multi_head_attention`. The transformer feed-forward goes to
+the fused GEGLU kernel K2 at C <= 768 when ``use_fused_ff``.
 
-Not ported yet: ``use_remat``, the encoder cache, ``return_features``, the
-TSG conv injection, the dual 2x768 context and ``EncoderUNetModel``.
+``use_remat`` checkpoints every ResBlock and SpatialTransformer, as the JAX
+module's ``nn.remat`` does (``torch.utils.checkpoint``, non-reentrant): their
+activations are recomputed in the backward, so each attention site runs its
+forward twice per backward pass. It acts only where a gradient is being
+recorded.
+
+Not ported yet: the encoder cache, ``return_features``, the TSG conv
+injection, the dual 2x768 context and ``EncoderUNetModel``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from vface_torch.models.layers import (
     Conv, Dense, GroupNorm32, LayerNormF32, nonlinearity, upsample_nearest_2x,
@@ -59,6 +66,7 @@ class UNetConfig:
     num_heads: int = 8
     transformer_depth: int = 1
     context_dim: int = 768
+    use_remat: bool = True  # checkpoint ResBlocks and SpatialTransformers when training
     use_flash: bool = False  # flash-attention kernel at self-attention sites with N >= 512
     use_fused_ff: bool = False  # fused GEGLU kernel at C <= 768
     dtype: torch.dtype = torch.float32
@@ -71,7 +79,7 @@ class UNetConfig:
     def tiny(cls):
         """Unit-test config: same topology, tiny widths."""
         return cls(model_channels=32, num_res_blocks=1, channel_mult=(1, 2), num_heads=4,
-                   context_dim=64)
+                   context_dim=64, use_remat=False)
 
 
 class CrossAttention(nn.Module):
@@ -283,8 +291,15 @@ class UNetModel(nn.Module):
         emb = self.time_embed_0(timestep_embedding(timesteps, cfg.model_channels).to(dt))
         emb = self.time_embed_2(nonlinearity(emb))
 
+        remat = cfg.use_remat and torch.is_grad_enabled()
+
+        def block(name, *args):
+            if remat:
+                return checkpoint(m(name), *args, use_reentrant=False)
+            return m(name)(*args)
+
         def attn(h, site, name):
-            return m(name)(h, context, inj.for_site(site), inj.chunks, flow)
+            return block(name, h, context, inj.for_site(site), inj.chunks, flow)
 
         hs = []
         h = self.conv_in(x)
@@ -292,7 +307,7 @@ class UNetModel(nn.Module):
         ds = 1
         for level in range(len(cfg.channel_mult)):
             for i in range(cfg.num_res_blocks):
-                h = m(f"in_{level}_{i}_res")(h, emb)
+                h = block(f"in_{level}_{i}_res", h, emb)
                 if ds in cfg.attention_resolutions:
                     h = attn(h, "in", f"in_{level}_{i}_attn")
                 hs.append(h)
@@ -300,12 +315,12 @@ class UNetModel(nn.Module):
                 h = m(f"in_{level}_down")(h)
                 hs.append(h)
                 ds *= 2
-        h = self.mid_res_0(h, emb)
+        h = block("mid_res_0", h, emb)
         h = attn(h, "mid", "mid_attn")
-        h = self.mid_res_1(h, emb)
+        h = block("mid_res_1", h, emb)
         for level in reversed(range(len(cfg.channel_mult))):
             for i in range(cfg.num_res_blocks + 1):
-                h = m(f"out_{level}_{i}_res")(torch.cat([h, hs.pop()], dim=1), emb)
+                h = block(f"out_{level}_{i}_res", torch.cat([h, hs.pop()], dim=1), emb)
                 if ds in cfg.attention_resolutions:
                     h = attn(h, "out", f"out_{level}_{i}_attn")
                 if level != 0 and i == cfg.num_res_blocks:

@@ -146,6 +146,12 @@ class DiagonalGaussian:
         self.logvar = logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
 
+    def sample(self, generator: torch.Generator = None) -> torch.Tensor:
+        """mean + std * eps, eps standard normal in the moments' dtype from ``generator``."""
+        eps = torch.randn(self.mean.shape, generator=generator, dtype=self.mean.dtype,
+                          device=self.mean.device)
+        return self.mean + self.std * eps
+
     def mode(self) -> torch.Tensor:
         return self.mean
 

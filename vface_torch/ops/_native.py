@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vface_torch"
-SOURCES = ("flash_attention", "geglu_ff")
+SOURCES = ("flash_attention", "flash_attention_bwd", "geglu_ff")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

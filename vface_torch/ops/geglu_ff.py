@@ -16,7 +16,12 @@ keeps the (M, I) gated intermediate in shared memory chunk by chunk, so device
 memory sees x, the weights and the output only. See the source for the tiling.
 
 :func:`geglu_ff` launches the kernel for a CUDA tensor and calls the plain
-version :func:`geglu_ff_ref` for a CPU tensor.
+version :func:`geglu_ff_ref` for a CPU tensor. Where a gradient is needed it
+is differentiable with the JAX package's VJP (``pallas_ff.py::_geglu_ff_bwd``):
+the forward is the kernel, the backward autograd through
+:func:`geglu_ff_vjp_ref`, a copy of the unfused ``_ref_impl`` (one 2I-wide
+product, the bias added in the compute dtype, ``a * gelu(gate)``), not through
+the kernel's split rounding.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import ctypes
 import torch
 
 from vface_torch.ops import _native
+from vface_torch.ops._autograd import needs_grad
 
 MAX_C = 768  # the JAX package's routing: wider sites (ds4, C = 1280) take the plain version
 WIDTHS = (64, 320, 640)  # the kernel's instantiations: ds1, ds2, and a small width for tests
@@ -47,7 +53,14 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def geglu_ff_ref(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
-    """Plain PyTorch version with the kernel's rounding points (any dtype)."""
+    """Plain PyTorch version with the kernel's rounding points (any dtype);
+    where a gradient is needed, with the kernel's backward."""
+    if needs_grad(x, w_proj, b_proj, w_out, b_out):
+        return _GegluFF.apply(x, w_proj, b_proj, w_out, b_out, True)
+    return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
+
+
+def _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     inner = w_proj.shape[0] // 2
     gate = _mm(x, w_proj[inner:]) + b_proj[inner:]
     g = gelu_erf(gate.to(torch.float32)).to(x.dtype)
@@ -55,10 +68,50 @@ def geglu_ff_ref(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     return _mm(a * g, w_out) + b_out
 
 
+def geglu_ff_vjp_ref(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
+    """The function whose autograd is the backward (``pallas_ff.py::_ref_impl``):
+    ``h = x @ w_proj.T + b_proj`` rounded to x's dtype with the bias added in
+    it, ``a * gelu_erf(gate)`` with the GELU in float32, then the output product."""
+    inner = w_proj.shape[0] // 2
+    h = torch.matmul(x, w_proj.t()) + b_proj
+    a, gate = h[..., :inner], h[..., inner:]
+    return torch.matmul(a * gelu_erf(gate.to(torch.float32)).to(x.dtype), w_out.t()) + b_out
+
+
+class _GegluFF(torch.autograd.Function):
+    """Forward: the kernel (``plain``: its plain version); backward: autograd
+    through :func:`geglu_ff_vjp_ref` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w_proj, b_proj, w_out, b_out, plain: bool):
+        ctx.save_for_backward(x, w_proj, b_proj, w_out, b_out)
+        return (_geglu_ff_plain if plain else _geglu_ff)(x, w_proj, b_proj, w_out, b_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(5) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+            out = geglu_ff_vjp_ref(*inputs)
+            grads = torch.autograd.grad(out, [inputs[i] for i in wanted], g)
+        result = [None] * 6
+        for i, gi in zip(wanted, grads):
+            result[i] = gi
+        return tuple(result)
+
+
 def geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
-    """GEGLU FF over x (..., C); the kernel on CUDA, the plain version on the CPU."""
+    """GEGLU FF over x (..., C); the kernel on CUDA, the plain version on the CPU;
+    differentiable with the JAX VJP where a gradient is needed."""
+    if needs_grad(x, w_proj, b_proj, w_out, b_out):
+        return _GegluFF.apply(x, w_proj, b_proj, w_out, b_out, False)
+    return _geglu_ff(x, w_proj, b_proj, w_out, b_out)
+
+
+def _geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     if x.device.type == "cpu":
-        return geglu_ff_ref(x, w_proj, b_proj, w_out, b_out)
+        return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
     global LAUNCHES
     if not x.is_cuda:
         raise ValueError(f"geglu_ff: unsupported device {x.device}")

@@ -15,7 +15,9 @@ run to run.
 
 :func:`gn_sums` launches the kernels for a CUDA tensor and calls the plain
 version :func:`gn_sums_ref` for a CPU tensor. ``triton`` is imported only when
-a kernel is launched.
+a kernel is launched. Where a gradient is needed it is differentiable with the
+JAX package's VJP (``layers.py::_gn_sums_bwd``): dx = ds1 + 2*x32*ds2 in
+float32, cast to x's dtype, plain PyTorch (the JAX backward is no kernel).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from vface_torch.ops._autograd import needs_grad
 
 BLOCK = 2048  # elements per load step of one program
 SEGMENT = 16384  # elements of one row per program in pass 1
@@ -74,8 +78,28 @@ def _kernels():
     return triton, partial_sums, finish
 
 
+class _GNSums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _gn_sums(x)
+
+    @staticmethod
+    def backward(ctx, ds1, ds2):
+        (x,) = ctx.saved_tensors
+        dx = ds1[:, :, None, None] + 2.0 * x.to(torch.float32) * ds2[:, :, None, None]
+        return dx.to(x.dtype)
+
+
 def gn_sums(x: torch.Tensor):
-    """(sum, sum of squares) per (b, c) of NCHW x; Triton on CUDA, the plain version on the CPU."""
+    """(sum, sum of squares) per (b, c) of NCHW x; Triton on CUDA, the plain
+    version on the CPU; differentiable where a gradient is needed."""
+    if needs_grad(x):
+        return _GNSums.apply(x)
+    return _gn_sums(x)
+
+
+def _gn_sums(x: torch.Tensor):
     if x.device.type == "cpu":
         return gn_sums_ref(x)
     global LAUNCHES

@@ -55,15 +55,16 @@ def warp_by_flow(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return grid_sample(img, base + flow)
 
 
-def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Bilinear resize of NHWC x, as ``jax.image.resize(..., "bilinear")``.
+def resize_bilinear(x: torch.Tensor, height: int, width: int, antialias: bool = True) -> torch.Tensor:
+    """Bilinear resize of NHWC x, as ``jax.image.resize(..., "bilinear", antialias=...)``.
 
-    ``antialias=True`` matters: JAX widens the kernel when it downsamples
-    (512 -> 64 on the main path); without it the two differ by up to 0.47 on a
-    mask edge.
+    ``antialias=True`` (JAX's default) matters: JAX widens the kernel when it
+    downsamples (512 -> 64 on the swap path); without it the two differ by up
+    to 0.47 on a mask edge. The training loss resizes with ``antialias=False``,
+    as the reference's torchvision resize does.
     """
     out = F.interpolate(x.permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
-                        align_corners=False, antialias=True)
+                        align_corners=False, antialias=antialias)
     return out.permute(0, 2, 3, 1)
 
 

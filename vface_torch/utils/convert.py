@@ -9,7 +9,10 @@ renaming the leaf:
 
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 * Conv ``kernel`` HWIO -> ``weight`` OIHW;
-* GroupNorm / LayerNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``.
+* GroupNorm / LayerNorm / frozen-BN ``scale`` -> ``weight``; ``bias`` stays
+  ``bias``, and so do the conditioner's other leaves (CLIP's
+  ``class_embedding`` and ``position_embedding``, the ``learnable_vector``,
+  PReLU ``alpha``, frozen-BN ``mean`` and ``var``).
 
 :func:`init_params` makes a seeded random init on any device, with no JAX.
 """
@@ -23,6 +26,8 @@ import torch
 
 _DROP = {"Conv_0", "Dense_0", "GroupNorm_0", "LayerNorm_0"}
 _RENAME = {"GroupNorm32_0": "norm"}
+_KEEP = {"bias", "mean", "var", "alpha", "class_embedding", "position_embedding", "learnable_vector"}
+PARTS = ("unet", "vae", "cond")
 
 
 def _leaf(name: str, arr: np.ndarray):
@@ -34,8 +39,8 @@ def _leaf(name: str, arr: np.ndarray):
         raise ValueError(f"kernel of rank {arr.ndim}")
     if name == "scale":
         return "weight", arr
-    if name == "bias":
-        return "bias", arr
+    if name in _KEEP:
+        return name, arr
     raise ValueError(f"unknown Flax leaf {name!r}")
 
 
@@ -58,20 +63,26 @@ def flax_tree_to_state_dict(tree) -> dict:
 
 
 def from_flax_params(tree) -> dict:
-    """``{"unet": flax tree, "vae": flax tree}`` -> ``{"unet": state_dict, "vae": state_dict}``."""
-    return {part: flax_tree_to_state_dict(tree[part]) for part in ("unet", "vae")}
+    """``{"unet": ..., "vae": ...[, "cond": ...]}`` Flax trees -> the same keys as state dicts."""
+    return {part: flax_tree_to_state_dict(tree[part]) for part in PARTS if part in tree}
 
 
-def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02) -> dict:
+def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditioner: bool = False) -> dict:
     """Seeded random parameters for ``cfg`` (a :class:`~vface_torch.models.ldm.ModelConfig`),
-    made on the generator's device: ``{"unet": state_dict, "vae": state_dict}``.
+    made on the generator's device: ``{"unet": ..., "vae": ...}`` state dicts, and
+    ``"cond"`` with ``conditioner`` (drawn after the others, so the UNet and VAE
+    are the same either way).
 
     Conv and Dense weights are normal with std 1/sqrt(fan_in) (LeCun), the
     convs the reference zero-initialises included: with exact zeros there the
     UNet's epsilon is identically 0 and no attention kernel can affect the
     output. Biases are normal with std ``bias_std``; norm scales are 1 and
-    norm biases 0.
+    norm biases 0. As in the JAX init: CLIP's class and position embeddings
+    are normal with std 0.02, the learnable uncond vector standard normal,
+    frozen BatchNorms the identity and PReLU slopes 0.25.
     """
+    from vface_torch.models.clip import CLIPVisionTower
+    from vface_torch.models.conditioning import Conditioner
     from vface_torch.models.layers import Conv, Dense, GroupNorm32, LayerNormF32
     from vface_torch.models.unet import UNetModel
     from vface_torch.models.vae import AutoencoderKL
@@ -80,6 +91,8 @@ def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02) -> dict
     randn = lambda shape: torch.randn(shape, generator=generator, device=dev)
     with torch.device(dev):
         parts = {"unet": UNetModel(cfg.unet), "vae": AutoencoderKL(cfg.vae)}
+        if conditioner:
+            parts["cond"] = Conditioner(cfg.cond)
     with torch.no_grad():
         for part in parts.values():
             for mod in part.modules():
@@ -91,4 +104,10 @@ def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02) -> dict
                 elif isinstance(mod, (GroupNorm32, LayerNormF32)):
                     mod.weight.fill_(1.0)
                     mod.bias.zero_()
+                elif isinstance(mod, CLIPVisionTower):
+                    mod.class_embedding.copy_(randn(mod.class_embedding.shape) * 0.02)
+                    mod.position_embedding.copy_(randn(mod.position_embedding.shape) * 0.02)
+        if conditioner:
+            lv = parts["cond"].learnable_vector
+            lv.copy_(randn(lv.shape))
     return {name: part.state_dict() for name, part in parts.items()}
