@@ -12,7 +12,11 @@ Phases, one line each:
      the card, with the stated tolerance, its time, the plain version's time,
      the time of one PyTorch library call computing the same function (where
      one exists) and the card's bound: K1-K3 at the shapes the swap path
-     gives them, K4-K6 (the training attention) at the training shapes;
+     gives them, K4-K6 (the training attention) at the training shapes, K7-K9
+     (the rest of ``vface_tpu.ops``' kernels): K7 at the training shapes, K8
+     at fp32 up to the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4
+     feed-forward (M = 3072, C = 1280) beside the unfused route the UNet takes
+     there;
   4. swap: ``VideoSwapPipeline.swap_window`` at the SD-v1 inpainting widths
      (512^2, latent 64^2, bf16) on a 6-frame window with a random flow and
      seeded random weights, 50 inversion and 50 sampling steps (after a
@@ -23,21 +27,34 @@ Phases, one line each:
      and with their plain versions swapped in, relative L2 error; and the
      tiny fp32 config's swap_window on the card against the same call on the
      CPU (the one the tests hold to the JAX package);
-  6. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
+  6. ops: the ``vface_torch.ops`` entry points at full width, counters reset
+     first: ``flash_attention_v2`` forward and backward at the training shapes
+     (K7, then K6 and K5; gradients against the plain versions under the
+     precision gate), ``flash_attention_v1`` at the N = 16384 site and
+     ``flash_attention`` on fp32 operands (K8), ``geglu_ff_wide`` at ds4 (K9),
+     and one full-width UNet eval on the 3-chunk window batch per fusion mode
+     added by the slice (replace, temporal, adain, mix, fft_vfixed), each
+     against the same eval with the plain versions;
+  7. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
      at full width, batch 1 at 512^2, the reference operating point (4-step
      DDIM reconstruction with the ArcFace ID loss, LPIPS off), CLIP ViT-L/14
      and IRSE50 in the conditioner: one warm-up step and 5 timed steps, ms per
      step, peak memory, the loss terms and the kernels' launches per step;
-  7. train_reference: one full-width step's UNet gradients with the kernels
+  8. train_reference: one full-width step's UNet gradients with the kernels
      and with their plain versions, relative L2 error, and every trainable
      group's gradient finite and non-zero; the tiny fp32 ``p_losses_face``
      and its gradients on the card against the CPU;
-  8. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
-     sampling UNet eval, of one train step;
-  9. the card line, the ``kernels`` JSON line, then the result line.
+  9. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
+     sampling UNet eval (and the device time of its wide feed-forward sites,
+     on the unfused route and on the route they took before it), of one
+     train step;
+ 10. the card line, the ``kernels`` JSON line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (the port's float32 ops,
-the FSAI circulant and the warp, run in full float32).
+the FSAI circulant and the warp, run in full float32), and so are cuBLAS's
+reduced-precision bf16 reductions: the JAX package's bf16 products (the
+unfused feed-forward at the wide sites) accumulate in fp32, and a split-K
+reduction in bf16 would add a rounding that the reference does not have.
 
 Exits non-zero, printing no result, without CUDA or without the port.
 Imports nothing of JAX or of the JAX package.
@@ -248,11 +265,14 @@ TRAIN_KERNELS = ("flash_attention_stats", "flash_attention_fp32", "flash_attenti
                  "flash_attention_bwd_dkv", "geglu_ff", "gn_sums")
 
 
+OPS_KERNELS = ("flash_attention_v2_stats", "flash_attention_v1", "geglu_ff_wide")
+
+
 def kernel_counts() -> dict:
     """Every kernel's launches since the last reset, by name."""
     from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
 
-    return {**FA.LAUNCHES, "geglu_ff": FF.LAUNCHES, "gn_sums": GN.LAUNCHES}
+    return {**FA.LAUNCHES, "geglu_ff": FF.LAUNCHES, "geglu_ff_wide": FF.WIDE_LAUNCHES, "gn_sums": GN.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -261,6 +281,7 @@ def reset_counts() -> None:
     for name in FA.LAUNCHES:
         FA.LAUNCHES[name] = 0
     FF.LAUNCHES = 0
+    FF.WIDE_LAUNCHES = 0
     GN.LAUNCHES = 0
 
 
@@ -407,9 +428,30 @@ def phase_reference(model, frames: int, seed: int) -> None:
         raise SystemExit("chip_smoke: the kernel path disagrees with the plain path at full width")
 
 
+def _wide_ff_ranges(model):
+    """A profiler range named ``wide_ff`` around every feed-forward that does not
+    take the fused kernel (ds4 and the middle block), through module hooks;
+    returns the hooks' handles."""
+    import torch
+
+    from vface_torch.models.unet import FeedForward
+
+    def enter(mod, args):
+        mod._range = torch.profiler.record_function("wide_ff")
+        mod._range.__enter__()
+
+    def leave(mod, args, out):
+        mod._range.__exit__(None, None, None)
+
+    wide = [m for m in model.unet.modules() if isinstance(m, FeedForward) and not m.use_fused]
+    return [h for m in wide for h in (m.register_forward_pre_hook(enter), m.register_forward_hook(leave))]
+
+
 def phase_profile(model, frames: int, seed: int, path: str) -> None:
     """CUDA time by kernel for one 2-chunk sampling UNet eval at full width
-    (torch.profiler); the top rows are printed, the whole table goes to ``path``."""
+    (torch.profiler); the top rows are printed, the whole table goes to ``path``.
+    The eval is profiled once more with a range around each wide feed-forward
+    site (the unfused route), reporting those sites' device time."""
     import os
 
     import torch
@@ -447,6 +489,16 @@ def phase_profile(model, frames: int, seed: int, path: str) -> None:
         device_busy=f"{total / wall_ms:.3f}", table=path)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
+
+    handles = _wide_ff_ranges(model)
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    sites = [e for e in prof.key_averages() if e.key == "wide_ff"]
+    log("profile_wide_ff", route="unfused", sites=sites[0].count if sites else 0,
+        device_ms=f"{sum(e.device_time_total for e in sites) / 1e3:.3f}")
 
 
 def phase_small_reference(seed: int) -> None:
@@ -573,6 +625,217 @@ def phase_train_kernels() -> dict:
             cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
             bound(10.0 * n2dh, 7 * act + 3 * stat), shape))
     return rows
+
+
+def phase_ops_kernels() -> dict:
+    """K7, K8 and K9 against their plain versions on the card; returns the rows.
+
+    K7 (bf16, K6's kernel with the stats epilogue) at the training shapes:
+    output equal to K6's bit for bit, m and l within 1e-5 relative, 2 bf16 ulps
+    against the plain version, and the precision gate. K8 at fp32 (1, 4096,
+    320) and at the 1024^2 ds1 site (1, 16384, 320), within 1e-5 of the
+    output's peak (fp32 summation order), and at bf16 (1, 4096, 320), within 2
+    ulps of K6's plain version (the same function). K9 at the ds4 feed-forward,
+    (3072, 1280) with I = 5120, within 2 bf16 ulps at the output's peak
+    against K2's plain version (K9 computes K2's function).
+
+    Bounds: K7's function at the bf16 tensor-core peak (as K6's row); K8's two
+    N^2-products at the 67 TFLOP/s fp32 peak for fp32 operands (fp32-accurate
+    products, which the tensor cores give only through multi-term splits) and
+    at the bf16 tensor-core peak for bf16 operands (K6's function, which K6
+    computes on the tensor cores); K9's 6*M*C*I at the bf16 peak, or each
+    one's bytes. Library: SDPA on fp32 inputs (K7, K8)."""
+    import torch
+    import torch.nn.functional as F
+
+    import vface_torch.ops as O
+    from vface_torch.ops import flash_attention as FA
+    from vface_torch.ops import geglu_ff as FF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    randn = lambda *s, dtype=torch.bfloat16, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(dtype)
+    rows = {"flash_attention_v2_stats": [], "flash_attention_v1": [], "geglu_ff_wide": []}
+    for n, c in ((4096, 320), (1024, 640)):
+        h, b = 8, 1
+        dh = c // h
+        q, k, v = randn(b, n, c), randn(b, n, c), randn(b, n, c)
+        shape = f"({b},{n},{c})h{h}"
+        out, m, l = FA.flash_attention_v2_stats(q, k, v, h)
+        want, wm, wl = FA.flash_attention_v2_stats_ref(q, k, v, h)
+        torch.cuda.synchronize()
+        rel_ml = max(((m - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(), ((l - wl).abs() / wl).max().item())
+        bitwise = torch.equal(out, FA.flash_attention_fp32(q, k, v, h))
+        log("kernel_v2_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05", equals_k6=bitwise)
+        if not (rel_ml <= 1e-5 and bitwise):
+            raise SystemExit("chip_smoke: flash_attention_v2_stats's m/l disagree or its output is not K6's")
+        precision_gate("flash_attention_v2_stats", shape, out, want, FA.flash_attention_stats_ref(q, k, v, h)[0])
+        split = lambda t: t.view(b, n, h, dh).transpose(1, 2).float()
+        qf, kf, vf = split(q), split(k), split(v)
+        rows["flash_attention_v2_stats"].append(_row(
+            "flash_attention_v2_stats", "cuda", "vface_torch/csrc/flash_attention_bwd.cu",
+            "vface_tpu/ops/pallas_attention.py:302", _errs(out, want),
+            ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
+            cuda_ms(lambda: FA.flash_attention_v2_stats(q, k, v, h)),
+            cuda_ms(lambda: FA.flash_attention_v2_stats_ref(q, k, v, h), reps=3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
+            bound(4.0 * b * h * n * n * dh, 4 * q.numel() * 2 + 2 * b * h * n * 4), shape))
+
+    for n, dtype in ((4096, torch.float32), (16384, torch.float32), (4096, torch.bfloat16)):
+        h, b, c = 8, 1, 320
+        dh = c // h
+        q, k, v = randn(b, n, c, dtype=dtype), randn(b, n, c, dtype=dtype), randn(b, n, c, dtype=dtype)
+        shape = f"({b},{n},{c})h{h}{'' if dtype == torch.float32 else ' bf16'}"
+        got = O.flash_attention_v1(q, k, v, h)
+        fast = n > 4096  # one timed launch of the slow plain version at N = 16384
+        if dtype == torch.float32:
+            plain = lambda: FA.flash_attention_v1_ref(q, k, v, h)
+            want = plain()
+            tol = ("rel", 1e-5)
+        else:  # bf16 operands: K6's function, held to K6's plain version
+            plain = lambda: FA.flash_attention_fp32_ref(q, k, v, h)
+            want = plain()
+            tol = ("abs", 2 * bf16_ulp(want.float().abs().max().item()))
+        torch.cuda.synchronize()
+        split = lambda t: t.view(b, n, h, dh).transpose(1, 2).float()
+        qf, kf, vf = split(q), split(k), split(v)
+        rows["flash_attention_v1"].append(_row(
+            "flash_attention_v1", "cuda", "vface_torch/csrc/flash_attention_f32.cu",
+            "vface_tpu/ops/pallas_attention.py:44", _errs(got, want), tol,
+            cuda_ms(lambda: O.flash_attention_v1(q, k, v, h), reps=3 if fast else 10),
+            cuda_ms(plain, reps=1 if fast else 3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf), reps=3 if fast else 10),
+            bound(4.0 * b * h * n * n * dh, 4 * q.numel() * q.element_size(),
+                  PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS), shape))
+        del q, k, v, qf, kf, vf, got, want
+
+    m, c = 12 * 256, 1280  # ds4 at the sampling batch: 2 chunks x 6 frames x 16^2 tokens
+    inner = 4 * c
+    args = (randn(m, c), randn(2 * inner, c, scale=c**-0.5), randn(2 * inner, scale=0.1),
+            randn(c, inner, scale=inner**-0.5), randn(c, scale=0.1))
+    got = O.geglu_ff_wide(*args)
+    want = FF.geglu_ff_ref(*args)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: O.geglu_ff_wide(*args))
+    unfused_ms = cuda_ms(lambda: FF.geglu_ff_unfused(*args))
+    rows["geglu_ff_wide"].append(_row(
+        "geglu_ff_wide", "cuda", "vface_torch/csrc/geglu_ff.cu", "vface_tpu/ops/pallas_ff.py:120",
+        _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())), ms,
+        cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=3, warmup=1), None,
+        bound(6.0 * m * c * inner, (2 * m * c + 3 * c * inner + 2 * inner + c) * 2), f"({m},{c})I{inner}"))
+    log("ff_route", site=f"ds4 ({m},{c})I{inner}", k9_ms=f"{ms:.4f}", unfused_ms=f"{unfused_ms:.4f}",
+        faster="k9" if ms < unfused_ms else "unfused", note="the UNet takes the unfused route, as JAX does")
+    return rows
+
+
+FUSION_MODES = ("replace", "temporal", "adain", "mix", "fft_vfixed")
+
+
+def phase_ops(model, frames: int, seed: int) -> dict:
+    """The ``vface_torch.ops`` entry points at full width; returns the launches.
+
+    flash_attention_v2 forward and backward with autograd at the training
+    shapes (bf16, batch 1), gradients against the plain path (2 ulps and the
+    precision gate); flash_attention_v1 at the N = 16384 fp32 site and the
+    port's flash_attention on fp32 operands (K8); geglu_ff_wide at ds4 with the
+    serving model's weights, against the unfused route; and one UNet eval on
+    the 3-chunk window batch (b = 18 at the 64^2 latent, bf16, kernels on) per
+    fusion mode, finite and within 3e-2 relative L2 of the plain path."""
+    import torch
+
+    import vface_torch.ops as O
+    from vface_torch.models.unet import InjectionSpec
+    from vface_torch.ops import flash_attention as FA
+    from vface_torch.ops import geglu_ff as FF
+    from vface_torch.ops.warp import resize_flow
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    randn = lambda *s, dtype=torch.bfloat16: torch.randn(s, generator=gen, device=dev).to(dtype)
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    reset_counts()
+
+    for n, c in ((4096, 320), (1024, 640)):
+        h = 8
+        shape = f"(1,{n},{c})h{h}"
+        leaves = [randn(1, n, c).requires_grad_(True) for _ in range(3)]
+        do = randn(1, n, c)
+        out = O.flash_attention_v2(*leaves, h)
+        out.backward(do)
+        got = [x.grad for x in leaves]
+        q, k, v = (x.detach() for x in leaves)
+        want_out, m, l = FA.flash_attention_v2_stats_ref(q, k, v, h)
+        dd = FA.rowsum_do_o(do, FA.flash_attention_fp32_ref(q, k, v, h), h)
+        want = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
+        yard = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h, round_p=True)
+        torch.cuda.synchronize()
+        ratios = [_errs(gi, wi)[0] / (2 * bf16_ulp(wi.float().abs().max().item())) for gi, wi in zip(got, want)]
+        log("ops_v2_grad", shape=shape, out_err_over_tol=f"{_errs(out, want_out)[0] / (2 * bf16_ulp(want_out.float().abs().max().item())):.3f}",
+            dq_dk_dv_err_over_tol=",".join(f"{r:.3f}" for r in ratios))
+        if not max(ratios) <= 1.0:
+            raise SystemExit("chip_smoke: flash_attention_v2's gradients disagree with the plain path")
+        for gname, gi, wi, yi in zip(("dq", "dk", "dv"), got, want, yard):
+            precision_gate(f"flash_attention_v2.{gname}", shape, gi, wi, yi)
+        del leaves, out, got, want, yard
+
+    q = randn(1, 16384, 320, dtype=torch.float32)
+    out = O.flash_attention_v1(q, q, q, 8)
+    want = FA.flash_attention_v1_ref(q, q, q, 8)
+    q4 = randn(1, 4096, 320, dtype=torch.float32)
+    with torch.inference_mode():
+        out4 = FA.flash_attention(q4, q4, q4, 8)  # the UNet's entry point on fp32 operands
+    want4 = FA.flash_attention_ref(q4, q4, q4, 8)
+    torch.cuda.synchronize()
+    e1, e4 = _errs(out, want)[1], _errs(out4, want4)[1]
+    log("ops_v1", site="(1,16384,320)h8 fp32", max_rel_err=f"{e1:.3e}", fp32_flash_attention_max_rel_err=f"{e4:.3e}",
+        tol="1e-05")
+    if not (e1 <= 1e-5 and e4 <= 1e-5):
+        raise SystemExit("chip_smoke: K8 on the ops path disagrees with its plain version")
+    del q, out, want, q4, out4, want4
+
+    ff = model.unet.in_2_0_attn.block_0.ff  # a ds4 feed-forward, C = 1280
+    dt = torch.bfloat16
+    x = randn(2 * frames * 256, ff.proj_out.weight.shape[0])
+    w = (ff.geglu.proj.weight.to(dt), ff.geglu.proj.bias.to(dt), ff.proj_out.weight.to(dt), ff.proj_out.bias.to(dt))
+    with torch.inference_mode():
+        wide, unfused = O.geglu_ff_wide(x, *w), FF.geglu_ff_unfused(x, *w)
+    torch.cuda.synchronize()
+    e_ff = rel(wide, unfused)
+    log("ops_ff_wide", site=f"ds4 {tuple(x.shape)}", rel_l2_vs_unfused=f"{e_ff:.3e}", tol=3e-2)
+    if not e_ff <= 3e-2:
+        raise SystemExit("chip_smoke: K9 disagrees with the unfused route at ds4")
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    hl, d = model.cfg.latent_size, model.cfg.unet.context_dim
+    b = 3 * frames
+    x9 = torch.randn((b, hl, hl, 9), generator=g, device="cuda")
+    ts = torch.full((b,), 961, device="cuda")
+    ctx = torch.randn((b, 1, d), generator=g, device="cuda")
+    flow = resize_flow(window_inputs(model, frames, seed)["flow"], hl, hl)
+    for mode in FUSION_MODES:
+        inj = InjectionSpec(input_blocks=O.FusionConfig(mode), chunks=3)
+        run = lambda: model.apply_model(x9, ts, ctx, flow=flow, injection=inj)
+        with torch.inference_mode():
+            eps_k = run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eps_k = run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            with plain_kernels():
+                eps_p = run()
+        err = rel(eps_k, eps_p)
+        finite = bool(torch.isfinite(eps_k).all())
+        log("ops_unet", mode=mode, batch=b, ms_per_eval=f"{ms:.1f}", eps_rel_l2_vs_plain=f"{err:.3e}", tol=3e-2,
+            finite=finite)
+        if not (finite and err <= 3e-2):
+            raise SystemExit(f"chip_smoke: the full-width UNet in fusion mode {mode} disagrees with its plain path")
+    launches = kernel_counts()
+    log("ops_launches", **launches)
+    missing = [k for k in OPS_KERNELS if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: the ops path launched no {missing} kernel")
+    return launches
 
 
 def train_batch(model, batch: int, seed: int, device="cuda") -> dict:
@@ -782,8 +1045,8 @@ def kernels_line(rows: dict, launches: dict) -> dict:
     """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
 
     ``launches`` is each kernel's count over its main path's run (K1-K3 the
-    swap window, K4-K6 the timed train steps); K5's two kernels launch
-    together, and its entry carries the dQ kernel's count."""
+    swap window, K4-K6 the timed train steps, K7-K9 the ops phase); K5's two
+    kernels launch together, and its entry carries the dQ kernel's count."""
     out = []
     for name, sites in rows.items():
         head = dict(sites[0])
@@ -807,13 +1070,16 @@ def main() -> int:
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase_build()
     rows = phase_kernels(batch=2 * FRAMES, vae_batch=FRAMES)
     rows.update(phase_train_kernels())
+    rows.update(phase_ops_kernels())
     model = build_model(SEED)
     launches = phase_swap(model, FRAMES, DDIM_STEPS, INVERSION_STEPS, SEED)
     phase_reference(model, FRAMES, SEED)
     phase_small_reference(SEED)
+    ops_launches = phase_ops(model, FRAMES, SEED)
     if args.profile:
         phase_profile(model, FRAMES, SEED, args.profile)
     del model  # serving's model has no conditioner; training builds its own
@@ -824,6 +1090,7 @@ def main() -> int:
     if args.profile_train:
         phase_profile_train(model, SEED, args.profile_train)
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
+    launches.update({k: ops_launches[k] for k in OPS_KERNELS})
     print(smi, flush=True)
     print(json.dumps(kernels_line(rows, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

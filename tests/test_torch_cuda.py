@@ -156,7 +156,8 @@ def test_gradients_flow_through_every_wrapper(gen):
     torch.cuda.synchronize()
     assert {k: FA.LAUNCHES[k] - before[k] for k in before} == {
         "flash_attention": 0, "flash_attention_stats": 1, "flash_attention_fp32": 1,
-        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1, "flash_attention_v2_stats": 0,
+        "flash_attention_v1": 0}
     grads = [x.grad for x in leaves]
     for x in leaves:
         x.grad = None
@@ -192,3 +193,113 @@ def test_gradients_flow_through_every_wrapper(gen):
     assert GN.LAUNCHES == before_gn + 1
     want = (w1[:, :, None, None] + 2.0 * x.detach().float() * w2[:, :, None, None]).to(torch.bfloat16)
     assert torch.equal(x.grad, want)
+
+
+def _rand(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("nq,nk,heads,dh,dtype", [
+    (300, 300, 2, 40, torch.float32), (130, 70, 3, 16, torch.float32), (257, 1000, 2, 80, torch.float32),
+    (64, 200, 4, 32, torch.float32), (300, 130, 2, 40, torch.bfloat16), (1024, 1024, 8, 80, torch.bfloat16)])
+def test_flash_attention_v1_kernel(gen, nq, nk, heads, dh, dtype):
+    """K8 (ragged Nq and Nk, Nq != Nk, every head width) vs its plain version
+    over the same fp32 math: fp32 within 1e-5 of the output's peak (summation
+    order only); bf16 within 2 bf16 ulps (both round the same fp32 value once)."""
+    q, k, v = _rand(gen, 2, nq, heads * dh, dtype=dtype), *(_rand(gen, 2, nk, heads * dh, dtype=dtype) for _ in "kv")
+    before = FA.LAUNCHES["flash_attention_v1"]
+    got = FA._flash_attention_v1(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_v1"] == before + 1 and got.dtype == dtype
+    want = FA.flash_attention_v1_ref(q, k, v, heads)
+    tol = 1e-5 * want.float().abs().max().item() if dtype == torch.float32 else _ulps(want)
+    assert (got.float() - want.float()).abs().max() <= tol
+
+
+@pytest.mark.parametrize("n,heads,dh,dtype", [(300, 2, 40, torch.bfloat16), (130, 3, 16, torch.bfloat16),
+                                              (300, 2, 80, torch.bfloat16), (300, 2, 40, torch.float32),
+                                              (130, 3, 32, torch.float32)])
+def test_flash_attention_v2_stats_kernel(gen, n, heads, dh, dtype):
+    """K7: bf16, K6's output bit for bit; fp32, K8's. Against the plain version:
+    out within 2 bf16 ulps (bf16) or 1e-5 of its peak (fp32), m and l within
+    1e-5 relative."""
+    q, k, v = (_rand(gen, 2, n, heads * dh, dtype=dtype) for _ in range(3))
+    before = FA.LAUNCHES["flash_attention_v2_stats"]
+    out, m, l = FA.flash_attention_v2_stats(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_v2_stats"] == before + 1
+    same = FA.flash_attention_fp32 if dtype == torch.bfloat16 else FA._flash_attention_v1
+    assert torch.equal(out, same(q, k, v, heads))
+    want, wm, wl = FA.flash_attention_v2_stats_ref(q, k, v, heads)
+    tol = _ulps(want) if dtype == torch.bfloat16 else 1e-5 * want.float().abs().max().item()
+    assert (out.float() - want.float()).abs().max() <= tol
+    assert ((m - wm).abs() / wm.abs().clamp(min=1e-30)).max() <= 1e-5
+    assert ((l - wl).abs() / wl).max() <= 1e-5
+
+
+def test_flash_attention_v2_gradients_and_fp32_route(gen):
+    """v2 with a gradient: K7 forward, K6 + K5 backward, the same gradients as
+    the plain path within 2 ulps. The port's flash_attention on fp32 operands
+    without a gradient launches K8 (v5's function at fp32)."""
+    heads, dh, n = 2, 40, 300
+    leaves = [_randn(gen, 1, n, heads * dh).requires_grad_(True) for _ in range(3)]
+    do = _randn(gen, 1, n, heads * dh)
+    before = dict(FA.LAUNCHES)
+    FA.flash_attention_v2(*leaves, heads, 300, 300).backward(do)
+    torch.cuda.synchronize()
+    assert {k: FA.LAUNCHES[k] - before[k] for k in before} == {
+        "flash_attention": 0, "flash_attention_stats": 0, "flash_attention_fp32": 1, "flash_attention_v2_stats": 1,
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1, "flash_attention_v1": 0}
+    grads = [x.grad for x in leaves]
+    for x in leaves:
+        x.grad = None
+    FA._FlashAttention.apply(*leaves, heads, True, FA.flash_attention_v2_stats_ref).backward(do)
+    for got, x in zip(grads, leaves):
+        assert (got.float() - x.grad.float()).abs().max() <= _ulps(x.grad)
+    q = _rand(gen, 2, 256, heads * dh)
+    with torch.no_grad():
+        got = FA.flash_attention(q, q, q, heads)
+    assert FA.LAUNCHES["flash_attention_v1"] == before["flash_attention_v1"] + 1
+    want = FA.flash_attention_ref(q, q, q, heads)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("m,c", [(3072, 1280), (1000, 1024), (17, 1280)])
+def test_geglu_ff_wide_kernel(gen, m, c):
+    """K9, ragged M, against K2's plain version (K9 computes K2's function):
+    2 bf16 ulps at the output's peak, the final rounding plus a flipped
+    bf16 intermediate."""
+    inner = 4 * c
+    args = (_randn(gen, m, c), _randn(gen, 2 * inner, c, scale=c**-0.5),
+            _randn(gen, 2 * inner, scale=0.1), _randn(gen, c, inner, scale=inner**-0.5), _randn(gen, c, scale=0.1))
+    before = FF.WIDE_LAUNCHES
+    got = FF.geglu_ff_wide(*args)
+    torch.cuda.synchronize()
+    assert FF.WIDE_LAUNCHES == before + 1
+    want = FF.geglu_ff_ref(*args).float()
+    assert (got.float() - want).abs().max() <= _ulps(want)
+
+
+def test_new_wrappers_refuse_what_their_kernels_do_not_take(gen):
+    """Widths without an instantiation, dtypes, and gradients: raise, never fall back."""
+    q = _rand(gen, 1, 64, 2 * 24)  # dh 24: K8 is built for 16, 32, 40, 80
+    with pytest.raises(ValueError, match="must be one of"):
+        FA.flash_attention_v1(q, q, q, 2)
+    h = _rand(gen, 1, 64, 2 * 40, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        FA.flash_attention_v1(h, h, h, 2)
+    b = _randn(gen, 1, 64, 80)
+    with pytest.raises(ValueError, match="k must be"):  # K7 at bf16 is self-attention
+        FA.flash_attention_v2_stats(b, b[:, :32], b[:, :32], 2)
+    g = _rand(gen, 1, 64, 80).requires_grad_(True)
+    for fn in (FA.flash_attention_v1, FA.flash_attention_v2, FA.flash_attention):
+        with pytest.raises(ValueError, match="gradient"):
+            fn(g, g, g, 2)
+    args = [_randn(gen, 32, 768), _randn(gen, 6144, 768), _randn(gen, 6144), _randn(gen, 768, 3072),
+            _randn(gen, 768)]
+    with pytest.raises(ValueError, match="must be one of"):
+        FF.geglu_ff_wide(*args)
+    args = [_randn(gen, 32, 1024).requires_grad_(True), _randn(gen, 8192, 1024), _randn(gen, 8192),
+            _randn(gen, 1024, 4096), _randn(gen, 1024)]
+    with pytest.raises(ValueError, match="gradient"):
+        FF.geglu_ff_wide(*args)

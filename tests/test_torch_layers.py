@@ -156,7 +156,7 @@ def test_align_by_flow(with_mask):
     mask = np.asarray([1.0, 0.0, 1.0], np.float32) if with_mask else None
     want = JW.align_by_flow(jnp.asarray(x), jnp.asarray(flow), 0.8,
                             pair_mask=None if mask is None else jnp.asarray(mask))
-    got = TW.align_by_flow(t(x), t(flow), 0.8, None if mask is None else t(mask))
+    got = TW.align_by_flow(t(x), t(flow), 0.8, pair_mask=None if mask is None else t(mask))
     close(got, want, atol=1e-5)
 
 
@@ -192,8 +192,8 @@ def test_fuse_qkv(mode, chunks, replace, masked):
     tc = TA.FusionConfig(mode, flow_tokens=n, two_chunk_replace=replace)
     jq, jk, jv, _ = JA.fuse_qkv(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jc, chunks=chunks,
                                 flow=jnp.asarray(flow), pair_mask=None if mask is None else jnp.asarray(mask))
-    tq, tk, tv = TA.fuse_qkv(t(q), t(k), t(v), tc, chunks=chunks, flow=t(flow),
-                             pair_mask=None if mask is None else t(mask))
+    tq, tk, tv, _ = TA.fuse_qkv(t(q), t(k), t(v), tc, chunks=chunks, flow=t(flow),
+                                pair_mask=None if mask is None else t(mask))
     for got, want in ((tq, jq), (tk, jk), (tv, jv)):
         close(got, want, atol=2e-5)
 

@@ -60,10 +60,12 @@ def test_state_dict_walk_is_exact(bundles):
     assert torch.equal(tm.unet.in_0_0_attn.block_0.ff.geglu.proj.weight, t(np.asarray(w).T))
 
 
-@pytest.mark.parametrize("chunks,mode", [(3, "none"), (3, "flow_fix"), (2, "fft"), (2, "flow_fix")])
+@pytest.mark.parametrize("chunks,mode", [(3, "none"), (3, "flow_fix"), (2, "fft"), (2, "flow_fix"),
+                                         (3, "fft_vfixed")])
 def test_unet_matches_jax(bundles, chunks, mode):
     """3 chunks: the literal [uncond, cond, recon] batch. 2 chunks: the
-    recon-free semantics (two_chunk_replace=False, fusion applied to chunk 1)."""
+    recon-free semantics (two_chunk_replace=False, fusion applied to chunk 1).
+    fft_vfixed also pins each chunk's v to its first frame's at every site."""
     got, want = _eps(bundles, chunks, mode)
     close(got, want, atol=2e-5)
 

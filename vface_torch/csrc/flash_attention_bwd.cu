@@ -1,10 +1,17 @@
 // Flash self-attention for training on Hopper (sm_90a): the fp32-P forward
-// that the backward recomputes (K6) and the two backward kernels (K5).
+// that the backward recomputes (K6), its stats instantiation (K7) and the two
+// backward kernels (K5).
 //
 // Replaces, in vface_tpu/ops/pallas_attention.py:
 //   * _flash_v2_impl (_flash_kernel_v2): attention with fp32 operands, P not
 //     rounded, out = (sum_j exp(s - m) v_j) / l rounded once to the input
 //     dtype. flash_attention_bwd calls it to recompute O for D = rowsum(dO*O);
+//   * _flash_v2_stats (_flash_kernel_v2_stats), the forward of
+//     flash_attention_v2's VJP: the STATS instantiation of the same kernel,
+//     which also writes each row's final m and l in fp32 to (B*H, N). Only the
+//     epilogue differs, so its output is K6's bit for bit (bf16 operands; the
+//     fp32-operand case is K8's kernel with the same epilogue, in
+//     flash_attention_f32.cu);
 //   * flash_attention_bwd's two kernels, _flash_bwd_dq_kernel (dQ, grid over
 //     query tiles, a loop over keys) and _flash_bwd_dkv_kernel (dK and dV,
 //     grid over key tiles, a loop over queries). Both recompute
@@ -167,12 +174,14 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, long
   }
 }
 
-// ---- K6: forward with P kept at fp32 precision in P.V
-template <int DHP>
+// ---- K6: forward with P kept at fp32 precision in P.V; STATS (K7) also
+// writes each row's final m and l, leaving the output bit for bit as it is
+template <int DHP, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_fp32p_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int n,
-                       int heads, int dh, float scale) {
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ m_out, float* __restrict__ l_out, int n, int heads,
+                       int dh, float scale) {
   constexpr int QS = DHP + 8;
   constexpr int DT = DHP / 8;
   __shared__ __align__(16) __nv_bfloat16 sk[kBlock * QS];  // Q, then each K tile
@@ -254,7 +263,19 @@ flash_fwd_fp32p_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     acc[d][2] /= l1;
     acc[d][3] /= l1;
   }
-  store_rows<DHP>(o, head_off, tok, q0 + wr + g, n, dh, acc, 1.f, 1.f, t4);
+  const int r0 = q0 + wr + g, r1 = r0 + 8;
+  store_rows<DHP>(o, head_off, tok, r0, n, dh, acc, 1.f, 1.f, t4);
+  if (STATS && t4 == 0) {  // the quad's four lanes hold the same m and l
+    const long long st = (long long)bh * n;
+    if (r0 < n) {
+      m_out[st + r0] = m0;
+      l_out[st + r0] = l0;
+    }
+    if (r1 < n) {
+      m_out[st + r1] = m1;
+      l_out[st + r1] = l1;
+    }
+  }
 }
 
 // ---- K5 part 1: dQ for one 64-row query tile, looping over key tiles
@@ -393,19 +414,24 @@ struct Args {
   const __nv_bfloat16 *q, *k, *v, *dout;
   const float *m, *l, *dd;
   __nv_bfloat16 *o, *dq, *dk, *dv;
+  float *m_out, *l_out;
   int b, n, heads, dh;
   float scale;
 };
 
-enum Which { kFwdFp32P, kBwdDq, kBwdDkv };
+enum Which { kFwdFp32P, kFwdFp32PStats, kBwdDq, kBwdDkv };
 
 template <int DHP>
 void launch(Which which, const Args& a, cudaStream_t stream) {
   dim3 grid((a.n + kBlock - 1) / kBlock, a.b * a.heads);
   switch (which) {
     case kFwdFp32P:
-      flash_fwd_fp32p_kernel<DHP><<<grid, kThreads, 0, stream>>>(a.q, a.k, a.v, a.o, a.n,
-                                                                   a.heads, a.dh, a.scale);
+      flash_fwd_fp32p_kernel<DHP, false><<<grid, kThreads, 0, stream>>>(
+          a.q, a.k, a.v, a.o, nullptr, nullptr, a.n, a.heads, a.dh, a.scale);
+      break;
+    case kFwdFp32PStats:
+      flash_fwd_fp32p_kernel<DHP, true><<<grid, kThreads, 0, stream>>>(
+          a.q, a.k, a.v, a.o, a.m_out, a.l_out, a.n, a.heads, a.dh, a.scale);
       break;
     case kBwdDq:
       flash_bwd_dq_kernel<DHP><<<grid, kThreads, 0, stream>>>(
@@ -457,6 +483,19 @@ extern "C" int vface_flash_attention_fp32p_bf16(const void* q, const void* k, co
   Args a = args(q, k, v, b, n, heads, dh, scale);
   a.o = static_cast<__nv_bfloat16*>(o);
   return dispatch(kFwdFp32P, a, stream);
+}
+
+// K7: K6 that also writes m, l: (b * heads, n) fp32, each row's final running
+// max of the scaled scores and softmax denominator; o is K6's bit for bit.
+extern "C" int vface_flash_attention_fp32p_stats_bf16(const void* q, const void* k, const void* v,
+                                                      void* o, void* m, void* l, int b, int n,
+                                                      int heads, int dh, float scale,
+                                                      void* stream) {
+  Args a = args(q, k, v, b, n, heads, dh, scale);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.m_out = static_cast<float*>(m);
+  a.l_out = static_cast<float*>(l);
+  return dispatch(kFwdFp32PStats, a, stream);
 }
 
 // K5, dQ: m, l from the stats forward, dd = rowsum(dO * O) per head and row.

@@ -1,4 +1,4 @@
-// Fused GEGLU feed-forward for Hopper (sm_90a), bf16.
+// Fused GEGLU feed-forward for Hopper (sm_90a), bf16: K2, and K9 for wide C.
 //
 // Replaces vface_tpu/ops/pallas_ff.py::geglu_ff (_ff_kernel via _pallas_impl):
 //
@@ -25,6 +25,23 @@
 // The (M, I) intermediate never reaches device memory. Weights are read
 // through the L1/L2 caches by every CTA (they are 0.8 and 3.3 MB).
 //
+// K9, the wide sites. Also replaces vface_tpu/ops/pallas_ff.py::
+// _pallas_impl_wide (_ff_kernel_wide): the same function at C > 768, with the
+// second product accumulated in fp32 across inner blocks and rounded once,
+// which is what the kernel above does for every C (so K9 equals K2 up to fp32
+// summation order). The TPU kernel blocks the inner dimension because the
+// weights (3*C*4C bf16: 39 MB at C = 1280) do not fit VMEM; here they never
+// had to, and what does not carry over is the tile: 8 warps each owning C/8
+// output columns over a 32-row tile would need 160 fp32 accumulators per
+// thread at C = 1280 and an 82 KB x tile. K9 is the same kernel on 16-row
+// tiles (MT = 1): 80 accumulators per thread (C = 1280), a 41 KB x tile, and
+// at the ds4 site (M = 3072) 192 CTAs for the 132 SMs. What bounds it: at
+// M = 3072, C = 1280, I = 5120 the products are 0.12 ms of tensor-core work,
+// but every 16-row CTA re-reads all 39 MB of weights through L2 (7.5 GB in
+// all at M = 3072), so L2 bandwidth, not the tensor cores, sets its pace. The
+// UNet keeps these sites on the unfused cuBLAS path, as the JAX package does,
+// until the card's times say otherwise.
+//
 // Later work: larger row tiles or a persistent schedule to cut the weight
 // re-reads, cp.async/TMA staging of the weight chunks, wgmma.
 
@@ -35,7 +52,6 @@
 
 namespace {
 
-constexpr int kTM = 32;        // rows of x per CTA (two m16 tiles)
 constexpr int kIC = 128;       // inner columns per chunk (16 per warp)
 constexpr int kThreads = 256;  // 8 warps
 
@@ -69,7 +85,9 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.7071067811865476f));
 }
 
-template <int NT>  // C = 64 * NT; each warp owns NT n8 tiles of the output
+// C = 64 * NT: each warp owns NT n8 tiles of the output; a CTA owns MT m16
+// row tiles (K2: 32 rows, K9: 16)
+template <int NT, int MT>
 __global__ void __launch_bounds__(kThreads)
 geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ wp,
@@ -78,6 +96,7 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ bo,
                      __nv_bfloat16* __restrict__ out, int m, int inner) {
   constexpr int C = 64 * NT;
+  constexpr int kTM = 16 * MT;
   constexpr int XS = C + 8;    // x tile row stride (elements)
   constexpr int HS = kIC + 8;  // a*g chunk row stride
   constexpr int XV = C / 8;    // 16-byte vectors per x row
@@ -99,9 +118,9 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
   __syncthreads();
 
-  float oacc[2][NT][4];
+  float oacc[MT][NT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int j = 0; j < NT; ++j) oacc[mt][j][0] = oacc[mt][j][1] = oacc[mt][j][2] = oacc[mt][j][3] = 0.f;
   const int ocol0 = warp * (C / 8);
@@ -109,18 +128,18 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   for (int ch = 0; ch < inner; ch += kIC) {
     // ---- gate and A products for this warp's 16 inner columns of the chunk
     const int ic0 = ch + warp * 16;
-    float ga[2][2][4], aa[2][2][4];
+    float ga[MT][2][4], aa[MT][2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) ga[mt][j][e] = aa[mt][j][e] = 0.f;
 #pragma unroll 4
     for (int kc = 0; kc < C / 16; ++kc) {
-      uint32_t af[2][4];
+      uint32_t af[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const __nv_bfloat16* p = xs + (mt * 16 + g) * XS + kc * 16 + t4 * 2;
         af[mt][0] = ld_u32(p);
         af[mt][1] = ld_u32(p + 8 * XS);
@@ -134,7 +153,7 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         const uint32_t bg0 = ldg_u32(wg), bg1 = ldg_u32(wg + 8);
         const uint32_t ba0 = ldg_u32(wa), ba1 = ldg_u32(wa + 8);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
+        for (int mt = 0; mt < MT; ++mt) {
           mma_bf16_16816(ga[mt][j], af[mt], bg0, bg1);
           mma_bf16_16816(aa[mt][j], af[mt], ba0, ba1);
         }
@@ -148,7 +167,7 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       const __nv_bfloat16 bgt0 = bp[inner + icol], bgt1 = bp[inner + icol + 1];
       const __nv_bfloat16 bav0 = bp[icol], bav1 = bp[icol + 1];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int row = mt * 16 + g + half * 8;
@@ -165,9 +184,9 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     // ---- out += (a*g chunk) @ Wo[chunk, :] for this warp's C/8 columns
 #pragma unroll
     for (int kc = 0; kc < kIC / 16; ++kc) {
-      uint32_t af[2][4];
+      uint32_t af[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const __nv_bfloat16* p = hs + (mt * 16 + g) * HS + kc * 16 + t4 * 2;
         af[mt][0] = ld_u32(p);
         af[mt][1] = ld_u32(p + 8 * HS);
@@ -179,7 +198,7 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         const __nv_bfloat16* w = wo + (long long)(ocol0 + j * 8 + g) * inner + ch + kc * 16 + t4 * 2;
         const uint32_t b0 = ldg_u32(w), b1 = ldg_u32(w + 8);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(oacc[mt][j], af[mt], b0, b1);
+        for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(oacc[mt][j], af[mt], b0, b1);
       }
     }
     __syncthreads();  // the chunk buffer is rewritten next iteration
@@ -191,7 +210,7 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     const int col = ocol0 + j * 8 + t4 * 2;
     const __nv_bfloat16 b0 = bo[col], b1 = bo[col + 1];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = row0 + mt * 16 + g + half * 8;
@@ -204,16 +223,17 @@ geglu_ff_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int NT>
+template <int NT, int MT>
 int launch(const void* x, const void* wp, const void* bp, const void* wo, const void* bo,
            void* out, int m, int inner, cudaStream_t stream) {
   constexpr int C = 64 * NT;
+  constexpr int kTM = 16 * MT;
   const int smem = (kTM * (C + 8) + kTM * (kIC + 8)) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(geglu_ff_bf16_kernel<NT>,
+  cudaError_t err = cudaFuncSetAttribute(geglu_ff_bf16_kernel<NT, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (m + kTM - 1) / kTM;
-  geglu_ff_bf16_kernel<NT><<<grid, kThreads, smem, stream>>>(
+  geglu_ff_bf16_kernel<NT, MT><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wp),
       static_cast<const __nv_bfloat16*>(bp), static_cast<const __nv_bfloat16*>(wo),
       static_cast<const __nv_bfloat16*>(bo), static_cast<__nv_bfloat16*>(out), m, inner);
@@ -223,18 +243,32 @@ int launch(const void* x, const void* wp, const void* bp, const void* wo, const 
 }  // namespace
 
 // x: (m, c), wp: (2*inner, c), bp: (2*inner,), wo: (c, inner), bo: (c,), out: (m, c);
-// all bf16, contiguous, 16-byte aligned; c one of 320 and 640 (the UNet's ds1
-// and ds2 widths) or 64 (the tests), inner a multiple of 128. Returns
+// all bf16, contiguous, 16-byte aligned; inner a multiple of 128. Each returns
 // cudaGetLastError() after the launch.
+
+// K2: c one of 320 and 640 (the UNet's ds1 and ds2 widths) or 64 (the tests).
 extern "C" int vface_geglu_ff_bf16(const void* x, const void* wp, const void* bp,
                                    const void* wo, const void* bo, void* out, int m, int c,
                                    int inner, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (inner % kIC != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (c) {
-    case 64: return launch<1>(x, wp, bp, wo, bo, out, m, inner, st);
-    case 320: return launch<5>(x, wp, bp, wo, bo, out, m, inner, st);
-    case 640: return launch<10>(x, wp, bp, wo, bo, out, m, inner, st);
+    case 64: return launch<1, 2>(x, wp, bp, wo, bo, out, m, inner, st);
+    case 320: return launch<5, 2>(x, wp, bp, wo, bo, out, m, inner, st);
+    case 640: return launch<10, 2>(x, wp, bp, wo, bo, out, m, inner, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K9: c 1280 (the UNet's ds4 and middle-block width) or 1024 (the JAX test's).
+extern "C" int vface_geglu_ff_wide_bf16(const void* x, const void* wp, const void* bp,
+                                        const void* wo, const void* bo, void* out, int m, int c,
+                                        int inner, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (inner % kIC != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (c) {
+    case 1024: return launch<16, 1>(x, wp, bp, wo, bo, out, m, inner, st);
+    case 1280: return launch<20, 1>(x, wp, bp, wo, bo, out, m, inner, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -9,7 +9,9 @@ Self-attention sites route by token count: N >= 512 (ds1, N = 4096, dh = 40
 and ds2, N = 1024, dh = 80 at 512^2) go to the flash-attention kernels (K1
 without a gradient; K4 forward, K6 and K5 backward with one); smaller sites
 (ds4) to :func:`multi_head_attention`. The transformer feed-forward goes to
-the fused GEGLU kernel K2 at C <= 768 when ``use_fused_ff``.
+the fused GEGLU kernel K2 at C <= 768 when ``use_fused_ff``; every other
+feed-forward (C = 1280 at ds4 and in the middle block, or ``use_fused_ff``
+off) takes :func:`geglu_ff_unfused`, the JAX package's unfused path.
 
 ``use_remat`` checkpoints every ResBlock and SpatialTransformer, as the JAX
 module's ``nn.remat`` does (``torch.utils.checkpoint``, non-reentrant): their
@@ -18,7 +20,8 @@ forward twice per backward pass. It acts only where a gradient is being
 recorded.
 
 Not ported yet: the encoder cache, ``return_features``, the TSG conv
-injection, the dual 2x768 context and ``EncoderUNetModel``.
+injection, the dual 2x768 context, ``EncoderUNetModel``, and the cross-window
+FGATS carry through the sites (``FlowPack.prev``/``flow0`` raise).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from vface_torch.models.layers import (
 )
 from vface_torch.ops.attention import FlowPack, FusionConfig, fuse_qkv, multi_head_attention
 from vface_torch.ops.flash_attention import flash_attention
-from vface_torch.ops.geglu_ff import MAX_C as GEGLU_MAX_C, geglu_ff, geglu_ff_ref
+from vface_torch.ops.geglu_ff import MAX_C as GEGLU_MAX_C, geglu_ff, geglu_ff_unfused
 from vface_torch.utils.schedule import timestep_embedding
 
 NONE = FusionConfig("none")
@@ -107,10 +110,13 @@ class CrossAttention(nn.Module):
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if fusion.active:
             if isinstance(flow, FlowPack):
+                if flow.prev is not None or flow.flow0 is not None:
+                    raise ValueError("the cross-window FGATS carry (FlowPack.prev/flow0) is not "
+                                     "threaded through the port's UNet yet")
                 flow_arr, pair_mask = flow.flow, flow.pair_mask
             else:
                 flow_arr, pair_mask = flow, None
-            q, k, v = fuse_qkv(q, k, v, fusion, chunks=chunks, flow=flow_arr, pair_mask=pair_mask)
+            q, k, v, _ = fuse_qkv(q, k, v, fusion, chunks=chunks, flow=flow_arr, pair_mask=pair_mask)
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
         if self.use_flash and context is None and x.shape[1] >= FLASH_MIN_TOKENS:
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), self.heads)
@@ -128,7 +134,8 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """``proj_out(a * gelu_erf(gate))`` with ``[a | gate] = geglu.proj(x)``."""
+    """``proj_out(a * gelu_erf(gate))`` with ``[a | gate] = geglu.proj(x)``: the fused
+    kernel K2 at C <= 768 with ``use_fused``, else the unfused path, as in JAX."""
 
     def __init__(self, dim: int, mult: int = 4, dtype=torch.float32, use_fused: bool = False):
         super().__init__()
@@ -140,7 +147,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        fn = geglu_ff if self.use_fused else geglu_ff_ref
+        fn = geglu_ff if self.use_fused else geglu_ff_unfused
         return fn(x.to(dt).contiguous(), self.geglu.proj.weight.to(dt), self.geglu.proj.bias.to(dt),
                   self.proj_out.weight.to(dt), self.proj_out.bias.to(dt))
 

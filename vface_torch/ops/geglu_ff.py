@@ -1,6 +1,6 @@
-"""Fused GEGLU feed-forward (kernel K2): CUDA C++ for Hopper, ``csrc/geglu_ff.cu``.
+"""Fused GEGLU feed-forward (kernels K2 and K9): CUDA C++ for Hopper, ``csrc/geglu_ff.cu``.
 
-Replaces ``vface_tpu/ops/pallas_ff.py::geglu_ff`` (kernel ``_ff_kernel``):
+K2 replaces ``vface_tpu/ops/pallas_ff.py::geglu_ff`` (kernel ``_ff_kernel``):
 ``proj_out(a * gelu_erf(gate))`` with ``[a | gate] = proj(x)``, rounded to the
 compute dtype at the same four points as the TPU kernel:
 
@@ -19,9 +19,18 @@ memory sees x, the weights and the output only. See the source for the tiling.
 version :func:`geglu_ff_ref` for a CPU tensor. Where a gradient is needed it
 is differentiable with the JAX package's VJP (``pallas_ff.py::_geglu_ff_bwd``):
 the forward is the kernel, the backward autograd through
-:func:`geglu_ff_vjp_ref`, a copy of the unfused ``_ref_impl`` (one 2I-wide
+:func:`geglu_ff_unfused`, a copy of the unfused ``_ref_impl`` (one 2I-wide
 product, the bias added in the compute dtype, ``a * gelu(gate)``), not through
 the kernel's split rounding.
+
+K9 :func:`geglu_ff_wide` replaces ``pallas_ff.py::_pallas_impl_wide`` (kernel
+``_ff_kernel_wide``): K2's function at the wide sites (C = 1280 at ds4 and in
+the middle block), the second product accumulated in fp32 over the whole
+inner dimension and rounded once. The JAX package keeps it unwired and sends
+C > 768 to ``_ref_impl``; so does the port's UNet, through
+:func:`geglu_ff_unfused` (bf16 products with fp32 accumulation on the card),
+until the card's times decide otherwise. JAX defines no VJP for it: on the
+card a call that needs a gradient raises.
 """
 
 from __future__ import annotations
@@ -33,11 +42,14 @@ import torch
 from vface_torch.ops import _native
 from vface_torch.ops._autograd import needs_grad
 
-MAX_C = 768  # the JAX package's routing: wider sites (ds4, C = 1280) take the plain version
-WIDTHS = (64, 320, 640)  # the kernel's instantiations: ds1, ds2, and a small width for tests
+MAX_C = 768  # the JAX package's routing: wider sites (ds4, C = 1280) take the unfused path
+WIDTHS = (64, 320, 640)  # K2's instantiations: ds1, ds2, and a small width for tests
+WIDE_WIDTHS = (1024, 1280)  # K9's: ds4 and the middle block, and the JAX test's width
 INNER_CHUNK = 128
 
-LAUNCHES = 0  # kernel launches since the last reset (read by chip_smoke.py)
+# kernel launches since the last reset (read by chip_smoke.py)
+LAUNCHES = 0  # K2
+WIDE_LAUNCHES = 0  # K9
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
@@ -68,10 +80,13 @@ def _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     return _mm(a * g, w_out) + b_out
 
 
-def geglu_ff_vjp_ref(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
-    """The function whose autograd is the backward (``pallas_ff.py::_ref_impl``):
-    ``h = x @ w_proj.T + b_proj`` rounded to x's dtype with the bias added in
-    it, ``a * gelu_erf(gate)`` with the GELU in float32, then the output product."""
+def geglu_ff_unfused(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
+    """The JAX package's unfused path (``pallas_ff.py::_ref_impl``, the GEGLU and
+    Dense modules): ``h = x @ w_proj.T + b_proj`` rounded to x's dtype with the
+    bias added in it, ``a * gelu_erf(gate)`` with the GELU in float32, then the
+    output product. Plain PyTorch, differentiable by autograd; it is the
+    backward of the fused wrappers and the route of every FeedForward that JAX
+    does not send to its fused kernel."""
     inner = w_proj.shape[0] // 2
     h = torch.matmul(x, w_proj.t()) + b_proj
     a, gate = h[..., :inner], h[..., inner:]
@@ -80,7 +95,7 @@ def geglu_ff_vjp_ref(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
 
 class _GegluFF(torch.autograd.Function):
     """Forward: the kernel (``plain``: its plain version); backward: autograd
-    through :func:`geglu_ff_vjp_ref` on the saved inputs."""
+    through :func:`geglu_ff_unfused` on the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, w_proj, b_proj, w_out, b_out, plain: bool):
@@ -93,7 +108,7 @@ class _GegluFF(torch.autograd.Function):
         wanted = [i for i in range(5) if ctx.needs_input_grad[i]]
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
-            out = geglu_ff_vjp_ref(*inputs)
+            out = geglu_ff_unfused(*inputs)
             grads = torch.autograd.grad(out, [inputs[i] for i in wanted], g)
         result = [None] * 6
         for i, gi in zip(wanted, grads):
@@ -109,31 +124,51 @@ def geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     return _geglu_ff(x, w_proj, b_proj, w_out, b_out)
 
 
-def _geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
-    global LAUNCHES
+def _launch(name: str, symbol: str, widths, x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     if not x.is_cuda:
-        raise ValueError(f"geglu_ff: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     c = x.shape[-1]
     inner = w_proj.shape[0] // 2
     shapes = {"w_proj": (2 * inner, c), "b_proj": (2 * inner,), "w_out": (c, inner), "b_out": (c,)}
-    for name, t in zip(shapes, (w_proj, b_proj, w_out, b_out)):
-        if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"geglu_ff: {name} has shape {tuple(t.shape)}, expected {shapes[name]}")
-    for name, t in (("x", x), ("w_proj", w_proj), ("b_proj", b_proj), ("w_out", w_out), ("b_out", b_out)):
+    for arg, t in zip(shapes, (w_proj, b_proj, w_out, b_out)):
+        if tuple(t.shape) != shapes[arg]:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shapes[arg]}")
+    for arg, t in (("x", x), ("w_proj", w_proj), ("b_proj", b_proj), ("w_out", w_out), ("b_out", b_out)):
         if t.dtype != torch.bfloat16 or t.device != x.device:
-            raise ValueError(f"geglu_ff: {name} must be bf16 on {x.device}")
+            raise ValueError(f"{name}: {arg} must be bf16 on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"geglu_ff: {name} must be contiguous and 16-byte aligned")
-    if c not in WIDTHS or inner % INNER_CHUNK:
-        raise ValueError(f"geglu_ff: C={c} must be one of {WIDTHS}, I={inner} a multiple of {INNER_CHUNK}")
-    fn = _native.function("geglu_ff", "vface_geglu_ff_bf16", _ARGTYPES)
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
+    if c not in widths or inner % INNER_CHUNK:
+        raise ValueError(f"{name}: C={c} must be one of {widths}, I={inner} a multiple of {INNER_CHUNK}")
+    fn = _native.function("geglu_ff", symbol, _ARGTYPES)
     x2 = x.reshape(-1, c)
     out = torch.empty_like(x2)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x2.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), w_out.data_ptr(),
              b_out.data_ptr(), out.data_ptr(), x2.shape[0], c, inner, stream)
-    _native.check(err, "geglu_ff")
-    LAUNCHES += 1
+    _native.check(err, name)
     return out.reshape(x.shape)
+
+
+def _geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
+    global LAUNCHES
+    out = _launch("geglu_ff", "vface_geglu_ff_bf16", WIDTHS, x, w_proj, b_proj, w_out, b_out)
+    LAUNCHES += 1
+    return out
+
+
+def geglu_ff_wide(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
+    """K9: GEGLU FF over x (..., C) at C in ``WIDE_WIDTHS``; the kernel on CUDA
+    (no gradient). K9 computes K2's function, so its plain version, used on the
+    CPU, is K2's: :func:`geglu_ff_ref`."""
+    if x.device.type == "cpu":
+        return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
+    if needs_grad(x, w_proj, b_proj, w_out, b_out):
+        raise ValueError("geglu_ff_wide: no gradient (the JAX package defines no VJP for "
+                         "_pallas_impl_wide); use geglu_ff_unfused")
+    global WIDE_LAUNCHES
+    out = _launch("geglu_ff_wide", "vface_geglu_ff_wide_bf16", WIDE_WIDTHS, x, w_proj, b_proj, w_out, b_out)
+    WIDE_LAUNCHES += 1
+    return out

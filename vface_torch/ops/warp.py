@@ -1,9 +1,16 @@
 """Flow warping for FGATS: bilinear grid sampling and frame alignment, NHWC, float32.
 
-Port of ``vface_tpu/ops/warp.py``'s ``grid_sample`` (the wide-channel
-four-gather form), ``warp_by_flow``, ``resize_flow`` and ``align_by_flow``.
-Flow is in pixel units with channels (dx, dy); ``flow[i]`` maps frame i+1's
-pixels back to frame i.
+Port of ``vface_tpu/ops/warp.py``: ``grid_sample``, ``warp_by_flow``,
+``resize_flow``, ``align_by_flow`` (with the cross-window ``prev0``/``flow0``
+and ``pair_mask``), the recurrent ``align_by_flow_chain``, the pixel-space
+``align_by_flow_high_res`` and ``batch_flow_align``, ``batch_flow_align_latent``
+and ``warp_from_video``. Flow is in pixel units with channels (dx, dy);
+``flow[i]`` maps frame i+1's pixels back to frame i.
+
+``grid_sample`` keeps one path, the four row gathers: JAX's small-C form (one
+gather over an edge-replicated 4-tap channel stack) is a TPU gather trick
+with bit-identical taps. Not ported: the frame-sharded ``align_by_flow_halo``
+(multi-GPU work).
 """
 
 from __future__ import annotations
@@ -75,18 +82,62 @@ def resize_flow(flow: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return resize_bilinear(flow, height, width) * scale
 
 
-def align_by_flow(
-    x: torch.Tensor, flow: torch.Tensor, alpha: float = 0.8, pair_mask: torch.Tensor = None
-) -> torch.Tensor:
+def align_by_flow(x: torch.Tensor, flow: torch.Tensor, alpha: float = 0.8, prev0: torch.Tensor = None,
+                  flow0: torch.Tensor = None, pair_mask: torch.Tensor = None) -> torch.Tensor:
     """FGATS blend over the frame (batch) axis.
 
     x: (F, H, W, C); flow: (F-1, H, W, 2). out[0] = x[0] and
     out[i+1] = alpha * x[i+1] + (1 - alpha) * warp(x[i], flow[i]).
-    ``pair_mask`` (F-1,) disables the blend where it is 0 (out[i+1] = x[i+1]).
+    ``prev0``/``flow0`` (both (1, H, W, .)) carry the chain across a window
+    boundary: frame 0 then blends with the warp of the previous window's last
+    frame. ``pair_mask`` (F-1,) disables the blend where it is 0 (out[i+1] = x[i+1]).
     """
     warped_prev = warp_by_flow(x[:-1], flow)
     blended = alpha * x[1:] + (1.0 - alpha) * warped_prev
     if pair_mask is not None:
         m = pair_mask.to(blended.dtype)[:, None, None, None]
         blended = m * blended + (1.0 - m) * x[1:]
-    return torch.cat([x[:1], blended.to(x.dtype)], dim=0)
+    if prev0 is not None and flow0 is not None:
+        w0 = warp_by_flow(prev0.to(x.dtype), flow0)
+        first = (alpha * x[:1] + (1.0 - alpha) * w0).to(x.dtype)
+    else:
+        first = x[:1]
+    return torch.cat([first, blended.to(x.dtype)], dim=0)
+
+
+def align_by_flow_chain(x: torch.Tensor, flow: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:
+    """Recurrent variant: out[i+1] = alpha * x[i+1] + (1 - alpha) * warp(out[i], flow[i])."""
+    outs = [x[0]]
+    for i in range(flow.shape[0]):
+        warped = warp_by_flow(outs[-1][None], flow[i : i + 1])[0]
+        outs.append(alpha * x[i + 1] + (1.0 - alpha) * warped)
+    return torch.stack(outs)
+
+
+def align_by_flow_high_res(x_latent: torch.Tensor, flow: torch.Tensor, decode_fn, encode_fn,
+                           alpha: float = 0.5) -> torch.Tensor:
+    """Pixel-space FGATS: decode the latents, blend each frame with the warp of
+    the previous decoded frame (flow at the decoded resolution), re-encode."""
+    imgs = decode_fn(x_latent)
+    warped_prev = warp_by_flow(imgs[:-1], flow)
+    blended = alpha * imgs[1:] + (1.0 - alpha) * warped_prev
+    return encode_fn(torch.cat([imgs[:1], blended], dim=0))
+
+
+def batch_flow_align(x_prev: torch.Tensor, flow: torch.Tensor, decode_fn, encode_fn,
+                     alpha: float = 0.0) -> torch.Tensor:
+    """Recurrent pixel-space chain: decode, :func:`align_by_flow_chain`, re-encode."""
+    return encode_fn(align_by_flow_chain(decode_fn(x_prev), flow, alpha))
+
+
+def batch_flow_align_latent(x_prev: torch.Tensor, flow_latent: torch.Tensor, alpha: float = 0.0) -> torch.Tensor:
+    """The recurrent chain applied to latents, flow at latent resolution."""
+    return align_by_flow_chain(x_prev, flow_latent, alpha)
+
+
+def warp_from_video(frames: torch.Tensor, flows: torch.Tensor) -> torch.Tensor:
+    """Propagate frame 0 through the flow chain: out[i+1] = warp(out[i], flows[i])."""
+    outs = [frames[0]]
+    for i in range(flows.shape[0]):
+        outs.append(warp_by_flow(outs[-1][None], flows[i : i + 1])[0])
+    return torch.stack(outs)
