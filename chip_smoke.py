@@ -11,23 +11,27 @@ Phases, one line each:
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, with the stated tolerance, its time, the plain version's time,
      the time of one PyTorch library call computing the same function (where
-     one exists) and the card's bound: K1-K3 at the shapes the swap path
-     gives them, K4-K6 (the training attention) at the training shapes, K7-K9
-     (the rest of ``vface_tpu.ops``' kernels): K7 at the training shapes, K8
-     at fp32 up to the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4
-     feed-forward (M = 3072, C = 1280) beside the unfused route the UNet takes
-     there;
-  4. swap: ``VideoSwapPipeline.swap_window`` at the SD-v1 inpainting widths
+     one exists; the unfused route for the GEGLU kernels) and the card's
+     bound: K1-K3 at the shapes the swap path gives them, K4-K6 (the training
+     attention) at the training shapes, K7-K9 (the rest of
+     ``vface_tpu.ops``' kernels): K7 at the training shapes, K8 at fp32 up to
+     the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4 feed-forward
+     (M = 3072, C = 1280); K10-K13 (the archived attention variants and the
+     GEGLU row-tile sweep) at the kernel benches' shapes;
+  4. bench: the kernel-bench entry points (``vface_torch.bench.attention``,
+     ``.attn_v56``, ``.ff_tile``) at their own shapes, K10-K13's main path,
+     with the launches of each kernel;
+  5. swap: ``VideoSwapPipeline.swap_window`` at the SD-v1 inpainting widths
      (512^2, latent 64^2, bf16) on a 6-frame window with a random flow and
      seeded random weights, 50 inversion and 50 sampling steps (after a
      2 + 2-step warm-up), with the wall time per stage and the kernels'
      launch counts over that run; the output is checked for shape, finite
      values and the [0, 1] range;
-  5. reference: one full-width UNet eval and one VAE decode with the kernels
-     and with their plain versions swapped in, relative L2 error; and the
-     tiny fp32 config's swap_window on the card against the same call on the
-     CPU (the one the tests hold to the JAX package);
-  6. ops: the ``vface_torch.ops`` entry points at full width, counters reset
+  6. reference: one full-width UNet eval and one VAE decode with the kernels
+     and with their plain versions swapped in, relative L2 error; the tiny
+     fp32 config's swap_window and swap_video_frames on the card against the
+     same calls on the CPU (the ones the tests hold to the JAX package);
+  7. ops: the ``vface_torch.ops`` entry points at full width, counters reset
      first: ``flash_attention_v2`` forward and backward at the training shapes
      (K7, then K6 and K5; gradients against the plain versions under the
      precision gate), ``flash_attention_v1`` at the N = 16384 site and
@@ -35,20 +39,25 @@ Phases, one line each:
      and one full-width UNet eval on the 3-chunk window batch per fusion mode
      added by the slice (replace, temporal, adain, mix, fft_vfixed), each
      against the same eval with the plain versions;
-  7. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
+  8. video: ``VideoSwapPipeline.swap_video_frames`` at full width with the
+     conditioner (CLIP ViT-L/14, IR-50) and the aux nets (BiSeNet and RAFT
+     seeded, the landmark net from its shipped weights) on a seeded 8-frame
+     720x1280 clip at the reference operating point (50 + 50 steps, window 6,
+     RAFT 20 iterations, parser 512): seconds per stage, frames/s, peak
+     memory, launches, degenerate-quad fallbacks, the output's checks;
+  9. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
      at full width, batch 1 at 512^2, the reference operating point (4-step
      DDIM reconstruction with the ArcFace ID loss, LPIPS off), CLIP ViT-L/14
      and IRSE50 in the conditioner: one warm-up step and 5 timed steps, ms per
      step, peak memory, the loss terms and the kernels' launches per step;
-  8. train_reference: one full-width step's UNet gradients with the kernels
+ 10. train_reference: one full-width step's UNet gradients with the kernels
      and with their plain versions, relative L2 error, and every trainable
      group's gradient finite and non-zero; the tiny fp32 ``p_losses_face``
      and its gradients on the card against the CPU;
-  9. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
-     sampling UNet eval (and the device time of its wide feed-forward sites,
-     on the unfused route and on the route they took before it), of one
-     train step;
- 10. the card line, the ``kernels`` JSON line, then the result line.
+ 11. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
+     sampling UNet eval (and the device time of its wide feed-forward sites),
+     of one train step;
+ 12. the card line, the ``kernels`` JSON line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (the port's float32 ops,
 the FSAI circulant and the warp, run in full float32), and so are cuBLAS's
@@ -64,8 +73,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -124,12 +135,23 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _native.build()
     log("build", sources=",".join(_native.SOURCES), seconds=f"{time.perf_counter() - t0:.1f}")
-    for name, text in logs.items():  # ptxas: registers and spills of each instantiation
-        regs = [line.split("Used")[1].split(",")[0].strip() for line in text.splitlines() if "Used" in line]
-        spills = sum(int(line.split("bytes spill stores")[0].split(",")[-1]) for line in text.splitlines()
-                     if "spill stores" in line)
-        log("ptxas", source=name, instantiations=len(regs), registers="/".join(r.split()[0] for r in regs),
-            spill_store_bytes=spills)
+    for name, text in logs.items():  # ptxas: registers and spill stores of each entry
+        entries, cur = [], None
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                cur = [line.split("'")[1], 0, 0]
+                entries.append(cur)
+            elif "spill stores" in line and cur:
+                cur[2] = int(line.split("bytes spill stores")[0].split(",")[-1])
+            elif "Used" in line and cur:
+                cur[1] = int(line.split("Used")[1].split()[0])
+        # the entries' names demangled by the toolkit's cu++filt, without parameter types
+        filt = subprocess.run([os.path.join(os.path.dirname(_native._nvcc()), "cu++filt"), "-p",
+                               *(e[0] for e in entries)], capture_output=True, text=True)
+        names = filt.stdout.splitlines() if filt.returncode == 0 else []
+        names = names if len(names) == len(entries) else [e[0] for e in entries]
+        log("ptxas", source=name, entries=len(entries), spill_store_bytes=sum(e[2] for e in entries),
+            registers=" | ".join(f"{n}: {r}{f' +spill {sp}' if sp else ''}" for n, (_, r, sp) in zip(names, entries)))
 
 
 def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, shape):
@@ -144,6 +166,11 @@ def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, sh
     return {"name": name, "route": route, "source": source, "replaces": replaces, "shape": shape,
             "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
             "bound_by": bnd[1], "library_ms": lib_ms}
+
+
+def _ff_bound(m: int, c: int, inner: int):
+    """GEGLU's bound: 6*M*C*I FLOPs at the bf16 peak, or x, the weights, the biases and out once."""
+    return bound(6.0 * m * c * inner, (2 * m * c + 3 * c * inner + 2 * inner + c) * 2)
 
 
 def bf16_ulp(x: float) -> float:
@@ -176,11 +203,75 @@ def precision_gate(name: str, shape: str, got, want, yardstick) -> None:
                          f"{ratio:.3f} of bf16 rounding's error > {PRECISION_GATE}")
 
 
+def kernel_errs(name: str, args: tuple, got):
+    """(errs, tol) of K1's, K2's or K3's output ``got`` on ``args`` against its
+    plain version on the same inputs. K1 and K2: 2 bf16 ulps at the output's
+    peak (both round the same fp32 values to bf16; sums in another order may
+    flip one rounding of P, of an intermediate or of the output; at ds1 ~2e-3,
+    while dropping one K/V tile errs by ~1e-1). K3: fp32 sums in another
+    order, relative 1e-5 of each row's sum of |x| (the sum may be near 0) and
+    of the sum of squares itself."""
+    from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
+
+    if name == "gn_sums":
+        (x,), (s1, s2) = args, got
+        r1, r2 = GN.gn_sums_ref(x)
+        absx = x.float().abs().sum(dim=(2, 3)).clamp_min(1e-30)
+        return ((max((s1 - r1).abs().max().item(), (s2 - r2).abs().max().item()),
+                 max(((s1 - r1).abs() / absx).max().item(), ((s2 - r2).abs() / r2.clamp_min(1e-30)).max().item())),
+                ("rel", 1e-5))
+    want = {"flash_attention": FA.flash_attention_ref, "geglu_ff": FF.geglu_ff_ref}[name](*args)
+    return _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item()))
+
+
+@contextlib.contextmanager
+def checked_sites(phase: str):
+    """Hold the models' K1, K2 and K3 call sites to their plain versions on
+    their own inputs, at every input signature the run gives them: the first
+    call at each (kernel, shapes, dtype, heads) is compared by
+    :func:`kernel_errs`, one ``kernel_site`` line each, and a disagreement
+    fails. Yields {kernel: signatures checked}."""
+    from unittest import mock
+
+    import torch
+
+    from vface_torch.models import layers, unet
+
+    seen = {name: set() for name in SWAP_KERNELS}
+
+    def spy(name, kernel):
+        def call(*args):
+            out = kernel(*args)
+            sig = (str(args[0].dtype),) + tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+            if sig not in seen[name]:
+                seen[name].add(sig)
+                errs, tol = kernel_errs(name, args, out)
+                checked = errs[0] if tol[0] == "abs" else errs[1]
+                log("kernel_site", path=phase, name=name, dtype=sig[0],
+                    shapes=",".join(str(a).replace(" ", "") for a in sig[1:]),
+                    max_abs_err=f"{errs[0]:.3e}", max_rel_err=f"{errs[1]:.3e}", tol=f"{tol[0]}<={tol[1]:.3e}")
+                if not checked <= tol[1]:
+                    raise SystemExit(f"chip_smoke: {name} disagrees with its plain version on the {phase} "
+                                     f"path at {sig}: {checked} > {tol}")
+            return out
+        return call
+
+    with mock.patch.object(unet, "flash_attention", spy("flash_attention", unet.flash_attention)), \
+            mock.patch.object(unet, "geglu_ff", spy("geglu_ff", unet.geglu_ff)), \
+            mock.patch.object(layers, "gn_sums", spy("gn_sums", layers.gn_sums)):
+        yield seen
+    log("kernel_sites", path=phase, **{name: len(sigs) for name, sigs in seen.items()})
+    missing = [name for name, sigs in seen.items() if not sigs]
+    if missing:
+        raise SystemExit(f"chip_smoke: the {phase} path called no {missing} kernel")
+
+
 def phase_kernels(batch: int, vae_batch: int) -> dict:
     """Each kernel against its plain version at the swap path's shapes; returns the rows.
 
     K1 and K2 at the sampling batch (2 chunks x the window), K3 at the VAE's
-    (the window).
+    (the window). :func:`checked_sites` holds them at every other shape the
+    swap and video paths give them.
     """
     import torch
     import torch.nn.functional as F
@@ -194,68 +285,55 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
     randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(torch.bfloat16)
     rows = {}
 
-    # K1 at the two self-attention sites it serves: ds1 (dh 40) and ds2 (dh 80).
-    # Both round the same fp32 values to bf16; sums in another order may flip
-    # one rounding of P or of the output, so the limit is 2 bf16 ulps at the
-    # output's peak (at ds1 ~2e-3; dropping one K/V tile errs by ~1e-1).
+    # K1 at the two self-attention sites it serves: ds1 (dh 40) and ds2 (dh 80)
     fa_rows = []
     for n, c in ((4096, 320), (1024, 640)):
         h = 8
         dh = c // h
         q, k, v = randn(batch, n, c), randn(batch, n, c), randn(batch, n, c)
-        got = FA.flash_attention(q, k, v, h)
-        want = FA.flash_attention_ref(q, k, v, h)
-        torch.cuda.synchronize()
-        errs = _errs(got, want)
-        tol = 2 * bf16_ulp(want.float().abs().max().item())
+        errs, tol = kernel_errs("flash_attention", (q, k, v, h), FA.flash_attention(q, k, v, h))
         ms = cuda_ms(lambda: FA.flash_attention(q, k, v, h))
         plain_ms = cuda_ms(lambda: FA.flash_attention_ref(q, k, v, h), reps=3, warmup=1)
         split = lambda t: t.view(batch, n, h, dh).transpose(1, 2)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)))
         bnd = bound(4.0 * batch * h * n * n * dh, 4 * q.numel() * 2)
         fa_rows.append(_row("flash_attention", "cuda", "vface_torch/csrc/flash_attention.cu",
-                            "vface_tpu/ops/pallas_attention.py:547", errs, ("abs", tol), ms, plain_ms,
+                            "vface_tpu/ops/pallas_attention.py:547", errs, tol, ms, plain_ms,
                             lib_ms, bnd, f"({batch},{n},{c})h{h}"))
     rows["flash_attention"] = fa_rows
 
-    # K2 at the ds1 and ds2 transformer feed-forwards
+    # K2 at the ds1 and ds2 transformer feed-forwards; the library column is
+    # the unfused route (two cuBLAS bf16 products)
     ff_rows = []
     for n, c in ((4096, 320), (1024, 640)):
         inner = 4 * c
         x = randn(batch * n, c)
         wp, bp = randn(2 * inner, c, scale=c**-0.5), randn(2 * inner, scale=0.1)
         wo, bo = randn(c, inner, scale=inner**-0.5), randn(c, scale=0.1)
-        got = FF.geglu_ff(x, wp, bp, wo, bo)
-        want = FF.geglu_ff_ref(x, wp, bp, wo, bo)
-        torch.cuda.synchronize()
-        errs = _errs(got, want)
+        errs, tol = kernel_errs("geglu_ff", (x, wp, bp, wo, bo), FF.geglu_ff(x, wp, bp, wo, bo))
         ms = cuda_ms(lambda: FF.geglu_ff(x, wp, bp, wo, bo))
         plain_ms = cuda_ms(lambda: FF.geglu_ff_ref(x, wp, bp, wo, bo), reps=3, warmup=1)
+        unfused_ms = cuda_ms(lambda: FF.geglu_ff_unfused(x, wp, bp, wo, bo))
         m = batch * n
-        bnd = bound(6.0 * m * c * inner, (2 * m * c + 3 * c * inner + 2 * inner + c) * 2)
         ff_rows.append(_row("geglu_ff", "cuda", "vface_torch/csrc/geglu_ff.cu",
-                            "vface_tpu/ops/pallas_ff.py:70", errs, ("abs", 3e-2), ms, plain_ms, None, bnd,
-                            f"({m},{c})I{inner}"))
+                            "vface_tpu/ops/pallas_ff.py:70", errs, tol, ms, plain_ms, unfused_ms,
+                            _ff_bound(m, c, inner), f"({m},{c})I{inner}"))
     rows["geglu_ff"] = ff_rows
 
-    # K3 at the VAE's largest and smallest eligible GroupNorm sites
+    # K3 at the VAE's largest and smallest eligible GroupNorm sites on the
+    # crops, and at the largest on the video path's HD frames (the background
+    # trick): rows of 56 whole 16384-element segments and a partial one
     gn_rows = []
-    for c, s in ((128, 512), (512, 128)):
-        x = randn(vae_batch, c, s, s)
-        s1, s2 = GN.gn_sums(x)
-        r1, r2 = GN.gn_sums_ref(x)
-        torch.cuda.synchronize()
-        # relative to each row's sum of |x| (s1 may be near 0) and to s2 itself
-        absx = x.float().abs().sum(dim=(2, 3))
-        errs = (max((s1 - r1).abs().max().item(), (s2 - r2).abs().max().item()),
-                max(((s1 - r1).abs() / absx).max().item(), ((s2 - r2).abs() / r2).max().item()))
+    for c, hh, ww in ((128, 512, 512), (512, 128, 128), (128, 720, 1280)):
+        x = randn(vae_batch, c, hh, ww)
+        errs, tol = kernel_errs("gn_sums", (x,), GN.gn_sums(x))
         ms = cuda_ms(lambda: GN.gn_sums(x))
         plain_ms = cuda_ms(lambda: GN.gn_sums_ref(x))
         lib_ms = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3)))
         bnd = bound(2.0 * x.numel(), x.numel() * 2 + 2 * vae_batch * c * 4, PEAK_FP32_FLOPS)
         gn_rows.append(_row("gn_sums", "triton", "vface_torch/ops/gn_sums.py",
-                            "vface_tpu/models/layers.py:45", errs, ("rel", 1e-5), ms, plain_ms, lib_ms, bnd,
-                            f"({vae_batch},{c},{s},{s})"))
+                            "vface_tpu/models/layers.py:45", errs, tol, ms, plain_ms, lib_ms, bnd,
+                            f"({vae_batch},{c},{hh},{ww})"))
     rows["gn_sums"] = gn_rows
     return rows
 
@@ -266,13 +344,15 @@ TRAIN_KERNELS = ("flash_attention_stats", "flash_attention_fp32", "flash_attenti
 
 
 OPS_KERNELS = ("flash_attention_v2_stats", "flash_attention_v1", "geglu_ff_wide")
+BENCH_KERNELS = ("flash_attention_v3", "flash_attention_v4", "flash_attention_v6", "geglu_ff_split")
 
 
 def kernel_counts() -> dict:
     """Every kernel's launches since the last reset, by name."""
     from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
 
-    return {**FA.LAUNCHES, "geglu_ff": FF.LAUNCHES, "geglu_ff_wide": FF.WIDE_LAUNCHES, "gn_sums": GN.LAUNCHES}
+    return {**FA.LAUNCHES, "geglu_ff": FF.LAUNCHES, "geglu_ff_wide": FF.WIDE_LAUNCHES,
+            "geglu_ff_split": FF.SPLIT_LAUNCHES, "gn_sums": GN.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -282,6 +362,7 @@ def reset_counts() -> None:
         FA.LAUNCHES[name] = 0
     FF.LAUNCHES = 0
     FF.WIDE_LAUNCHES = 0
+    FF.SPLIT_LAUNCHES = 0
     GN.LAUNCHES = 0
 
 
@@ -353,12 +434,16 @@ def phase_swap(model, frames: int, steps: int, inv_steps: int, seed: int) -> dic
     pipe = VideoSwapPipeline(model, opts, device="cuda")
     inputs = window_inputs(model, frames, seed)
     # warm-up at 2 + 2 steps: cuDNN's algorithm choice and lazy CUDA module
-    # loads land here, not in the measured drive below
+    # loads land here, not in the measured drive below; it runs every kernel
+    # call site at the measured drive's shapes, each held to its plain version
     t0 = time.perf_counter()
     short = SwapOptions(ddim_steps=2, inversion_steps=2, window=frames, image_size=model.cfg.image_size)
-    VideoSwapPipeline(model, short, device="cuda").swap_window(**inputs)
+    with checked_sites("swap"):
+        VideoSwapPipeline(model, short, device="cuda").swap_window(**inputs)
     torch.cuda.synchronize()
     log("warmup", ddim_steps=2, inversion_steps=2, wall_s=f"{time.perf_counter() - t0:.3f}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     timings = {}
     t0 = time.perf_counter()
@@ -451,9 +536,9 @@ def phase_profile(model, frames: int, seed: int, path: str) -> None:
     """CUDA time by kernel for one 2-chunk sampling UNet eval at full width
     (torch.profiler); the top rows are printed, the whole table goes to ``path``.
     The eval is profiled once more with a range around each wide feed-forward
-    site (the unfused route), reporting those sites' device time."""
-    import os
-
+    site (the unfused route), reporting those sites' device time; then the
+    video's 2-frame window batches (b = 4 sampling, b = 2 inversion): wall,
+    device time and busy share of one eval each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -499,6 +584,28 @@ def phase_profile(model, frames: int, seed: int, path: str) -> None:
     sites = [e for e in prof.key_averages() if e.key == "wide_ff"]
     log("profile_wide_ff", route="unfused", sites=sites[0].count if sites else 0,
         device_ms=f"{sum(e.device_time_total for e in sites) / 1e3:.3f}")
+
+    # the video's short window (2 frames): its sampling batch, b = 4, and its
+    # inversion batch, b = 2; wall against device time
+    for b in (4, 2):
+        xs, tss, cs = x9[:b], ts[:b], ctx[:b]
+        inj_b = inj if b == 4 else None
+        fl = flow[:1] if b == 4 else None
+        run_b = lambda: model.apply_model(xs, tss, cs, flow=fl, injection=inj_b)
+        with torch.inference_mode():
+            run_b()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_b()
+            torch.cuda.synchronize()
+            wall_b = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run_b()
+                torch.cuda.synchronize()
+        dev_b = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        log("profile_short_window", batch=b, hooks="2-chunk FSAI + FGATS" if b == 4 else "none (inversion)",
+            wall_ms=f"{wall_b:.1f}", device_ms=f"{dev_b:.1f}", device_busy=f"{dev_b / wall_b:.3f}")
 
 
 def phase_small_reference(seed: int) -> None:
@@ -644,7 +751,7 @@ def phase_ops_kernels() -> dict:
     products, which the tensor cores give only through multi-term splits) and
     at the bf16 tensor-core peak for bf16 operands (K6's function, which K6
     computes on the tensor cores); K9's 6*M*C*I at the bf16 peak, or each
-    one's bytes. Library: SDPA on fp32 inputs (K7, K8)."""
+    one's bytes. Library: SDPA on fp32 inputs (K7, K8), the unfused route (K9)."""
     import torch
     import torch.nn.functional as F
 
@@ -721,11 +828,254 @@ def phase_ops_kernels() -> dict:
     rows["geglu_ff_wide"].append(_row(
         "geglu_ff_wide", "cuda", "vface_torch/csrc/geglu_ff.cu", "vface_tpu/ops/pallas_ff.py:120",
         _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())), ms,
-        cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=3, warmup=1), None,
-        bound(6.0 * m * c * inner, (2 * m * c + 3 * c * inner + 2 * inner + c) * 2), f"({m},{c})I{inner}"))
+        cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=3, warmup=1), unfused_ms,
+        _ff_bound(m, c, inner), f"({m},{c})I{inner}"))
     log("ff_route", site=f"ds4 ({m},{c})I{inner}", k9_ms=f"{ms:.4f}", unfused_ms=f"{unfused_ms:.4f}",
         faster="k9" if ms < unfused_ms else "unfused", note="the UNet takes the unfused route, as JAX does")
     return rows
+
+
+def phase_bench_kernels() -> dict:
+    """K10-K13 against their plain versions at the benches' shapes; returns the rows.
+
+    K10 (v3) and K11 (v4), K8's kernel, and K12 (v6), K1's kernel, at the
+    attention bench's ds1 and ds2 shapes (b 12, N 4096 and 1024, h 8, dh 40,
+    bf16), JAX's default 1024-key blocks: 2 bf16 ulps at the output's peak
+    against ``flash_attention_v1_ref`` over those blocks (K10, K11) and K1's
+    plain version (K12). K13 at the row-tile sweep's shapes (C 320 with M =
+    24*4096, C 640 with M = 24*1024, the bench's operands), each built tile:
+    2 ulps against K2's plain version.
+
+    Bounds at the bf16 tensor-core peak (bf16 operands: the tensor cores
+    compute K8's function as K6 does) or the bytes. Library: SDPA on the
+    fp32-cast inputs (K10, K11), SDPA (K12), the unfused route (K13)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vface_torch.bench import attention as BA, ff_tile as BF
+    from vface_torch.ops import _archive_attention as AA
+    from vface_torch.ops import flash_attention as FA
+    from vface_torch.ops import geglu_ff as FF
+
+    rows = {name: [] for name in BENCH_KERNELS}
+    src = {"flash_attention_v3": "flash_attention_f32.cu", "flash_attention_v4": "flash_attention_f32.cu",
+           "flash_attention_v6": "flash_attention.cu"}
+    line = {"flash_attention_v3": 72, "flash_attention_v4": 158, "flash_attention_v6": 247}
+    h, dh = BA.H, BA.DH
+    with torch.inference_mode():
+        for _, b, n in BA.CASES:
+            q, k, v = (BA.randn((b, n, h * dh), seed=s) for s in range(3))
+            shape = f"({b},{n},{h * dh})h{h} bf16"
+            split = lambda t: t.view(b, n, h, dh).transpose(1, 2)
+            blk = min(1024, n)
+            bnd = bound(4.0 * b * h * n * n * dh, 4 * q.numel() * 2)
+            for name in ("flash_attention_v3", "flash_attention_v4", "flash_attention_v6"):
+                fn = getattr(AA, name)
+                if name == "flash_attention_v6":
+                    plain = lambda: FA.flash_attention_ref(q, k, v, h)
+                    lib = lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))
+                else:
+                    plain = lambda: FA.flash_attention_v1_ref(q, k, v, h, block_k=blk)
+                    lib = lambda: F.scaled_dot_product_attention(split(q).float(), split(k).float(),
+                                                                 split(v).float())
+                got, want = fn(q, k, v, h, blk, blk), plain()
+                torch.cuda.synchronize()
+                rows[name].append(_row(
+                    name, "cuda", f"vface_torch/csrc/{src[name]}", f"vface_tpu/ops/_archive_attention.py:{line[name]}",
+                    _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
+                    cuda_ms(lambda: fn(q, k, v, h, blk, blk)), cuda_ms(plain, reps=2, warmup=1), cuda_ms(lib),
+                    bnd, shape))
+                del got, want
+            del q, k, v
+        for c, m in BF.CASES:
+            args = BF.operands(c, m)
+            want = FF.geglu_ff_ref(*args)
+            plain_ms = cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=2, warmup=1)
+            unfused_ms = cuda_ms(lambda: FF.geglu_ff_unfused(*args))
+            for tm in FF.SPLIT_TILES[c]:
+                got = FF.geglu_ff_split(*args, tm)
+                torch.cuda.synchronize()
+                rows["geglu_ff_split"].append(_row(
+                    "geglu_ff_split", "cuda", "vface_torch/csrc/geglu_ff.cu", "scripts/bench_ff_tile.py:63",
+                    _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
+                    cuda_ms(lambda: FF.geglu_ff_split(*args, tm)), plain_ms, unfused_ms,
+                    _ff_bound(m, c, 4 * c), f"({m},{c})I{4 * c} tm{tm}"))
+            del args, want, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_bench(reps: int) -> dict:
+    """The kernel-bench path, K10-K13's main path: ``python -m
+    vface_torch.bench.attention``, ``.attn_v56`` and ``.ff_tile`` in process at
+    their own shapes with ``reps`` timed calls per variant, counters reset
+    first; returns the launches."""
+    import torch
+
+    from vface_torch.bench import attention, attn_v56, ff_tile
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    attention.main(["--reps", str(reps)])
+    attn_v56.main(["--reps", str(reps)])
+    ff_tile.main(["--reps", str(reps)])
+    launches = kernel_counts()
+    log("bench", reps=reps, wall_s=f"{time.perf_counter() - t0:.1f}",
+        **{k: launches[k] for k in BENCH_KERNELS})
+    missing = [k for k in BENCH_KERNELS if launches[k] == 0]
+    if missing:
+        raise SystemExit(f"chip_smoke: the bench path launched no {missing} kernel")
+    torch.cuda.empty_cache()
+    return launches
+
+
+VIDEO_FRAMES, VIDEO_HW = 8, (720, 1280)  # an HD clip: a 6-frame window and a 2-frame window
+
+
+def synthetic_clip(frames: int, hw, seed: int, device="cuda"):
+    """A seeded, smoothly moving cartoon face over a smooth background, (F, H, W, 3) in [0, 1]:
+    skin, hair, eyes and a mouth drift a few pixels and turn slightly per frame."""
+    import torch
+
+    h, w = hw
+    g = torch.Generator(device=device).manual_seed(seed)
+    bg = torch.nn.functional.interpolate(torch.rand((1, 3, 9, 16), generator=g, device=device), size=(h, w),
+                                         mode="bilinear").permute(0, 2, 3, 1)[0] * 0.6 + 0.2
+    skin = torch.rand(3, generator=g, device=device) * 0.3 + torch.tensor([0.6, 0.45, 0.35], device=device)
+    yy, xx = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
+                            torch.arange(w, device=device, dtype=torch.float32), indexing="ij")
+    out = []
+    for i in range(frames):
+        cx, cy, r = w * 0.5 + 6.0 * i, h * 0.5 + 2.0 * i, h * 0.28 * (1 + 0.01 * i)
+        ang = 0.02 * i
+        u = ((xx - cx) * math.cos(ang) + (yy - cy) * math.sin(ang)) / r
+        v = (-(xx - cx) * math.sin(ang) + (yy - cy) * math.cos(ang)) / r
+        img = bg.clone()
+        blobs = [((0.0, -0.55, 0.85, 0.55), torch.tensor([0.15, 0.1, 0.08], device=device)),  # hair
+                 ((0.0, 0.0, 0.72, 0.95), skin),  # face
+                 ((-0.3, -0.22, 0.12, 0.06), torch.tensor([0.1, 0.1, 0.12], device=device)),  # eyes
+                 ((0.3, -0.22, 0.12, 0.06), torch.tensor([0.1, 0.1, 0.12], device=device)),
+                 ((0.0, 0.12, 0.06, 0.12), skin * 0.8),  # nose
+                 ((0.0, 0.45, 0.25, 0.07), torch.tensor([0.6, 0.2, 0.2], device=device))]  # mouth
+        for (ex, ey, rx, ry), col in blobs:
+            q = ((u - ex) / rx) ** 2 + ((v - ey) / ry) ** 2
+            a = torch.clamp((1.0 - q) / 0.15, 0.0, 1.0)[..., None]
+            img = img + a * (col - img)
+        out.append(img)
+    return torch.stack(out).clamp(0.0, 1.0)
+
+
+def phase_video(model, seed: int) -> dict:
+    """The slice at full width: ``swap_video_frames`` on a seeded 8-frame
+    720x1280 clip at the reference operating point (50 + 50 steps, window 6,
+    RAFT 20 iterations, parser 512), after a 2 + 2-step warm-up that holds
+    every kernel call site to its plain version at the measured call's shapes
+    (both windows' batches; the background trick's and the landmark net's
+    GroupNorms); returns the kernels' launches over the measured call."""
+    import torch
+
+    from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
+    from vface_torch.utils.convert import init_aux_params
+
+    opts = SwapOptions(ddim_steps=DDIM_STEPS, inversion_steps=INVERSION_STEPS, window=FRAMES,
+                       image_size=model.cfg.image_size, parser_size=512, raft_iters=20)
+    aux = init_aux_params(torch.Generator(device="cuda").manual_seed(seed))
+    pipe = VideoSwapPipeline(model, opts, device="cuda", aux_params=aux)
+    frames = synthetic_clip(VIDEO_FRAMES, VIDEO_HW, seed)
+    source = synthetic_clip(1, VIDEO_HW, seed + 1)[0]
+    t0 = time.perf_counter()
+    short = VideoSwapPipeline(model, dataclasses.replace(opts, ddim_steps=2, inversion_steps=2), device="cuda",
+                              aux_params=aux)
+    with checked_sites("video"):
+        short.swap_video_frames(frames, source)
+    torch.cuda.synchronize()
+    log("video_warmup", ddim_steps=2, inversion_steps=2, wall_s=f"{time.perf_counter() - t0:.3f}")
+    del short
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    out = pipe.swap_video_frames(frames, source, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    windows = sum(timings.get(k, 0.0) for k in ("encode", "invert", "sample", "decode"))
+    log("video", frames=VIDEO_FRAMES, frame_hw=f"{VIDEO_HW[0]}x{VIDEO_HW[1]}", window=FRAMES,
+        ddim_steps=DDIM_STEPS, inversion_steps=INVERSION_STEPS, raft_iters=opts.raft_iters,
+        parser=opts.parser_size, wall_s=f"{wall:.3f}", frames_per_s=f"{VIDEO_FRAMES / wall:.4f}",
+        windows_s=f"{windows:.3f}", **{f"{k}_s": f"{v:.3f}" for k, v in timings.items()},
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", fallback_frames=pipe.fallback_frames)
+    log("video_launches", **{k: v for k, v in launches.items() if v})
+    finite = bool(torch.isfinite(out).all())
+    log("video_check", shape=tuple(out.shape), dtype=out.dtype, finite=finite, min=f"{float(out.min()):.4f}",
+        max=f"{float(out.max()):.4f}", mean_abs_change=f"{float((out - frames.cpu()).abs().mean()):.4f}")
+    if not (tuple(out.shape) == (VIDEO_FRAMES, *VIDEO_HW, 3) and finite
+            and float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
+        raise SystemExit("chip_smoke: the video output has the wrong shape, is not finite or leaves [0, 1]")
+    missing = [k for k in SWAP_KERNELS if launches[k] == 0]
+    stray = [k for k in launches if k not in SWAP_KERNELS and launches[k]]
+    if missing or stray:
+        raise SystemExit(f"chip_smoke: the video path launched no {missing} / stray {stray} kernels")
+    return launches
+
+
+def phase_small_video_reference(seed: int) -> None:
+    """The tiny fp32 ``swap_video_frames`` (4 frames of 48 x 64, window 3, RAFT
+    2 iterations, parser 64; the tests hold the CPU's to the JAX package) on
+    the card against the same call on the CPU, same weights and inputs:
+    landmarks within 1e-3 px, flow within 1e-3 px (from the same crops),
+    class maps equal on >= 99.9 % of pixels, and the frames within 1e-4 with
+    the keep-masks and the frames' landmarks taken from the CPU's run (so
+    that neither a parser tie nor the landmark stage's own round-off, which
+    the stage checks hold, decides the result: a 1e-5 px move of the
+    landmarks moves this random-weight pipeline's output by ~9e-5 through
+    the crops, measured on the CPU). The frames with each device's own
+    landmarks are reported beside it."""
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
+    from vface_torch.preprocess.masks import inpaint_inputs
+    from vface_torch.utils.convert import init_aux_params, init_params
+
+    cfg = ModelConfig.tiny(image_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(seed), conditioner=True)
+    aux = init_aux_params(torch.Generator().manual_seed(seed + 1))
+    opts = SwapOptions(ddim_steps=2, inversion_steps=2, window=3, image_size=32, parser_size=64, raft_iters=2,
+                       flow_tokens=256)
+    frames = synthetic_clip(4, (48, 64), seed + 2, device="cpu")
+    source = synthetic_clip(1, (48, 64), seed + 3, device="cpu")[0]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = VFaceModel(cfg, device=dev, conditioner=True)
+        model.load_params(params)
+        pipe = VideoSwapPipeline(model, opts, device=dev, aux_params=aux)
+        r = {"landmarks": pipe.detect_landmarks(frames).cpu()}
+        if dev == "cpu":
+            res["landmarks"] = r["landmarks"]
+            crops = pipe.align_crops(frames)[0]
+            src_crop = pipe.align_crops(source[None])[0]
+            res["crops"] = crops
+            keep = inpaint_inputs(crops * 2 - 1, pipe.parse_masks(crops))[1]
+            src_keep = inpaint_inputs(src_crop * 2 - 1, pipe.parse_masks(src_crop))[1][0]
+            res["keep"] = (keep, src_keep)
+        r["seg"] = pipe.parse_masks(res["crops"]).cpu()
+        r["flow"] = pipe.compute_flow(res["crops"][:3]).cpu()
+        keeps = dict(frame_keep=res["keep"][0], source_keep=res["keep"][1])
+        r["out"] = pipe.swap_video_frames(frames, source, frame_landmarks=res["landmarks"], **keeps)
+        r["out_own_landmarks"] = pipe.swap_video_frames(frames, source, **keeps)
+        res[dev] = r
+    c, g = res["cpu"], res["cuda"]
+    err = {k: float((g[k] - c[k]).abs().max()) for k in ("landmarks", "flow", "out", "out_own_landmarks")}
+    seg_eq = float((g["seg"] == c["seg"]).float().mean())
+    log("small_video_reference", config="tiny fp32, 4 frames 48x64, window 3, 2 + 2 steps, RAFT 2, parser 64",
+        landmarks_max_px=f"{err['landmarks']:.3e}", flow_max_px=f"{err['flow']:.3e}", class_map_equal=f"{seg_eq:.5f}",
+        frames_max_abs_err=f"{err['out']:.3e}", tol="lm 1e-3, flow 1e-3, seg 0.999, frames 1e-4",
+        frames_own_landmarks_max_abs_err=f"{err['out_own_landmarks']:.3e}")
+    if not (err["landmarks"] <= 1e-3 and err["flow"] <= 1e-3 and seg_eq >= 0.999 and err["out"] <= 1e-4):
+        raise SystemExit("chip_smoke: the card's tiny video swap disagrees with the CPU's")
 
 
 FUSION_MODES = ("replace", "temporal", "adain", "mix", "fft_vfixed")
@@ -1006,8 +1356,6 @@ def phase_train_reference(model, seed: int) -> None:
 
 def phase_profile_train(model, seed: int, path: str) -> None:
     """CUDA time by kernel over one full-width train step (torch.profiler)."""
-    import os
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1045,8 +1393,9 @@ def kernels_line(rows: dict, launches: dict) -> dict:
     """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
 
     ``launches`` is each kernel's count over its main path's run (K1-K3 the
-    swap window, K4-K6 the timed train steps, K7-K9 the ops phase); K5's two
-    kernels launch together, and its entry carries the dQ kernel's count."""
+    swap window, K4-K6 the timed train steps, K7-K9 the ops phase, K10-K13
+    the bench phase); K5's two kernels launch together, and its entry carries
+    the dQ kernel's count."""
     out = []
     for name, sites in rows.items():
         head = dict(sites[0])
@@ -1063,6 +1412,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--profile", metavar="PATH", help="also profile one sampling UNet eval, table to PATH")
     ap.add_argument("--profile-train", metavar="PATH", help="also profile one train step, table to PATH")
+    ap.add_argument("--bench-reps", type=int, default=3, help="timed calls per variant in the bench phase")
     args = ap.parse_args()
 
     import torch
@@ -1075,22 +1425,28 @@ def main() -> int:
     rows = phase_kernels(batch=2 * FRAMES, vae_batch=FRAMES)
     rows.update(phase_train_kernels())
     rows.update(phase_ops_kernels())
+    rows.update(phase_bench_kernels())
+    bench_launches = phase_bench(args.bench_reps)
     model = build_model(SEED)
     launches = phase_swap(model, FRAMES, DDIM_STEPS, INVERSION_STEPS, SEED)
     phase_reference(model, FRAMES, SEED)
     phase_small_reference(SEED)
+    phase_small_video_reference(SEED)
     ops_launches = phase_ops(model, FRAMES, SEED)
     if args.profile:
         phase_profile(model, FRAMES, SEED, args.profile)
-    del model  # serving's model has no conditioner; training builds its own
+    del model  # serving's swap_window needs no conditioner; the video path and training do
     torch.cuda.empty_cache()
     model = build_model(SEED, conditioner=True)
+    phase_video(model, SEED)
+    torch.cuda.empty_cache()
     train_launches = phase_train(model, SEED)
     phase_train_reference(model, SEED)
     if args.profile_train:
         phase_profile_train(model, SEED, args.profile_train)
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     launches.update({k: ops_launches[k] for k in OPS_KERNELS})
+    launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     print(smi, flush=True)
     print(json.dumps(kernels_line(rows, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

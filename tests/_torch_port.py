@@ -33,3 +33,23 @@ def t(a) -> torch.Tensor:
 def close(got, want, atol: float, rtol: float = 0.0) -> None:
     got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=atol, rtol=rtol)
+
+
+def seeded_flax_params(module, *inputs, seed: int = 0):
+    """A Flax module's param tree (its structure from ``jax.eval_shape``, so
+    nothing is compiled) filled with seeded numpy: conv kernels LeCun-normal,
+    biases N(0, 0.05^2), norm scales 1 + N(0, 0.05^2), frozen-BN means
+    N(0, 0.05^2) and variances in [0.5, 1.5]."""
+    shapes = jax.eval_shape(lambda r: module.init(r, *inputs)["params"], jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = getattr(path[-1], "key", "")
+        if name == "kernel":
+            return (rng.normal(size=s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, size=s.shape).astype(np.float32)
+        noise = (0.05 * rng.normal(size=s.shape)).astype(np.float32)
+        return noise + 1.0 if name == "scale" else noise
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)

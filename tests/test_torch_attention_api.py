@@ -207,6 +207,18 @@ def test_wide_feed_forward_takes_the_unfused_path(grad):
     close(got, jff.apply({"params": params}, jnp.asarray(x)), atol=2e-5, rtol=1e-5)
 
 
+def test_circulant_cache_serves_inference_then_gradient():
+    """The FFT fusion's cached circulant, first built under inference mode (as
+    swap_window builds it), still serves a call that records a gradient
+    (the sampler or the training step on the same width afterwards)."""
+    d = 24  # a width no other test builds first
+    with torch.inference_mode():
+        O.combine_fft_high_low_circulant(torch.ones(1, 2, d), torch.zeros(1, 2, d))
+    branch = torch.randn(1, 2, d, requires_grad=True)
+    O.combine_fft_high_low_circulant(torch.zeros(1, 2, d), branch).sum().backward()
+    assert branch.grad is not None and torch.isfinite(branch.grad).all()
+
+
 def test_fusion_config_fields_match_jax():
     """The port's FusionConfig has JAX's fields and defaults."""
     want = {f.name: f.default for f in dataclasses.fields(JA.FusionConfig)}

@@ -11,6 +11,7 @@ import math
 import pytest
 import torch
 
+from vface_torch.ops import _archive_attention as AA
 from vface_torch.ops import flash_attention as FA
 from vface_torch.ops import geglu_ff as FF
 from vface_torch.ops import gn_sums as GN
@@ -27,6 +28,10 @@ def gen():
 
 def _randn(gen, *shape, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+
+def _ulps(want, count=2):
+    return count * 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
 
 
 @pytest.mark.parametrize("n,heads,dh", [(300, 2, 40), (1024, 8, 80), (130, 3, 8)])
@@ -57,29 +62,30 @@ def test_kernels_reject_widths_they_are_not_built_for(gen):
 
 @pytest.mark.parametrize("m,c", [(4096 + 17, 320), (1000, 640), (64, 64)])
 def test_geglu_ff_kernel(gen, m, c):
-    """Ragged M; tolerance: bf16 rounding flips of intermediates, atol 3e-2 at |out| ~ 1."""
+    """Ragged M; kernel and plain version round at the same four points, so the
+    final rounding plus a flipped bf16 intermediate: 2 bf16 ulps at the output's peak."""
     inner = 4 * c
     args = (_randn(gen, m, c), _randn(gen, 2 * inner, c, scale=c**-0.5), _randn(gen, 2 * inner, scale=0.1),
             _randn(gen, c, inner, scale=inner**-0.5), _randn(gen, c, scale=0.1))
     got = FF.geglu_ff(*args)
     torch.cuda.synchronize()
-    assert (got.float() - FF.geglu_ff_ref(*args).float()).abs().max() < 3e-2
+    want = FF.geglu_ff_ref(*args).float()
+    assert (got.float() - want).abs().max() <= _ulps(want)
 
 
-@pytest.mark.parametrize("shape", [(2, 128, 256, 256), (1, 3, 130, 70)])
-def test_gn_sums_kernel(gen, shape):
+# whole segments; one partial segment; 56 whole segments and a partial one per
+# row (the 720 x 1280 frames of the video path's background VAE), off-centre
+@pytest.mark.parametrize("shape,offset", [((2, 128, 256, 256), 0.0), ((1, 3, 130, 70), 0.0),
+                                          ((2, 4, 720, 1280), 0.5)])
+def test_gn_sums_kernel(gen, shape, offset):
     """fp32 sums in another order: relative 1e-5 of the row's sum of |x|."""
-    x = _randn(gen, *shape)
+    x = (_randn(gen, *shape).float() + offset).to(torch.bfloat16)
     s1, s2 = GN.gn_sums(x)
     r1, r2 = GN.gn_sums_ref(x)
     torch.cuda.synchronize()
     absx = x.float().abs().sum(dim=(2, 3))
     assert ((s1 - r1).abs() / absx).max() < 1e-5
     assert ((s2 - r2).abs() / r2).max() < 1e-5
-
-
-def _ulps(want, count=2):
-    return count * 2.0 ** (math.floor(math.log2(want.float().abs().max().item())) - 7)
 
 
 def _rel_l2(got, want):
@@ -157,7 +163,7 @@ def test_gradients_flow_through_every_wrapper(gen):
     assert {k: FA.LAUNCHES[k] - before[k] for k in before} == {
         "flash_attention": 0, "flash_attention_stats": 1, "flash_attention_fp32": 1,
         "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1, "flash_attention_v2_stats": 0,
-        "flash_attention_v1": 0}
+        "flash_attention_v1": 0, "flash_attention_v3": 0, "flash_attention_v4": 0, "flash_attention_v6": 0}
     grads = [x.grad for x in leaves]
     for x in leaves:
         x.grad = None
@@ -249,7 +255,8 @@ def test_flash_attention_v2_gradients_and_fp32_route(gen):
     torch.cuda.synchronize()
     assert {k: FA.LAUNCHES[k] - before[k] for k in before} == {
         "flash_attention": 0, "flash_attention_stats": 0, "flash_attention_fp32": 1, "flash_attention_v2_stats": 1,
-        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1, "flash_attention_v1": 0}
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1, "flash_attention_v1": 0,
+        "flash_attention_v3": 0, "flash_attention_v4": 0, "flash_attention_v6": 0}
     grads = [x.grad for x in leaves]
     for x in leaves:
         x.grad = None
@@ -303,3 +310,57 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(gen):
             _randn(gen, 1024, 4096), _randn(gen, 1024)]
     with pytest.raises(ValueError, match="gradient"):
         FF.geglu_ff_wide(*args)
+
+
+@pytest.mark.parametrize("name", ["flash_attention_v3", "flash_attention_v4", "flash_attention_v6"])
+@pytest.mark.parametrize("n,heads,dh,dtype", [(256, 4, 40, torch.float32), (256, 4, 40, torch.bfloat16),
+                                              (1024, 8, 80, torch.bfloat16)])
+def test_archive_kernels(gen, name, n, heads, dh, dtype):
+    """K10/K11 (K8's kernel) and K12 (K1's kernel for bf16, K8's for fp32), each
+    counted under its own key, against its plain version on the same blocks:
+    fp32 within 1e-5 of the output's peak, bf16 within 2 ulps."""
+    q, k, v = (_rand(gen, 2, n, heads * dh, dtype=dtype) for _ in range(3))
+    before = dict(FA.LAUNCHES)
+    got = getattr(AA, name)(q, k, v, heads, block_q=128, block_k=64)
+    torch.cuda.synchronize()
+    assert {key: FA.LAUNCHES[key] - before[key] for key in before if FA.LAUNCHES[key] != before[key]} == {name: 1}
+    if name == "flash_attention_v6" and dtype == torch.bfloat16:
+        want = FA.flash_attention_ref(q, k, v, heads)
+    else:
+        want = FA.flash_attention_v1_ref(q, k, v, heads, block_k=64)
+    tol = 1e-5 * want.float().abs().max().item() if dtype == torch.float32 else _ulps(want)
+    assert got.dtype == dtype and (got.float() - want.float()).abs().max() <= tol
+
+
+def test_archive_kernels_refuse_what_they_do_not_take(gen):
+    """v6 on bf16 runs K1, which is self-attention only: Nq != Nk raises (fp32
+    takes K8, which takes it); no variant has a gradient on the card."""
+    q, kv = _randn(gen, 1, 128, 80), _randn(gen, 1, 64, 80)
+    with pytest.raises(ValueError, match="k must be"):
+        AA.flash_attention_v6(q, kv, kv, 2, 64, 64)
+    qf, kvf = q.float(), kv.float()
+    assert AA.flash_attention_v6(qf, kvf, kvf, 2, 64, 64).shape == qf.shape
+    g = _rand(gen, 1, 64, 80).requires_grad_(True)
+    for fn in (AA.flash_attention_v3, AA.flash_attention_v4, AA.flash_attention_v6):
+        with pytest.raises(ValueError, match="gradient"):
+            fn(g, g, g, 2, 64, 64)
+
+
+@pytest.mark.parametrize("c", [320, 640])
+def test_geglu_ff_split_kernel(gen, c):
+    """K13 at every built row tile, ragged M: against K2's plain version within
+    2 bf16 ulps of the output's peak; tm = 32 is K2's own tile, bit for bit."""
+    inner, m = 4 * c, 1000
+    args = (_randn(gen, m, c), _randn(gen, 2 * inner, c, scale=c**-0.5), _randn(gen, 2 * inner, scale=0.1),
+            _randn(gen, c, inner, scale=inner**-0.5), _randn(gen, c, scale=0.1))
+    want = FF.geglu_ff_ref(*args).float()
+    for tm in FF.SPLIT_TILES[c]:
+        before = FF.SPLIT_LAUNCHES
+        got = FF.geglu_ff_split(*args, tm)
+        torch.cuda.synchronize()
+        assert FF.SPLIT_LAUNCHES == before + 1
+        assert (got.float() - want).abs().max() <= _ulps(want), tm
+        if tm == 32:
+            assert torch.equal(got, FF.geglu_ff(*args))
+    with pytest.raises(ValueError, match="no kernel"):
+        FF.geglu_ff_split(*args, 128)

@@ -272,3 +272,33 @@ extern "C" int vface_geglu_ff_wide_bf16(const void* x, const void* wp, const voi
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// K13: K2's kernel at a chosen row tile of tm = 16 * MT rows per CTA. Replaces
+// scripts/bench_ff_tile.py::_pallas_split (kernel _ff_kernel_split, whose body
+// is _ff_kernel's line for line), the row-tile sweep of the ds1/ds2 widths.
+// The TPU sweep trades grid steps for weight re-reads from VMEM; here a larger
+// tile halves the weight traffic through L2 per row but holds MT * C/8 * 4 / 8
+// fp32 output accumulators per thread, so only the tiles that ptxas compiles
+// without spills are instantiated (sm_90a, -O3): 16, 32 and 64 rows at C = 320
+// (70, 134 and 243 registers) and 16 and 32 rows at C = 640 (90 and 190); 64
+// rows at C = 640 hold 160 accumulators, K9's register wall: 255 registers
+// and 64 bytes of spills, so it is not built.
+extern "C" int vface_geglu_ff_split_bf16(const void* x, const void* wp, const void* bp,
+                                         const void* wo, const void* bo, void* out, int m, int c,
+                                         int inner, int tm, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (inner % kIC != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (c == 320) {
+    switch (tm) {
+      case 16: return launch<5, 1>(x, wp, bp, wo, bo, out, m, inner, st);
+      case 32: return launch<5, 2>(x, wp, bp, wo, bo, out, m, inner, st);
+      case 64: return launch<5, 4>(x, wp, bp, wo, bo, out, m, inner, st);
+    }
+  } else if (c == 640) {
+    switch (tm) {
+      case 16: return launch<10, 1>(x, wp, bp, wo, bo, out, m, inner, st);
+      case 32: return launch<10, 2>(x, wp, bp, wo, bo, out, m, inner, st);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

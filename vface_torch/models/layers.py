@@ -103,26 +103,31 @@ class Conv(nn.Module):
     """k x k convolution on NCHW with float32 params cast to ``dtype`` at use.
 
     ``padding="torch"`` is the symmetric (k-1)//2 on both sides, as
-    ``torch.nn.Conv2d(padding=k//2)``; an int pads that much on every side.
+    ``torch.nn.Conv2d(padding=k//2)``; an int (or an (h, w) pair) pads that
+    much on each side. ``kernel`` may be an (h, w) pair and ``dilation`` an int
+    (the aux nets: RAFT's 1x5 GRU convs, the landmark net's dilated context).
     ``zero_init`` marks the convs the reference zero-initialises (for
     :func:`vface_torch.utils.convert.init_params`); ``bias=False`` is a
     bias-free conv (the CLIP patch embedding, ArcFace).
     """
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
-                 padding="torch", zero_init: bool = False, dtype=torch.float32, bias: bool = True):
+    def __init__(self, in_ch: int, out_ch: int, kernel=3, stride: int = 1,
+                 padding="torch", zero_init: bool = False, dtype=torch.float32, bias: bool = True,
+                 dilation: int = 1):
         super().__init__()
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
         self.stride = stride
-        self.padding = (kernel - 1) // 2 if padding == "torch" else int(padding)
+        self.dilation = dilation
+        self.padding = ((kh - 1) // 2, (kw - 1) // 2) if padding == "torch" else padding
         self.zero_init = zero_init
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kh, kw))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding, self.dilation)
 
 
 class Dense(nn.Module):

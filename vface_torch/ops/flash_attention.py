@@ -70,7 +70,7 @@ F32_DH = (16, 32, 40, 80)
 LAUNCHES = dict.fromkeys(
     ("flash_attention", "flash_attention_stats", "flash_attention_fp32",
      "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_v2_stats",
-     "flash_attention_v1"), 0)
+     "flash_attention_v1", "flash_attention_v3", "flash_attention_v4", "flash_attention_v6"), 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 4 + [_I] * 4 + [_F, _P]

@@ -52,7 +52,10 @@ def _low_circulant(d: int, split: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _low_circulant_on(d: int, split: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_low_circulant(d, split)).to(device)
+    # made outside inference mode: the cached matrix also serves calls that
+    # record a gradient, which an inference tensor cannot take part in
+    with torch.inference_mode(False):
+        return torch.from_numpy(_low_circulant(d, split)).to(device)
 
 
 def combine_fft_high_low_circulant(

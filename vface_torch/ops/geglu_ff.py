@@ -31,6 +31,11 @@ C > 768 to ``_ref_impl``; so does the port's UNet, through
 :func:`geglu_ff_unfused` (bf16 products with fp32 accumulation on the card),
 until the card's times decide otherwise. JAX defines no VJP for it: on the
 card a call that needs a gradient raises.
+
+K13 :func:`geglu_ff_split` replaces ``scripts/bench_ff_tile.py::_pallas_split``
+(kernel ``_ff_kernel_split``, ``_ff_kernel``'s body line for line), the TPU
+kernel of the row-tile sweep: K2's kernel at a row tile ``tm`` chosen by the
+caller among the ones compiled (``SPLIT_TILES``). Its plain version is K2's.
 """
 
 from __future__ import annotations
@@ -47,11 +52,16 @@ WIDTHS = (64, 320, 640)  # K2's instantiations: ds1, ds2, and a small width for 
 WIDE_WIDTHS = (1024, 1280)  # K9's: ds4 and the middle block, and the JAX test's width
 INNER_CHUNK = 128
 
+# K13's row tiles by width: the instantiations that compile without spills
+SPLIT_TILES = {320: (16, 32, 64), 640: (16, 32)}
+
 # kernel launches since the last reset (read by chip_smoke.py)
 LAUNCHES = 0  # K2
 WIDE_LAUNCHES = 0  # K9
+SPLIT_LAUNCHES = 0  # K13
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SPLIT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def gelu_erf(x32: torch.Tensor) -> torch.Tensor:
@@ -124,7 +134,7 @@ def geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     return _geglu_ff(x, w_proj, b_proj, w_out, b_out)
 
 
-def _launch(name: str, symbol: str, widths, x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
+def _launch(name: str, symbol: str, widths, x, w_proj, b_proj, w_out, b_out, *tile) -> torch.Tensor:
     if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
     c = x.shape[-1]
@@ -140,12 +150,12 @@ def _launch(name: str, symbol: str, widths, x, w_proj, b_proj, w_out, b_out) -> 
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
     if c not in widths or inner % INNER_CHUNK:
         raise ValueError(f"{name}: C={c} must be one of {widths}, I={inner} a multiple of {INNER_CHUNK}")
-    fn = _native.function("geglu_ff", symbol, _ARGTYPES)
+    fn = _native.function("geglu_ff", symbol, _SPLIT_ARGTYPES if tile else _ARGTYPES)
     x2 = x.reshape(-1, c)
     out = torch.empty_like(x2)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x2.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), w_out.data_ptr(),
-             b_out.data_ptr(), out.data_ptr(), x2.shape[0], c, inner, stream)
+             b_out.data_ptr(), out.data_ptr(), x2.shape[0], c, inner, *tile, stream)
     _native.check(err, name)
     return out.reshape(x.shape)
 
@@ -171,4 +181,22 @@ def geglu_ff_wide(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     global WIDE_LAUNCHES
     out = _launch("geglu_ff_wide", "vface_geglu_ff_wide_bf16", WIDE_WIDTHS, x, w_proj, b_proj, w_out, b_out)
     WIDE_LAUNCHES += 1
+    return out
+
+
+def geglu_ff_split(x, w_proj, b_proj, w_out, b_out, tm: int) -> torch.Tensor:
+    """K13: K2's function over x (..., C) with the kernel's row tile set to ``tm``
+    rows, one of ``SPLIT_TILES[C]`` (any other ``tm`` raises); the kernel on
+    CUDA (no gradient), K2's plain version :func:`geglu_ff_ref` on the CPU."""
+    c = x.shape[-1]
+    if tm not in SPLIT_TILES.get(c, ()):
+        raise ValueError(f"geglu_ff_split: no kernel at C={c}, tm={tm}; built: {SPLIT_TILES}")
+    if x.device.type == "cpu":
+        return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
+    if needs_grad(x, w_proj, b_proj, w_out, b_out):
+        raise ValueError("geglu_ff_split: no gradient (the bench kernel has no VJP); use geglu_ff")
+    global SPLIT_LAUNCHES
+    out = _launch("geglu_ff_split", "vface_geglu_ff_split_bf16", tuple(SPLIT_TILES), x, w_proj, b_proj, w_out,
+                  b_out, tm)
+    SPLIT_LAUNCHES += 1
     return out

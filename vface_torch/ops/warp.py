@@ -75,6 +75,17 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int, antialias: bool = 
     return out.permute(0, 2, 3, 1)
 
 
+def resize_nearest(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Nearest resize of the two axes after the batch axis ((B, H, W) or NHWC),
+    as ``jax.image.resize(..., "nearest")``: output pixel i takes source pixel
+    floor((i + 0.5) * in / out) (half-pixel centres, ``F.interpolate``'s
+    "nearest-exact"). Any dtype, class maps included."""
+    h, w = x.shape[1], x.shape[2]
+    src = lambda n_in, n_out: torch.floor(
+        (torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5) * n_in / n_out).long()
+    return x[:, src(h, height)][:, :, src(w, width)]
+
+
 def resize_flow(flow: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Bilinearly resize a flow field (B, H, W, 2) and rescale its displacements."""
     _, h, w, _ = flow.shape

@@ -15,6 +15,11 @@ renaming the leaf:
   PReLU ``alpha``, frozen-BN ``mean`` and ``var``).
 
 :func:`init_params` makes a seeded random init on any device, with no JAX.
+
+The video swap's aux nets (``{"bisenet", "raft", "landmark"}``) follow the
+same walk: :func:`from_flax_aux` converts their Flax trees, and
+:func:`init_aux_params` makes them seeded (the landmark net from the JAX
+package's shipped weights, read as data, where the file is present).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ _DROP = {"Conv_0", "Dense_0", "GroupNorm_0", "LayerNorm_0"}
 _RENAME = {"GroupNorm32_0": "norm"}
 _KEEP = {"bias", "mean", "var", "alpha", "class_embedding", "position_embedding", "learnable_vector"}
 PARTS = ("unet", "vae", "cond")
+AUX_PARTS = ("bisenet", "raft", "landmark")
 
 
 def _leaf(name: str, arr: np.ndarray):
@@ -65,6 +71,41 @@ def flax_tree_to_state_dict(tree) -> dict:
 def from_flax_params(tree) -> dict:
     """``{"unet": ..., "vae": ...[, "cond": ...]}`` Flax trees -> the same keys as state dicts."""
     return {part: flax_tree_to_state_dict(tree[part]) for part in PARTS if part in tree}
+
+
+def from_flax_aux(tree) -> dict:
+    """``{"bisenet": ..., "raft": ..., "landmark": ...}`` Flax trees (any subset)
+    -> the same keys as state dicts of the port's aux modules."""
+    return {part: flax_tree_to_state_dict(tree[part]) for part in AUX_PARTS if part in tree}
+
+
+def init_aux_params(generator: torch.Generator) -> dict:
+    """Seeded aux-net parameters on the generator's device: ``{"bisenet",
+    "raft", "landmark"}`` state dicts, conv weights LeCun-normal, conv biases
+    normal with std 0.02, norms and frozen-BN statistics the identity. The
+    landmark net takes the JAX package's trained weights where the shipped
+    file is present."""
+    from vface_torch.models.bisenet import BiSeNet
+    from vface_torch.models.layers import Conv
+    from vface_torch.models.raft import RAFT
+    from vface_torch.preprocess.landmarks import LandmarkNet, load_default_landmark_params
+
+    dev = generator.device
+    randn = lambda shape: torch.randn(shape, generator=generator, device=dev)
+    with torch.device(dev):
+        parts = {"bisenet": BiSeNet(), "raft": RAFT(), "landmark": LandmarkNet()}
+    with torch.no_grad():
+        for part in parts.values():
+            for mod in part.modules():
+                if isinstance(mod, Conv):
+                    mod.weight.copy_(randn(mod.weight.shape) / math.sqrt(math.prod(mod.weight.shape[1:])))
+                    if mod.bias is not None:
+                        mod.bias.copy_(randn(mod.bias.shape) * 0.02)
+    out = {name: part.state_dict() for name, part in parts.items()}
+    shipped = load_default_landmark_params()
+    if shipped is not None:
+        out["landmark"] = {k: v.to(dev) for k, v in flax_tree_to_state_dict(shipped).items()}
+    return out
 
 
 def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditioner: bool = False) -> dict:
