@@ -6,14 +6,18 @@
 
 Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: every CUDA C++ kernel of the port, one nvcc each, in parallel,
-     plus the Triton kernel's compile on its first launch;
+  2. build: every CUDA C++ kernel of the port, one nvcc each, in parallel
+     (each entry's registers, shared memory and spills from ptxas, and any
+     wgmma serialization it reports; K1's dynamic shared memory; K1/K4's
+     entries in the built library hold wgmma (HGMMA) and no mma.sync), plus
+     the Triton kernel's compile on its first launch;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, with the stated tolerance, its time, the plain version's time,
      the time of one PyTorch library call computing the same function (where
      one exists; the unfused route for the GEGLU kernels) and the card's
-     bound: K1-K3 at the shapes the swap path gives them, K4-K6 (the training
-     attention) at the training shapes, K7-K9 (the rest of
+     bound (K1, K4 and K12 also print their exp floor: B*H*Nq*Nk ex2 at 16
+     per clock per SM): K1-K3 at the shapes the swap path gives them, K4-K6
+     (the training attention) at the training shapes, K7-K9 (the rest of
      ``vface_tpu.ops``' kernels): K7 at the training shapes, K8 at fp32 up to
      the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4 feed-forward
      (M = 3072, C = 1280); K10-K13 (the archived attention variants and the
@@ -84,6 +88,9 @@ import time
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+SMS = 132  # H100 SXM streaming multiprocessors
+EX2_PER_CLOCK = 16  # ex2 results per clock per SM (the SFU, compute capability 9.0)
+SM_CLOCK_MHZ = 0.0  # the card's maximum SM clock, as nvidia-smi reads it (set by phase_device)
 FRAMES = 6  # frames per window at the reference operating point
 DDIM_STEPS = 50  # sampling steps at the reference operating point
 INVERSION_STEPS = 50  # inversion steps (49 run: skip_last=1)
@@ -114,6 +121,12 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def exp_floor(exps: float) -> float:
+    """ms that ``exps`` exponentials take on the SFUs alone, at the card's
+    maximum SM clock (read by :func:`phase_device`)."""
+    return exps / (EX2_PER_CLOCK * SMS * SM_CLOCK_MHZ * 1e6) * 1e3
+
+
 def phase_device() -> str:
     import torch
 
@@ -124,48 +137,95 @@ def phase_device() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global SM_CLOCK_MHZ
+    SM_CLOCK_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     log("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda, max_sm_clock_mhz=SM_CLOCK_MHZ)
     return smi
 
 
+def _demangle(names: list) -> list:
+    """Kernel names demangled by the toolkit's cu++filt, without parameter types."""
+    from vface_torch.ops import _native
+
+    filt = subprocess.run([os.path.join(os.path.dirname(_native._nvcc()), "cu++filt"), "-p", *names],
+                          capture_output=True, text=True)
+    out = filt.stdout.splitlines() if filt.returncode == 0 else []
+    return out if len(out) == len(names) else names
+
+
 def phase_build() -> None:
+    """Build every kernel; log each entry's registers, static shared memory and
+    spill stores (ptxas), the dynamic shared memory of K1's instantiations, and
+    the tensor-core instructions of K1's entries in the built library (SASS):
+    wgmma (HGMMA) and no mma.sync (HMMA)."""
+    import ctypes
+
     from vface_torch.ops import _native
 
     t0 = time.perf_counter()
-    logs = _native.build()
-    log("build", sources=",".join(_native.SOURCES), seconds=f"{time.perf_counter() - t0:.1f}")
-    for name, text in logs.items():  # ptxas: registers and spill stores of each entry
+    built = _native.build()
+    log("build", sources=",".join(_native.SOURCES), built=",".join(built) or "none",
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    for name in _native.SOURCES:  # the compiler's report, kept beside each library
+        text = _native.lib_path(name).with_suffix(".log").read_text()
         entries, cur = [], None
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                cur = [line.split("'")[1], 0, 0]
+                cur = [line.split("'")[1], 0, 0, 0]
                 entries.append(cur)
             elif "spill stores" in line and cur:
                 cur[2] = int(line.split("bytes spill stores")[0].split(",")[-1])
             elif "Used" in line and cur:
                 cur[1] = int(line.split("Used")[1].split()[0])
-        # the entries' names demangled by the toolkit's cu++filt, without parameter types
-        filt = subprocess.run([os.path.join(os.path.dirname(_native._nvcc()), "cu++filt"), "-p",
-                               *(e[0] for e in entries)], capture_output=True, text=True)
-        names = filt.stdout.splitlines() if filt.returncode == 0 else []
-        names = names if len(names) == len(entries) else [e[0] for e in entries]
+                if "bytes smem" in line:
+                    cur[3] = int(line.split("bytes smem")[0].split(",")[-1])
+        names = _demangle([e[0] for e in entries])
         log("ptxas", source=name, entries=len(entries), spill_store_bytes=sum(e[2] for e in entries),
-            registers=" | ".join(f"{n}: {r}{f' +spill {sp}' if sp else ''}" for n, (_, r, sp) in zip(names, entries)))
+            registers=" | ".join(f"{n}: {r} regs, {sm} B smem{f', spill {sp} B' if sp else ''}"
+                                 for n, (_, r, sp, sm) in zip(names, entries)))
+        for line in text.splitlines():
+            if "arning" in line or "Performance Loss" in line:
+                log("ptxas_warning", source=name, line=line.strip())
+    smem = _native.function("flash_attention", "vface_flash_attention_smem_bytes", [ctypes.c_int])
+    log("k1_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (8, 40, 80)})
+    sass = subprocess.run([os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump"), "-sass",
+                           str(_native.lib_path("flash_attention"))], capture_output=True, text=True, check=True)
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = [0, 0]
+        elif fn and "HGMMA" in line:
+            counts[fn][0] += 1
+        elif fn and "HMMA" in line:
+            counts[fn][1] += 1
+    names = _demangle(list(counts))
+    log("sass", source="flash_attention",
+        entries=" | ".join(f"{n}: {c[0]} HGMMA, {c[1]} HMMA" for n, c in zip(names, counts.values())))
+    if not counts or any(c[0] == 0 or c[1] for c in counts.values()):
+        raise SystemExit("chip_smoke: K1's entries must run wgmma (HGMMA) and no mma.sync (HMMA)")
 
 
-def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, shape):
-    """errs = (max abs error, max relative error); tol = ("abs" or "rel", limit)."""
+def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, shape, exp_ms=None):
+    """errs = (max abs error, max relative error); tol = ("abs" or "rel", limit);
+    exp_ms: the attention forward's exp floor (:func:`exp_floor`), beside the bound."""
     checked = errs[0] if tol[0] == "abs" else errs[1]
+    floor = {} if exp_ms is None else {"exp_floor_ms": f"{exp_ms:.4f}"}
     log("kernel", name=name, shape=shape, max_abs_err=f"{errs[0]:.3e}", max_rel_err=f"{errs[1]:.3e}",
         tol=f"{tol[0]}<={tol[1]:.3e}", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
         library_ms="null" if lib_ms is None else f"{lib_ms:.4f}", bound_ms=f"{bnd[0]:.4f}",
-        bound_by=bnd[1])
+        bound_by=bnd[1], **floor)
     if not checked <= tol[1]:
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version: {checked} > {tol}")
-    return {"name": name, "route": route, "source": source, "replaces": replaces, "shape": shape,
-            "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": lib_ms}
+    row = {"name": name, "route": route, "source": source, "replaces": replaces, "shape": shape,
+           "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+           "bound_by": bnd[1], "library_ms": lib_ms}
+    if exp_ms is not None:
+        row["exp_floor_ms"] = exp_ms
+    return row
 
 
 def _ff_bound(m: int, c: int, inner: int):
@@ -299,7 +359,7 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
         bnd = bound(4.0 * batch * h * n * n * dh, 4 * q.numel() * 2)
         fa_rows.append(_row("flash_attention", "cuda", "vface_torch/csrc/flash_attention.cu",
                             "vface_tpu/ops/pallas_attention.py:547", errs, tol, ms, plain_ms,
-                            lib_ms, bnd, f"({batch},{n},{c})h{h}"))
+                            lib_ms, bnd, f"({batch},{n},{c})h{h}", exp_floor(batch * h * n * n)))
     rows["flash_attention"] = fa_rows
 
     # K2 at the ds1 and ds2 transformer feed-forwards; the library column is
@@ -691,7 +751,7 @@ def phase_train_kernels() -> dict:
             cuda_ms(lambda: FA.flash_attention_stats(q, k, v, h)),
             cuda_ms(lambda: FA.flash_attention_stats_ref(q, k, v, h), reps=3, warmup=1),
             cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))),
-            bound(4.0 * n2dh, 4 * act + 2 * stat), shape))
+            bound(4.0 * n2dh, 4 * act + 2 * stat), shape, exp_floor(b * h * n * n)))
         log("kernel_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05",
             equals_k1="bitwise")
 
@@ -884,7 +944,7 @@ def phase_bench_kernels() -> dict:
                     name, "cuda", f"vface_torch/csrc/{src[name]}", f"vface_tpu/ops/_archive_attention.py:{line[name]}",
                     _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
                     cuda_ms(lambda: fn(q, k, v, h, blk, blk)), cuda_ms(plain, reps=2, warmup=1), cuda_ms(lib),
-                    bnd, shape))
+                    bnd, shape, exp_floor(b * h * n * n) if name == "flash_attention_v6" else None))
                 del got, want
             del q, k, v
         for c, m in BF.CASES:
@@ -1402,7 +1462,7 @@ def kernels_line(rows: dict, launches: dict) -> dict:
         head["max_abs_err"] = max(r["max_abs_err"] for r in sites)
         head["launches"] = launches[name + "_dq" if name == "flash_attention_bwd" else name]
         head["sites"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                                             "max_abs_err")} for r in sites]
+                                             "exp_floor_ms", "max_abs_err") if k in r} for r in sites]
         head.pop("shape")
         out.append(head)
     return {"kernels": out}

@@ -49,6 +49,56 @@ def test_flash_attention_kernel(gen, n, heads, dh):
     assert (got.float() - want).abs().max() <= 2 * ulp
 
 
+def _check_k1_k4(q, k, v, heads):
+    """K1 and K4 on (q, k, v) against their plain version: out within 2 bf16 ulps
+    of its peak, K4's out bit-equal to K1's, m and l within 1e-5 relative."""
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention(q, k, v, heads)
+    out, m, l = FA.flash_attention_stats(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert FA.LAUNCHES["flash_attention_stats"] == before["flash_attention_stats"] + 1
+    assert torch.equal(out, got)
+    want, wm, wl = FA.flash_attention_stats_ref(q, k, v, heads)
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max() <= _ulps(want)
+    assert ((m - wm).abs() / wm.abs().clamp(min=1e-30)).max() <= 1e-5
+    assert ((l - wl).abs() / wl).max() <= 1e-5
+
+
+# K1's tiles are 128 query rows (two warpgroups of 64) by 64 keys: Nq 1 and 65
+# leave the second warpgroup idle, 130 and 300 a ragged one; Nq != Nk both ways
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [
+    (2, 1, 1, 2, 40), (2, 65, 65, 3, 8), (2, 130, 130, 3, 80), (2, 300, 300, 2, 40), (1, 128, 256, 2, 40),
+    (2, 65, 300, 2, 80), (2, 300, 130, 4, 16), (3, 257, 1000, 2, 48)])
+def test_flash_attention_kernel_tiling(gen, b, nq, nk, heads, dh):
+    q = _randn(gen, b, nq, heads * dh)
+    k, v = (_randn(gen, b, nk, heads * dh) for _ in range(2))
+    _check_k1_k4(q, k, v, heads)
+
+
+def test_flash_attention_kernel_reads_nothing_past_its_tensors(gen):
+    """The last head's padded box (dh 40 in 48 columns) and the last tile's rows
+    lie past the tensors' ends: each tensor is a view that ends at its storage's
+    end, or one followed by NaNs. The kernel reads zeros there, so the
+    output is finite and equal to the plain version's."""
+    b, nq, nk, heads, dh = 2, 300, 130, 8, 40
+    sizes = (b * nq * heads * dh, b * nk * heads * dh, b * nk * heads * dh)
+    at_end = [_randn(gen, 8 + n)[8:] for n in sizes]
+    nan_after = [torch.cat([_randn(gen, n), torch.full((4096,), float("nan"), device="cuda",
+                                                        dtype=torch.bfloat16)])[:n] for n in sizes]
+    for flat in (at_end, nan_after):
+        q, k, v = (t.view(b, -1, heads * dh) for t in flat)
+        _check_k1_k4(q, k, v, heads)
+
+
+@pytest.mark.parametrize("b,n,c", [(12, 4096, 320), (12, 1024, 640)])
+def test_flash_attention_kernel_unet_shapes(gen, b, n, c):
+    """The swap's sampling batch at ds1 (dh 40) and ds2 (dh 80)."""
+    q, k, v = (_randn(gen, b, n, c) for _ in range(3))
+    _check_k1_k4(q, k, v, 8)
+
+
 def test_kernels_reject_widths_they_are_not_built_for(gen):
     """dh 24 pads to 32 and C 128 is not a UNet width: no instantiation, so the wrappers raise."""
     q = _randn(gen, 1, 64, 2 * 24)
@@ -333,17 +383,25 @@ def test_archive_kernels(gen, name, n, heads, dh, dtype):
 
 
 def test_archive_kernels_refuse_what_they_do_not_take(gen):
-    """v6 on bf16 runs K1, which is self-attention only: Nq != Nk raises (fp32
-    takes K8, which takes it); no variant has a gradient on the card."""
+    """v6 on bf16 runs K1, Nq != Nk included (fp32 takes K8); no variant has a
+    gradient on the card, and neither has the port's flash_attention at Nq != Nk
+    (the backward kernels are self-attention only)."""
     q, kv = _randn(gen, 1, 128, 80), _randn(gen, 1, 64, 80)
-    with pytest.raises(ValueError, match="k must be"):
-        AA.flash_attention_v6(q, kv, kv, 2, 64, 64)
+    before = FA.LAUNCHES["flash_attention_v6"]
+    got = AA.flash_attention_v6(q, kv, kv, 2, 64, 64)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attention_v6"] == before + 1
+    want = FA.flash_attention_ref(q, kv, kv, 2)
+    assert (got.float() - want.float()).abs().max() <= _ulps(want)
     qf, kvf = q.float(), kv.float()
     assert AA.flash_attention_v6(qf, kvf, kvf, 2, 64, 64).shape == qf.shape
     g = _rand(gen, 1, 64, 80).requires_grad_(True)
     for fn in (AA.flash_attention_v3, AA.flash_attention_v4, AA.flash_attention_v6):
         with pytest.raises(ValueError, match="gradient"):
             fn(g, g, g, 2, 64, 64)
+    gq = _randn(gen, 1, 128, 80).requires_grad_(True)
+    with pytest.raises(ValueError, match="Nq == Nk"):
+        FA.flash_attention(gq, kv, kv, 2)
 
 
 @pytest.mark.parametrize("c", [320, 640])

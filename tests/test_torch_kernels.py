@@ -50,6 +50,21 @@ def test_flash_ref_matches_pallas_v5(dh):
     close(got, np.asarray(want, np.float32), atol=1e-2)
 
 
+def test_flash_ref_matches_pallas_v5_cross_attention():
+    """Nq != Nk (128 queries over 256 keys, dh 40, bf16): the plain version of
+    K1, which the kernel takes at any Nq and Nk, vs _flash_kernel_v5
+    (interpret) over the same 64-key blocks; atol 1e-2 as for Nq == Nk."""
+    rng = np.random.default_rng(7)
+    b, h, dh = 2, 2, 40
+    q = _bf16(rng.normal(size=(b, 128, h * dh)))
+    kv = [_bf16(rng.normal(size=(b, 256, h * dh))) for _ in range(2)]
+    want = flash_attention_v5(*[jnp.asarray(a) for a, _ in (q, *kv)], h, block_q=128, block_k=64,
+                              interpret=True)
+    got = FA.flash_attention_ref(*[x for _, x in (q, *kv)], h)
+    assert got.shape == (b, 128, h * dh) and got.dtype == torch.bfloat16
+    close(got, np.asarray(want, np.float32), atol=1e-2)
+
+
 @pytest.mark.parametrize("n", [256, 300])
 def test_flash_ref_fp32_matches_softmax_attention(n):
     """In fp32 the online softmax is exact algebra: it equals the full softmax

@@ -22,9 +22,8 @@ Routing is JAX's: where ``block_q`` or ``block_k`` (capped at N) does not
 divide Nq or Nk, :func:`~vface_torch.ops.attention.multi_head_attention`
 computes the result, as JAX's XLA path does. Each function counts its
 launches under its own key of ``flash_attention.LAUNCHES``. On the card a
-call the kernel does not take raises: K1 is self-attention only (Nq = Nk)
-with head widths that pad to ``PADDED_DH``, so v6 on bf16 operands with
-Nq != Nk raises; no variant has a gradient (JAX defines no VJP for them).
+call the kernel does not take raises: K1 takes head widths that pad to
+``PADDED_DH``, and no variant has a gradient (JAX defines no VJP for them).
 """
 
 from __future__ import annotations
@@ -68,8 +67,8 @@ def flash_attention_v4(q, k, v, num_heads: int, block_q: int = 1024, block_k: in
 
 def flash_attention_v6(q, k, v, num_heads: int, block_q: int = 1024, block_k: int = 1024) -> torch.Tensor:
     """K12: bf16 operands, fp32 scores, P rounded to bf16 before P.V: K1's
-    kernel on the card (self-attention), K1's plain version on the CPU. fp32
-    operands: v2's function, K8's kernel (plain: over ``block_k``-key blocks)."""
+    kernel on the card, K1's plain version on the CPU. fp32 operands: v2's
+    function, K8's kernel (plain: over ``block_k``-key blocks)."""
     if not FA._tiles(q, k, block_q, block_k):
         return multi_head_attention(q, k, v, num_heads, dtype=q.dtype)
     if q.dtype == torch.float32:
@@ -78,6 +77,5 @@ def flash_attention_v6(q, k, v, num_heads: int, block_q: int = 1024, block_k: in
         return FA.flash_attention_ref(q, k, v, num_heads)
     _refuse_grad("flash_attention_v6", q, k, v)
     out = torch.empty_like(q)
-    FA._launch("flash_attention_v6", "vface_flash_attention_bf16", FA._FWD_ARGS, q, k, v, num_heads, {}, (out,),
-               "flash_attention")
+    FA._launch_fwd("flash_attention_v6", q, k, v, num_heads, (out,))
     return out

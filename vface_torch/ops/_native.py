@@ -48,8 +48,10 @@ def lib_path(name: str) -> Path:
 def build(names=SOURCES) -> dict:
     """Compile every missing library among ``names``, one ``nvcc`` each, all at once.
 
-    Returns {name: compiler log (ptxas register and spill report)}; raises with
-    the compiler's output if any build fails.
+    Returns {name: compiler log (ptxas register and spill report)} of the
+    libraries built now; each log is also kept beside its library
+    (``lib_path(name).with_suffix(".log")``). Raises with the compiler's output
+    if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -64,7 +66,7 @@ def build(names=SOURCES) -> dict:
     for name, (proc, tmp, out) in procs.items():
         log = proc.communicate()[0].decode(errors="replace")
         logs[name] = log
-        (BUILD_DIR / f"{name}.log").write_text(log)
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
         else:

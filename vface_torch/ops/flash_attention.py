@@ -5,11 +5,12 @@ Kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
 ``vface_tpu/ops/pallas_attention.py``:
 
 * K1 ``flash_attention`` (``flash_attention_v5`` / ``_flash_kernel_v5``):
-  multi-head attention over (B, N, H*dh) bf16, fp32 scores times dh^-0.5, an
-  online softmax with fp32 running max and sum, P rounded to bf16 before the
-  P.V product, fp32 accumulation, bf16 output;
+  multi-head attention of (B, Nq, H*dh) bf16 queries over (B, Nk, H*dh) keys
+  and values, fp32 scores times dh^-0.5, an online softmax with fp32 running
+  max and sum, P rounded to bf16 before the P.V product, fp32 accumulation,
+  bf16 output;
 * K4 ``flash_attention_stats`` (``_flash_v5_stats``): K1 that also writes
-  each row's final m and l, fp32 (B*H, N), for the backward;
+  each row's final m and l, fp32 (B*H, Nq), for the backward;
 * K6 ``flash_attention_fp32`` (``_flash_v2_impl``): the same attention with P
   kept at fp32 precision in P.V, which the backward uses to recompute O;
 * K5 ``flash_attention_bwd`` (``flash_attention_bwd``): dQ, dK and dV from q,
@@ -22,9 +23,11 @@ Kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
   k-tiled v1): attention over (B, Nq, H*dh) x (B, Nk, H*dh), any input dtype
   cast to fp32, fp32 products on the CUDA cores, output in the input dtype.
 
-K1 and K4-K6 are tensor-core bound at the UNet's shapes (ds1 N = 4096,
-dh = 40; ds2 N = 1024, dh = 80): they keep S, P and dS on chip, run the
-products with ``mma.sync`` and read the heads strided out of (B, N, H*dh)
+At the UNet's shapes (ds1 N = 4096, dh = 40; ds2 N = 1024, dh = 80) K1 and
+K4 are bound by the exponentials at ds1 and by the tensor cores and the
+exponentials together at ds2; they run both products on ``wgmma`` with a TMA
+ring of K/V tiles. K5 and K6 are tensor-core bound and run ``mma.sync``. All
+keep S, P and dS on chip and read the heads strided out of (B, N, H*dh)
 without a split-heads copy. K8 is bound by the fp32 rate of the CUDA cores.
 See the sources for the tiling.
 
@@ -73,6 +76,8 @@ LAUNCHES = dict.fromkeys(
      "flash_attention_v1", "flash_attention_v3", "flash_attention_v4", "flash_attention_v6"), 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_K1_ARGS = [_P] * 4 + [_I] * 5 + [_F, _P]
+_K4_ARGS = [_P] * 6 + [_I] * 5 + [_F, _P]
 _FWD_ARGS = [_P] * 4 + [_I] * 4 + [_F, _P]
 _STATS_ARGS = [_P] * 6 + [_I] * 4 + [_F, _P]
 _DQ_ARGS = [_P] * 8 + [_I] * 4 + [_F, _P]
@@ -206,7 +211,16 @@ def _check(name: str, q: torch.Tensor, tensors: dict) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
 
 
-def _launch(kernel: str, symbol: str, argtypes, q, k, v, num_heads: int, extra: dict, outs, lib):
+def _check_width(kernel: str, d: int, num_heads: int) -> None:
+    dh = d // num_heads
+    if d % num_heads or dh % 8 or -(-dh // 16) * 16 not in PADDED_DH:
+        raise ValueError(f"{kernel}: head width {d}/{num_heads} must be a multiple of 8 "
+                         f"that pads to one of {PADDED_DH}")
+
+
+def _launch(kernel: str, symbol: str, argtypes, q, k, v, num_heads: int, extra: dict, outs):
+    """Launch one of ``csrc/flash_attention_bwd.cu``'s kernels (K6, K7 at bf16, K5):
+    self-attention, k and v have q's shape."""
     b, n, d = q.shape
     dh = d // num_heads
     bf = torch.bfloat16
@@ -215,13 +229,33 @@ def _launch(kernel: str, symbol: str, argtypes, q, k, v, num_heads: int, extra: 
     for arg, t in extra.items():
         ops[arg] = (t, bf, (b, n, d)) if t.dtype == bf else (t, torch.float32, stat)
     _check(kernel, q, ops)
-    if d % num_heads or dh % 8 or -(-dh // 16) * 16 not in PADDED_DH:
-        raise ValueError(f"{kernel}: head width {d}/{num_heads} must be a multiple of 8 "
-                         f"that pads to one of {PADDED_DH}")
-    fn = _native.function(lib, symbol, argtypes)
+    _check_width(kernel, d, num_heads)
+    fn = _native.function("flash_attention_bwd", symbol, argtypes)
     ptrs = [t.data_ptr() for t in (q, k, v, *extra.values(), *outs)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _native.check(fn(*ptrs, b, n, num_heads, dh, float(dh**-0.5), stream), kernel)
+    LAUNCHES[kernel] += 1
+
+
+def _launch_fwd(kernel: str, q, k, v, num_heads: int, outs) -> None:
+    """Launch K1's kernel on (B, Nq, D) queries over (B, Nk, D) keys and values:
+    ``outs`` = (out,), or (out, m, l) for its STATS instantiation (K4)."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    dh = d // num_heads
+    bf = torch.bfloat16
+    ops = {"q": (q, bf, (b, nq, d)), "k": (k, bf, (b, nk, d)), "v": (v, bf, (b, nk, d)),
+           "out": (outs[0], bf, (b, nq, d))}
+    for arg, t in zip("ml", outs[1:]):
+        ops[arg] = (t, torch.float32, (b * num_heads, nq))
+    _check(kernel, q, ops)
+    _check_width(kernel, d, num_heads)
+    stats = len(outs) == 3
+    fn = _native.function("flash_attention", "vface_flash_attention_" + ("stats_" if stats else "") + "bf16",
+                          _K4_ARGS if stats else _K1_ARGS)
+    ptrs = [t.data_ptr() for t in (q, k, v, *outs)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
     LAUNCHES[kernel] += 1
 
 
@@ -234,8 +268,7 @@ def _flash_attention(q, k, v, num_heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return _online(q, k, v, num_heads, round_p=True)[0]
     out = torch.empty_like(q)
-    _launch("flash_attention", "vface_flash_attention_bf16", _FWD_ARGS, q, k, v, num_heads, {}, (out,),
-            "flash_attention")
+    _launch_fwd("flash_attention", q, k, v, num_heads, (out,))
     return out
 
 
@@ -245,8 +278,7 @@ def flash_attention_stats(q, k, v, num_heads: int):
         return flash_attention_stats_ref(q, k, v, num_heads)
     out = torch.empty_like(q)
     m, l = _stats(q.shape[0] * num_heads, q), _stats(q.shape[0] * num_heads, q)
-    _launch("flash_attention_stats", "vface_flash_attention_stats_bf16", _STATS_ARGS, q, k, v, num_heads, {},
-            (out, m, l), "flash_attention")
+    _launch_fwd("flash_attention_stats", q, k, v, num_heads, (out, m, l))
     return out, m, l
 
 
@@ -255,8 +287,7 @@ def flash_attention_fp32(q, k, v, num_heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_fp32_ref(q, k, v, num_heads)
     out = torch.empty_like(q)
-    _launch("flash_attention_fp32", "vface_flash_attention_fp32p_bf16", _FWD_ARGS, q, k, v, num_heads, {},
-            (out,), "flash_attention_bwd")
+    _launch("flash_attention_fp32", "vface_flash_attention_fp32p_bf16", _FWD_ARGS, q, k, v, num_heads, {}, (out,))
     return out
 
 
@@ -267,9 +298,9 @@ def flash_attention_bwd(q, k, v, do, m, l, dd, num_heads: int):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     extra = {"do": do, "m": m, "l": l, "dd": dd}
     _launch("flash_attention_bwd_dq", "vface_flash_attention_bwd_dq_bf16", _DQ_ARGS, q, k, v, num_heads, extra,
-            (dq,), "flash_attention_bwd")
+            (dq,))
     _launch("flash_attention_bwd_dkv", "vface_flash_attention_bwd_dkv_bf16", _DKV_ARGS, q, k, v, num_heads,
-            extra, (dk, dv), "flash_attention_bwd")
+            extra, (dk, dv))
     return dq, dk, dv
 
 
@@ -315,7 +346,7 @@ def flash_attention_v2_stats(q, k, v, num_heads: int, block_k: int = 1024):
         _launch_f32("flash_attention_v2_stats", True, q, k, v, num_heads, (out, m, l))
     else:
         _launch("flash_attention_v2_stats", "vface_flash_attention_fp32p_stats_bf16", _STATS_ARGS, q, k, v,
-                num_heads, {}, (out, m, l), "flash_attention_bwd")
+                num_heads, {}, (out, m, l))
     return out, m, l
 
 
@@ -349,11 +380,15 @@ def _refuse_grad_off_bf16(name: str, q: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Self-attention over (B, N, H*dh), the port of ``flash_attention_v5``;
-    differentiable (K4 forward, K6 + K5 backward, bf16) where a gradient is
-    needed, K1 where none is (K8 for fp32 operands)."""
+    """Attention of (B, Nq, H*dh) queries over (B, Nk, H*dh) keys and values, the
+    port of ``flash_attention_v5``; differentiable (K4 forward, K6 + K5
+    backward, bf16, Nq == Nk on the card) where a gradient is needed, K1 where
+    none is (K8 for fp32 operands)."""
     if needs_grad(q, k, v):
         _refuse_grad_off_bf16("flash_attention", q)
+        if q.device.type != "cpu" and q.shape[1] != k.shape[1]:
+            raise ValueError("flash_attention: a gradient needs Nq == Nk (the backward kernels K6 and K5 "
+                             "are self-attention only)")
         return _FlashAttention.apply(q, k, v, num_heads, False, flash_attention_stats)
     if q.dtype == torch.float32 and q.device.type != "cpu":
         return _flash_attention_v1(q, k, v, num_heads)
