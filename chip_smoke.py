@@ -9,25 +9,31 @@ Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA C++ kernel of the port, one nvcc each, in parallel
      (each entry's registers, shared memory and spills from ptxas, and any
-     wgmma serialization it reports; K1's and the GEGLU kernels' dynamic
-     shared memory; every entry of the K1/K4 and GEGLU libraries holds wgmma
-     (HGMMA) and no mma.sync), plus the Triton kernel's compile on its first
-     launch;
+     wgmma serialization it reports; the attention and GEGLU kernels' dynamic
+     shared memory; every entry of the forward attention (K1, K4, K6, K7),
+     backward attention (K5) and GEGLU libraries holds wgmma (HGMMA) and no
+     mma.sync, and none of them spills), plus the Triton kernel's compile on
+     its first launch;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, with the stated tolerance, its time, the plain version's time,
      the time of one PyTorch library call computing the same function (where
      one exists; the unfused route for the GEGLU kernels) and the card's
      bound (K1, K4 and K12 also print their exp floor: B*H*Nq*Nk ex2 at 16
      per clock per SM): K1-K3 at the shapes the swap path gives them, K4-K6
-     (the training attention) at the training shapes, K7-K9 (the rest of
-     ``vface_tpu.ops``' kernels): K7 at the training shapes, K8 at fp32 up to
+     (the training attention) at the training shapes and K6, K5 at a ragged
+     Nq != Nk, K5 bit for bit over two launches, K7-K9 (the rest of
+     ``vface_tpu.ops``' kernels): K7 at the training shapes and a ragged
+     Nq != Nk, K8 at fp32 up to
      the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4 feed-forward
      (M = 3072, C = 1280) and the middle block's (M = 768); K10-K13 (the
      archived attention variants and the GEGLU row-tile sweep) at the kernel
      benches' shapes; with ``--previous`` (the parent's output in the same
      call) each row's log line also shows the parent's time at its shape
      (K13, whose tiles changed: the parent's fastest tile at the same
-     operands), which the ``kernels`` line leaves out;
+     operands), which the ``kernels`` line leaves out; ``k1_tiles`` lines time
+     the forward kernel's two query tiles (128 and 192 rows) for K1, K4 and
+     K6 at every batch the main paths give it (1, 2, 4, 6, 12 at ds1 and
+     ds2) beside the tile the wrapper picks;
   4. bench: the kernel-bench entry points (``vface_torch.bench.attention``,
      ``.attn_v56``, ``.ff_tile``) at their own shapes, K10-K13's main path,
      with the launches of each kernel;
@@ -44,7 +50,8 @@ Phases, one line each:
   7. ops: the ``vface_torch.ops`` entry points at full width, counters reset
      first: ``flash_attention_v2`` forward and backward at the training shapes
      (K7, then K6 and K5; gradients against the plain versions under the
-     precision gate), ``flash_attention_v1`` at the N = 16384 site and
+     precision gate), ``flash_attention``'s gradient at a ragged Nq != Nk
+     (K4, K6, K5 against the plain path), ``flash_attention_v1`` at the N = 16384 site and
      ``flash_attention`` on fp32 operands (K8), ``geglu_ff_wide`` at ds4 (K9,
      against the unfused route on the model's weights),
      and one full-width UNet eval on the 3-chunk window batch per fusion mode
@@ -220,14 +227,18 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "arning" in line or "Performance Loss" in line:
                 log("ptxas_warning", source=name, line=line.strip())
-    smem = _native.function("flash_attention", "vface_flash_attention_smem_bytes", [ctypes.c_int])
-    log("k1_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (8, 40, 80)})
+    smem = _native.function("flash_attention", "vface_flash_attention_smem_bytes", [ctypes.c_int] * 2)
+    log("k1_dynamic_smem", **{f"dh{dh}_nc{nc}": smem(dh, nc) for dh in (8, 40, 80) for nc in (2, 3)})
+    smem = _native.function("flash_attention_bwd", "vface_flash_attention_bwd_smem_bytes", [ctypes.c_int])
+    log("k5_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (8, 40, 80)})
     smem = _native.function("geglu_ff", "vface_geglu_ff_smem_bytes", [ctypes.c_int] * 3)
     log("geglu_dynamic_smem", **{f"fused_c{c}_tm{tm}": smem(c, tm, 0) for c, tm in ((64, 128), (320, 64), (320, 128))},
         **{f"gemm{gm}": smem(0, 128, gm) for gm in (1, 2)})
-    if spills["geglu_ff"]:
-        raise SystemExit("chip_smoke: the GEGLU kernels spill registers")
-    for name in ("flash_attention", "geglu_ff"):
+    wgmma_sources = ("flash_attention", "flash_attention_bwd", "geglu_ff")
+    spilled = [name for name in wgmma_sources if spills[name]]
+    if spilled:
+        raise SystemExit(f"chip_smoke: the wgmma kernels of {spilled} spill registers")
+    for name in wgmma_sources:
         sass = subprocess.run([os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump"), "-sass",
                                str(_native.lib_path(name))], capture_output=True, text=True, check=True)
         counts, fn = {}, None
@@ -775,11 +786,23 @@ def phase_small_reference(seed: int) -> None:
         raise SystemExit("chip_smoke: the card's tiny swap disagrees with the CPU's")
 
 
+# the ragged cross-attention case of K6, K7 and K5 (dh 40): Nq and Nk of
+# neither tile's multiple, queries 4x the keys
+RAGGED_NQ, RAGGED_NK = 4096 + 17, 1024 + 5
+
+
+def _shape(b: int, nq: int, nk: int, c: int, h: int) -> str:
+    return f"({b},{nq},{c})h{h}" if nq == nk else f"({b},{nq}x{nk},{c})h{h}"
+
+
 def phase_train_kernels() -> dict:
     """K4, K6 and K5 against their plain versions at the training shapes, batch 1:
-    ds1 (1, 4096, 320) and ds2 (1, 1024, 640), 8 heads, bf16. Limit: 2 bf16 ulps
-    at the peak of each output (K4 also checks m and l to 1e-5 relative); K6
-    and K5 also pass :func:`precision_gate`.
+    ds1 (1, 4096, 320) and ds2 (1, 1024, 640), 8 heads, bf16; K6 and K5 also
+    at a ragged Nq != Nk (queries (1, 4113, 320) over keys (1, 1029, 320)).
+    Limit: 2 bf16 ulps at the peak of each output (K4 also checks m and l to
+    1e-5 relative, and its output against K1's bit for bit); K6 and K5 also
+    pass :func:`precision_gate`; K5's two launches on the same inputs are
+    equal bit for bit.
 
     Bound: the function's least FLOPs (2 N^2-products for K4 and K6, 5 for K5:
     S, dP, dQ, dK, dV) at the bf16 tensor-core peak, which all three use (K6
@@ -796,16 +819,17 @@ def phase_train_kernels() -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
     rows = {"flash_attention_stats": [], "flash_attention_bwd": [], "flash_attention_fp32": []}
-    src = "vface_torch/csrc/flash_attention_bwd.cu"
-    for n, c in ((4096, 320), (1024, 640)):
+    fwd_src = "vface_torch/csrc/flash_attention.cu"
+    for nq, nk, c in ((4096, 4096, 320), (1024, 1024, 640), (RAGGED_NQ, RAGGED_NK, 320)):
         h, b = 8, 1
         dh = c // h
-        q, k, v, do = randn(b, n, c), randn(b, n, c), randn(b, n, c), randn(b, n, c)
-        shape = f"({b},{n},{c})h{h}"
-        split = lambda t: t.view(b, n, h, dh).transpose(1, 2)
-        n2dh = float(b * h * n * n * dh)
-        act = q.numel() * 2  # bytes of one (B, N, C) bf16 tensor
-        stat = b * h * n * 4  # bytes of one fp32 (B*H, N) statistic
+        q, do = randn(b, nq, c), randn(b, nq, c)
+        k, v = randn(b, nk, c), randn(b, nk, c)
+        shape = _shape(b, nq, nk, c, h)
+        split = lambda t: t.view(b, -1, h, dh).transpose(1, 2)
+        n2dh = float(b * h * nq * nk * dh)
+        act_q, act_k = q.numel() * 2, k.numel() * 2  # bytes of one bf16 query-side / key-side tensor
+        stat = b * h * nq * 4  # bytes of one fp32 (B*H, Nq) statistic
 
         out, m, l = FA.flash_attention_stats(q, k, v, h)
         want, wm, wl = FA.flash_attention_stats_ref(q, k, v, h)
@@ -816,14 +840,14 @@ def phase_train_kernels() -> dict:
             raise SystemExit(f"chip_smoke: flash_attention_stats m/l disagree: {rel_ml} > 1e-5")
         if not torch.equal(out, FA.flash_attention(q, k, v, h)):
             raise SystemExit("chip_smoke: flash_attention_stats's output is not K1's bit for bit")
-        rows["flash_attention_stats"].append(_row(
-            "flash_attention_stats", "cuda", "vface_torch/csrc/flash_attention.cu",
-            "vface_tpu/ops/pallas_attention.py:658", _errs(out, want),
-            ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
-            cuda_ms(lambda: FA.flash_attention_stats(q, k, v, h)),
-            cuda_ms(lambda: FA.flash_attention_stats_ref(q, k, v, h), reps=3, warmup=1),
-            cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))),
-            bound(4.0 * n2dh, 4 * act + 2 * stat), shape, exp_floor(b * h * n * n)))
+        if nq == nk:  # K4's rows: the training sites
+            rows["flash_attention_stats"].append(_row(
+                "flash_attention_stats", "cuda", fwd_src, "vface_tpu/ops/pallas_attention.py:658", _errs(out, want),
+                ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
+                cuda_ms(lambda: FA.flash_attention_stats(q, k, v, h)),
+                cuda_ms(lambda: FA.flash_attention_stats_ref(q, k, v, h), reps=3, warmup=1),
+                cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))),
+                bound(4.0 * n2dh, 2 * act_q + 2 * act_k + 2 * stat), shape, exp_floor(b * h * nq * nk)))
         log("kernel_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05",
             equals_k1="bitwise")
 
@@ -834,22 +858,32 @@ def phase_train_kernels() -> dict:
         precision_gate("flash_attention_fp32", shape, o6, want6, want)
         qf, kf, vf = (split(t).float() for t in (q, k, v))
         rows["flash_attention_fp32"].append(_row(
-            "flash_attention_fp32", "cuda", src, "vface_tpu/ops/pallas_attention.py:143", _errs(o6, want6),
+            "flash_attention_fp32", "cuda", fwd_src, "vface_tpu/ops/pallas_attention.py:143", _errs(o6, want6),
             ("abs", 2 * bf16_ulp(want6.float().abs().max().item())),
             cuda_ms(lambda: FA.flash_attention_fp32(q, k, v, h)),
             cuda_ms(lambda: FA.flash_attention_fp32_ref(q, k, v, h), reps=3, warmup=1),
             cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
-            bound(4.0 * n2dh, 4 * act), shape))
+            bound(4.0 * n2dh, 2 * act_q + 2 * act_k), shape))
+        del qf, kf, vf
 
         dd = FA.rowsum_do_o(do, o6, h)
         got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+        again = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
         want5 = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, g) for a, g in zip(again, got))
         # each gradient against 2 ulps of its own peak; the row reports the worst margin
         ratios = [_errs(gi, wi)[0] / (2 * bf16_ulp(wi.float().abs().max().item())) for gi, wi in zip(got, want5)]
         worst = max(range(3), key=lambda i: ratios[i])
         errs = _errs(got[worst], want5[worst])
-        log("kernel_bwd_check", shape=shape, dq_dk_dv_err_over_tol=",".join(f"{r:.3f}" for r in ratios))
+        dq_ms = cuda_ms(lambda: FA._launch_bwd("flash_attention_bwd_dq", "vface_flash_attention_bwd_dq_bf16",
+                                               FA._DQ_ARGS, q, k, v, do, h, (m, l, dd), (again[0],)))
+        dkv_ms = cuda_ms(lambda: FA._launch_bwd("flash_attention_bwd_dkv", "vface_flash_attention_bwd_dkv_bf16",
+                                                FA._DKV_ARGS, q, k, v, do, h, (m, l, dd), again[1:]))
+        log("kernel_bwd_check", shape=shape, dq_dk_dv_err_over_tol=",".join(f"{r:.3f}" for r in ratios),
+            two_launches="bitwise" if same else "differ", dq_ms=f"{dq_ms:.4f}", dkv_ms=f"{dkv_ms:.4f}")
+        if not same:
+            raise SystemExit("chip_smoke: two launches of flash_attention_bwd differ")
         yard = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h, round_p=True)
         for gname, gi, wi, yi in zip(("dq", "dk", "dv"), got, want5, yard):
             precision_gate(f"flash_attention_bwd.{gname}", shape, gi, wi, yi)
@@ -857,21 +891,53 @@ def phase_train_kernels() -> dict:
         sdpa_out = F.scaled_dot_product_attention(*leaves)
         dsplit = split(do)
         rows["flash_attention_bwd"].append(_row(
-            "flash_attention_bwd", "cuda", src, "vface_tpu/ops/pallas_attention.py:444", errs,
+            "flash_attention_bwd", "cuda", "vface_torch/csrc/flash_attention_bwd.cu",
+            "vface_tpu/ops/pallas_attention.py:444", errs,
             ("abs", 2 * bf16_ulp(want5[worst].float().abs().max().item())),
             cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)),
             cuda_ms(lambda: FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h), reps=3, warmup=1),
             cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
-            bound(10.0 * n2dh, 7 * act + 3 * stat), shape))
+            bound(10.0 * n2dh, 3 * act_q + 4 * act_k + 3 * stat), shape))
+        del leaves, sdpa_out, got, again, want5, yard
     return rows
+
+
+def phase_k1_tiles() -> None:
+    """The forward kernel's two query tiles (``consumers`` 2 and 3: 128 and 192
+    rows per CTA) timed for K1, K4 and K6 at every batch the main paths give
+    it, at ds1 and ds2 (8 heads), beside the tile ``k1_consumers`` picks."""
+    import torch
+
+    from vface_torch.ops import flash_attention as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for n, c in ((4096, 320), (1024, 640)):
+        for b in (1, 2, 4, 6, 12):
+            h = 8
+            dh = c // h
+            q, k, v = (torch.randn((b, n, c), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+            out = torch.empty_like(q)
+            m = torch.empty((b * h, n), dtype=torch.float32, device=dev)
+            l = torch.empty_like(m)
+            times = {}
+            for name, outs, split in (("k1", (out,), False), ("k4", (out, m, l), False), ("k6", (out,), True)):
+                for nc in FA.built_consumers(split, dh):
+                    launch = lambda: FA._launch_fwd("flash_attention", q, k, v, h, outs, split, nc)
+                    times[f"{name}_nc{nc}_ms"] = f"{cuda_ms(launch):.4f}"
+            log("k1_tiles", shape=f"({b},{n},{c})h{h}", picks=FA.k1_consumers(b * h, n, dev, False, dh),
+                picks_k6=FA.k1_consumers(b * h, n, dev, True, dh), **times)
+            del q, k, v, out, m, l
+    reset_counts()
 
 
 def phase_ops_kernels() -> dict:
     """K7, K8 and K9 against their plain versions on the card; returns the rows.
 
-    K7 (bf16, K6's kernel with the stats epilogue) at the training shapes:
-    output equal to K6's bit for bit, m and l within 1e-5 relative, 2 bf16 ulps
-    against the plain version, and the precision gate. K8 at fp32 (1, 4096,
+    K7 (bf16, K6's kernel with the stats epilogue) at the training shapes and
+    at the ragged Nq != Nk of :func:`phase_train_kernels`: output equal to
+    K6's bit for bit, m and l within 1e-5 relative, 2 bf16 ulps against the
+    plain version, and the precision gate. K8 at fp32 (1, 4096,
     320) and at the 1024^2 ds1 site (1, 16384, 320), within 1e-5 of the
     output's peak (fp32 summation order), and at bf16 (1, 4096, 320), within 2
     ulps of K6's plain version (the same function). K9 at the ds4 feed-forward,
@@ -896,11 +962,11 @@ def phase_ops_kernels() -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     randn = lambda *s, dtype=torch.bfloat16, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(dtype)
     rows = {"flash_attention_v2_stats": [], "flash_attention_v1": [], "geglu_ff_wide": []}
-    for n, c in ((4096, 320), (1024, 640)):
+    for nq, nk, c in ((4096, 4096, 320), (1024, 1024, 640), (RAGGED_NQ, RAGGED_NK, 320)):
         h, b = 8, 1
         dh = c // h
-        q, k, v = randn(b, n, c), randn(b, n, c), randn(b, n, c)
-        shape = f"({b},{n},{c})h{h}"
+        q, k, v = randn(b, nq, c), randn(b, nk, c), randn(b, nk, c)
+        shape = _shape(b, nq, nk, c, h)
         out, m, l = FA.flash_attention_v2_stats(q, k, v, h)
         want, wm, wl = FA.flash_attention_v2_stats_ref(q, k, v, h)
         torch.cuda.synchronize()
@@ -910,16 +976,17 @@ def phase_ops_kernels() -> dict:
         if not (rel_ml <= 1e-5 and bitwise):
             raise SystemExit("chip_smoke: flash_attention_v2_stats's m/l disagree or its output is not K6's")
         precision_gate("flash_attention_v2_stats", shape, out, want, FA.flash_attention_stats_ref(q, k, v, h)[0])
-        split = lambda t: t.view(b, n, h, dh).transpose(1, 2).float()
+        split = lambda t: t.view(b, -1, h, dh).transpose(1, 2).float()
         qf, kf, vf = split(q), split(k), split(v)
         rows["flash_attention_v2_stats"].append(_row(
-            "flash_attention_v2_stats", "cuda", "vface_torch/csrc/flash_attention_bwd.cu",
+            "flash_attention_v2_stats", "cuda", "vface_torch/csrc/flash_attention.cu",
             "vface_tpu/ops/pallas_attention.py:302", _errs(out, want),
             ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
             cuda_ms(lambda: FA.flash_attention_v2_stats(q, k, v, h)),
             cuda_ms(lambda: FA.flash_attention_v2_stats_ref(q, k, v, h), reps=3, warmup=1),
             cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
-            bound(4.0 * b * h * n * n * dh, 4 * q.numel() * 2 + 2 * b * h * n * 4), shape))
+            bound(4.0 * b * h * nq * nk * dh, (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * h * nq * 4), shape))
+        del qf, kf, vf
 
     for n, dtype in ((4096, torch.float32), (16384, torch.float32), (4096, torch.bfloat16)):
         h, b, c = 8, 1, 320
@@ -1222,7 +1289,8 @@ def phase_ops(model, frames: int, seed: int) -> dict:
 
     flash_attention_v2 forward and backward with autograd at the training
     shapes (bf16, batch 1), gradients against the plain path (2 ulps and the
-    precision gate); flash_attention_v1 at the N = 16384 fp32 site and the
+    precision gate); ``flash_attention``'s gradient at a ragged Nq != Nk
+    against the plain path (2 ulps); flash_attention_v1 at the N = 16384 fp32 site and the
     port's flash_attention on fp32 operands (K8); geglu_ff_wide at ds4 with the
     serving model's weights, against the unfused route; and one UNet eval on
     the 3-chunk window batch (b = 18 at the 64^2 latent, bf16, kernels on) per
@@ -1263,6 +1331,25 @@ def phase_ops(model, frames: int, seed: int) -> dict:
         for gname, gi, wi, yi in zip(("dq", "dk", "dv"), got, want, yard):
             precision_gate(f"flash_attention_v2.{gname}", shape, gi, wi, yi)
         del leaves, out, got, want, yard
+
+    # the UNet's entry point with a gradient at Nq != Nk (K4, then K6 and K5)
+    # against the same autograd graph through the plain versions
+    h = 8
+    q, do = randn(1, RAGGED_NQ, 320), randn(1, RAGGED_NQ, 320)
+    k, v = randn(1, RAGGED_NK, 320), randn(1, RAGGED_NK, 320)
+    grads = {}
+    for name, fn in (("kernels", FA.flash_attention), ("plain", FA.flash_attention_ref)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves, h).backward(do)
+        grads[name] = [x.grad for x in leaves]
+    torch.cuda.synchronize()
+    ratios = [_errs(gi, wi)[0] / (2 * bf16_ulp(wi.float().abs().max().item()))
+              for gi, wi in zip(grads["kernels"], grads["plain"])]
+    log("ops_cross_grad", shape=_shape(1, RAGGED_NQ, RAGGED_NK, 320, h),
+        dq_dk_dv_err_over_tol=",".join(f"{r:.3f}" for r in ratios))
+    if not max(ratios) <= 1.0:
+        raise SystemExit("chip_smoke: flash_attention's gradients at Nq != Nk disagree with the plain path")
+    del q, k, v, do, grads
 
     q = randn(1, 16384, 320, dtype=torch.float32)
     out = O.flash_attention_v1(q, q, q, 8)
@@ -1491,7 +1578,8 @@ def phase_train_reference(model, seed: int) -> None:
 
 
 def phase_profile_train(model, seed: int, path: str) -> None:
-    """CUDA time by kernel over one full-width train step (torch.profiler)."""
+    """CUDA time by kernel over one full-width train step (torch.profiler); the
+    table at PATH holds every op and kernel, the log line the 25 largest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1518,7 +1606,7 @@ def phase_profile_train(model, seed: int, path: str) -> None:
     total = sum(e.self_device_time_total for e in events) / 1e3
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as fh:
-        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80))
+        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=-1))  # every op and kernel
     log("profile_train", what="loss + backward, no optimizer step", wall_ms=f"{wall_ms:.1f}",
         device_ms=f"{total:.1f}", device_busy=f"{total / wall_ms:.3f}", table=path)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
@@ -1564,6 +1652,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(batch=2 * FRAMES, vae_batch=FRAMES)
     rows.update(phase_train_kernels())
+    phase_k1_tiles()
     rows.update(phase_ops_kernels())
     rows.update(phase_bench_kernels())
     bench_launches = phase_bench(args.bench_reps)

@@ -66,8 +66,9 @@ def _check_k1_k4(q, k, v, heads):
     assert ((l - wl).abs() / wl).max() <= 1e-5
 
 
-# K1's tiles are 128 query rows (two warpgroups of 64) by 64 keys: Nq 1 and 65
-# leave the second warpgroup idle, 130 and 300 a ragged one; Nq != Nk both ways
+# K1's tiles are 128 or 192 query rows (two or three warpgroups of 64) by 64
+# keys: Nq 1 and 65 leave warpgroups idle, 130 and 300 a ragged one; Nq != Nk
+# both ways
 @pytest.mark.parametrize("b,nq,nk,heads,dh", [
     (2, 1, 1, 2, 40), (2, 65, 65, 3, 8), (2, 130, 130, 3, 80), (2, 300, 300, 2, 40), (1, 128, 256, 2, 40),
     (2, 65, 300, 2, 80), (2, 300, 130, 4, 16), (3, 257, 1000, 2, 48)])
@@ -75,6 +76,28 @@ def test_flash_attention_kernel_tiling(gen, b, nq, nk, heads, dh):
     q = _randn(gen, b, nq, heads * dh)
     k, v = (_randn(gen, b, nk, heads * dh) for _ in range(2))
     _check_k1_k4(q, k, v, heads)
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [(2, 300, 130, 2, 40), (1, 65, 300, 2, 80), (2, 130, 130, 3, 16)])
+def test_forward_tiles_agree_bit_for_bit(gen, b, nq, nk, heads, dh):
+    """The forward kernel at 128 and 192 query rows per CTA: each query row is
+    computed by one warpgroup in the same order either way, so K1, K4 (m and l
+    too) and K6 give the same bits at both tiles (K6 at dh 80 is built at 128
+    rows only)."""
+    q = _randn(gen, b, nq, heads * dh)
+    k, v = (_randn(gen, b, nk, heads * dh) for _ in range(2))
+    for split, stats in ((False, False), (False, True), (True, False)):
+        got = []
+        for nc in FA.CONSUMERS:
+            if nc not in FA.built_consumers(split, dh):
+                continue
+            outs = (torch.empty_like(q),)
+            if stats:
+                outs += tuple(torch.empty((b * heads, nq), dtype=torch.float32, device="cuda") for _ in range(2))
+            FA._launch_fwd("flash_attention", q, k, v, heads, outs, split, nc)
+            got.append(outs)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(got[0], got[-1]))
 
 
 def test_flash_attention_kernel_reads_nothing_past_its_tensors(gen):
@@ -160,6 +183,17 @@ def _rel_l2(got, want):
 PRECISION_GATE = 0.25
 
 TRAIN_SHAPES = [(300, 2, 40), (130, 3, 16), (300, 2, 80), (130, 2, 48)]  # ragged N; dh pads to 48, 16, 80, 48
+# K6, K7 and K5: the self-attention shapes at b = 2, then Nq != Nk both ways
+# (ragged, a whole 128-row tile of queries over 320 keys, dh 16)
+CROSS_SHAPES = [(2, n, n, heads, dh) for n, heads, dh in TRAIN_SHAPES] + [
+    (2, 300, 130, 2, 40), (2, 128, 320, 2, 80), (2, 130, 300, 3, 16), (1, 1000, 257, 2, 48)]
+
+
+def _qkv(gen, b, nq, nk, heads, dh, count=3):
+    """q (b, nq, heads * dh), k and v (b, nk, ...), and with count 4 also dO (b, nq, ...)."""
+    q = _randn(gen, b, nq, heads * dh)
+    k, v = (_randn(gen, b, nk, heads * dh) for _ in range(2))
+    return (q, k, v) if count == 3 else (q, k, v, _randn(gen, b, nq, heads * dh))
 
 
 @pytest.mark.parametrize("n,heads,dh", TRAIN_SHAPES)
@@ -179,12 +213,12 @@ def test_flash_attention_stats_kernel(gen, n, heads, dh):
     assert ((l - wl).abs() / wl).max() <= 1e-5
 
 
-@pytest.mark.parametrize("n,heads,dh", TRAIN_SHAPES)
-def test_flash_attention_fp32_kernel(gen, n, heads, dh):
+@pytest.mark.parametrize("b,nq,nk,heads,dh", CROSS_SHAPES)
+def test_flash_attention_fp32_kernel(gen, b, nq, nk, heads, dh):
     """K6: P at fp32 precision (hi + lo bf16 products) vs the plain fp32 version:
     2 bf16 ulps of the output's peak (one rounding of the output, other sums),
     and the precision gate against K4's plain version (P rounded alone)."""
-    q, k, v = (_randn(gen, 2, n, heads * dh) for _ in range(3))
+    q, k, v = _qkv(gen, b, nq, nk, heads, dh)
     got = FA.flash_attention_fp32(q, k, v, heads)
     torch.cuda.synchronize()
     want = FA.flash_attention_fp32_ref(q, k, v, heads)
@@ -193,12 +227,12 @@ def test_flash_attention_fp32_kernel(gen, n, heads, dh):
     assert _rel_l2(got, want) <= PRECISION_GATE * _rel_l2(yard, want)
 
 
-@pytest.mark.parametrize("n,heads,dh", TRAIN_SHAPES)
-def test_flash_attention_bwd_kernels(gen, n, heads, dh):
+@pytest.mark.parametrize("b,nq,nk,heads,dh", CROSS_SHAPES)
+def test_flash_attention_bwd_kernels(gen, b, nq, nk, heads, dh):
     """K5 (dQ and dK/dV kernels) vs the plain version on the same m, l and D:
     each gradient within 2 bf16 ulps of its peak, and the precision gate
     against the plain version with P and dS rounded alone."""
-    q, k, v, do = (_randn(gen, 2, n, heads * dh) for _ in range(4))
+    q, k, v, do = _qkv(gen, b, nq, nk, heads, dh, count=4)
     _, m, l = FA.flash_attention_stats(q, k, v, heads)
     dd = FA.rowsum_do_o(do, FA.flash_attention_fp32(q, k, v, heads), heads)
     before = dict(FA.LAUNCHES)
@@ -211,6 +245,19 @@ def test_flash_attention_bwd_kernels(gen, n, heads, dh):
     for gi, wi, yi in zip(got, want, yard):
         assert gi.dtype == torch.bfloat16 and (gi.float() - wi.float()).abs().max() <= _ulps(wi)
         assert _rel_l2(gi, wi) <= PRECISION_GATE * _rel_l2(yi, wi)
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [(1, 4096, 4096, 8, 40), (2, 300, 130, 2, 80)])
+def test_flash_attention_bwd_kernels_are_deterministic(gen, b, nq, nk, heads, dh):
+    """K5 sums each output in a fixed order in one CTA: two launches on the same
+    inputs give the same bits."""
+    q, k, v, do = _qkv(gen, b, nq, nk, heads, dh, count=4)
+    _, m, l = FA.flash_attention_stats(q, k, v, heads)
+    dd = FA.rowsum_do_o(do, FA.flash_attention_fp32(q, k, v, heads), heads)
+    first = FA.flash_attention_bwd(q, k, v, do, m, l, dd, heads)
+    second = FA.flash_attention_bwd(q, k, v, do, m, l, dd, heads)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
 def test_gradients_flow_through_every_wrapper(gen):
@@ -284,14 +331,16 @@ def test_flash_attention_v1_kernel(gen, nq, nk, heads, dh, dtype):
     assert (got.float() - want.float()).abs().max() <= tol
 
 
-@pytest.mark.parametrize("n,heads,dh,dtype", [(300, 2, 40, torch.bfloat16), (130, 3, 16, torch.bfloat16),
-                                              (300, 2, 80, torch.bfloat16), (300, 2, 40, torch.float32),
-                                              (130, 3, 32, torch.float32)])
-def test_flash_attention_v2_stats_kernel(gen, n, heads, dh, dtype):
+@pytest.mark.parametrize("nq,nk,heads,dh,dtype", [
+    (300, 300, 2, 40, torch.bfloat16), (130, 130, 3, 16, torch.bfloat16), (300, 300, 2, 80, torch.bfloat16),
+    (300, 300, 2, 40, torch.float32), (130, 130, 3, 32, torch.float32), (300, 130, 2, 40, torch.bfloat16),
+    (128, 320, 2, 80, torch.bfloat16), (130, 300, 3, 16, torch.bfloat16), (300, 130, 2, 40, torch.float32)])
+def test_flash_attention_v2_stats_kernel(gen, nq, nk, heads, dh, dtype):
     """K7: bf16, K6's output bit for bit; fp32, K8's. Against the plain version:
     out within 2 bf16 ulps (bf16) or 1e-5 of its peak (fp32), m and l within
-    1e-5 relative."""
-    q, k, v = (_rand(gen, 2, n, heads * dh, dtype=dtype) for _ in range(3))
+    1e-5 relative; Nq != Nk both ways."""
+    q = _rand(gen, 2, nq, heads * dh, dtype=dtype)
+    k, v = (_rand(gen, 2, nk, heads * dh, dtype=dtype) for _ in range(2))
     before = FA.LAUNCHES["flash_attention_v2_stats"]
     out, m, l = FA.flash_attention_v2_stats(q, k, v, heads)
     torch.cuda.synchronize()
@@ -355,9 +404,10 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(gen):
     h = _rand(gen, 1, 64, 2 * 40, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         FA.flash_attention_v1(h, h, h, 2)
-    b = _randn(gen, 1, 64, 80)
-    with pytest.raises(ValueError, match="k must be"):  # K7 at bf16 is self-attention
-        FA.flash_attention_v2_stats(b, b[:, :32], b[:, :32], 2)
+    b = _randn(gen, 1, 64, 2 * 24)  # dh 24 pads to 32: K5 is built for 16, 48, 80
+    st = torch.zeros((2, 64), dtype=torch.float32, device="cuda")
+    with pytest.raises(ValueError, match="pads to"):
+        FA.flash_attention_bwd(b, b, b, b, st, st + 1, st, 2)
     g = _rand(gen, 1, 64, 80).requires_grad_(True)
     for fn in (FA.flash_attention_v1, FA.flash_attention_v2, FA.flash_attention):
         with pytest.raises(ValueError, match="gradient"):
@@ -394,8 +444,9 @@ def test_archive_kernels(gen, name, n, heads, dh, dtype):
 
 def test_archive_kernels_refuse_what_they_do_not_take(gen):
     """v6 on bf16 runs K1, Nq != Nk included (fp32 takes K8); no variant has a
-    gradient on the card, and neither has the port's flash_attention at Nq != Nk
-    (the backward kernels are self-attention only)."""
+    gradient on the card. The port's flash_attention has one at Nq != Nk (K4,
+    then K6 and K5): within 2 bf16 ulps of each gradient's peak of the same
+    autograd graph through the plain versions."""
     q, kv = _randn(gen, 1, 128, 80), _randn(gen, 1, 64, 80)
     before = FA.LAUNCHES["flash_attention_v6"]
     got = AA.flash_attention_v6(q, kv, kv, 2, 64, 64)
@@ -409,9 +460,15 @@ def test_archive_kernels_refuse_what_they_do_not_take(gen):
     for fn in (AA.flash_attention_v3, AA.flash_attention_v4, AA.flash_attention_v6):
         with pytest.raises(ValueError, match="gradient"):
             fn(g, g, g, 2, 64, 64)
-    gq = _randn(gen, 1, 128, 80).requires_grad_(True)
-    with pytest.raises(ValueError, match="Nq == Nk"):
-        FA.flash_attention(gq, kv, kv, 2)
+    do = _randn(gen, 1, 128, 80)
+    grads = []
+    for fn in (FA.flash_attention, FA.flash_attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (q, kv, kv)]
+        fn(*leaves, 2).backward(do)
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert bool(torch.isfinite(got).all()) and (got.float() - want.float()).abs().max() <= _ulps(want)
 
 
 @pytest.mark.parametrize("c,m", [(320, 1000), (640, 1000), (320, 17), (640, 17)])

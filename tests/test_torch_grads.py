@@ -21,7 +21,7 @@ import torch
 from _torch_port import close, t
 from vface_tpu.models import layers as JL
 from vface_tpu.ops.pallas_attention import (
-    _flash_v2_impl, _flash_v5_stats, flash_attention_bwd, flash_attention_v5,
+    _flash_v2_impl, _flash_v2_stats, _flash_v5_stats, flash_attention_bwd, flash_attention_v5,
 )
 from vface_tpu.ops.pallas_ff import geglu_ff as jax_geglu_ff
 from vface_torch.models import layers as TL
@@ -158,6 +158,84 @@ def test_autograd_matches_jax_grad_of_flash_v5(dh):
     out = FA.flash_attention(*leaves, h)
     assert out.grad_fn is not None
     assert torch.equal(out.detach(), FA.flash_attention_ref(q, k, v, h))
+    (out.float() * g.float()).sum().backward()
+    assert FA.LAUNCHES == before  # CPU tensors: plain versions, no launch
+    for leaf, wi in zip(leaves, want):
+        close(leaf.grad, np.asarray(wi, np.float32), atol=_ulps(wi, 2))
+
+
+# ------------------------------------------------------- Nq != Nk (K5-K7)
+# queries over twice as many keys and the reverse; blocks of 128 divide both,
+# as JAX's kernels need
+CROSS = [(128, 256), (256, 128)]
+
+
+def _cross(nq, nk, h, dh, dtype, seed):
+    """q and dO (2, nq, h*dh), k and v (2, nk, h*dh): numpy in ``dtype`` and torch."""
+    (qn, q), (gn, g) = _inputs(nq, h, dh, dtype, seed=seed, count=2)
+    (kn, k), (vn, v) = _inputs(nk, h, dh, dtype, seed=seed + 1, count=2)
+    return (qn, kn, vn, gn), (q, k, v, g)
+
+
+@pytest.mark.parametrize("nq,nk", CROSS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fp32_and_v2_stats_refs_match_pallas_at_cross_attention(dtype, nq, nk):
+    """K6's and K7's plain versions against _flash_v2_impl and _flash_v2_stats
+    (interpret mode) at Nq != Nk, with test_fp32_ref_matches_pallas_v2's
+    tolerances: fp32 2e-5 abs, bf16 1 ulp of the output's peak; m and l (the
+    exact row max; its fp32 sum) 1e-5 relative."""
+    h, dh = 2, 40
+    (qn, kn, vn, _), (q, k, v, _) = _cross(nq, nk, h, dh, dtype, seed=11)
+    jq, jk, jv = (jnp.asarray(a) for a in (qn, kn, vn))
+    tol = lambda want: 2e-5 if dtype == "float32" else _ulps(want, 1)
+    want = _flash_v2_impl(jq, jk, jv, h, 128, 128, True)
+    got = FA.flash_attention_fp32_ref(q, k, v, h)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    close(got, np.asarray(want, np.float32), atol=tol(want))
+    want, wm, wl = _flash_v2_stats(jq, jk, jv, h, 128, 128, True)
+    got, m, l = FA.flash_attention_v2_stats_ref(q, k, v, h)
+    assert m.shape == (2 * h, nq) == l.shape
+    close(got, np.asarray(want, np.float32), atol=tol(want))
+    close(m, wm, atol=0.0, rtol=1e-5)
+    close(l, wl, atol=0.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("nq,nk", CROSS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_ref_matches_pallas_bwd_at_cross_attention(dtype, nq, nk):
+    """K5's plain version against flash_attention_bwd (interpret mode) at
+    Nq != Nk: m and l (B*H, Nq) from _flash_v5_stats for both sides, the port's
+    D from K6's plain version; test_bwd_ref_matches_pallas_bwd's tolerances
+    (fp32 2e-5 abs, bf16 2 ulps of each gradient's peak)."""
+    h, dh = 2, 40
+    (qn, kn, vn, gn), (q, k, v, g) = _cross(nq, nk, h, dh, dtype, seed=13)
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (qn, kn, vn, gn))
+    _, m, l = _flash_v5_stats(jq, jk, jv, h, 128, 64, True)
+    want = flash_attention_bwd(jq, jk, jv, m, l, jg, h, block_q=128, block_k=128, interpret=True)
+    dd = FA.rowsum_do_o(g, FA.flash_attention_fp32_ref(q, k, v, h), h)
+    got = FA.flash_attention_bwd_ref(q, k, v, g, t(m), t(l), dd, h)
+    for gi, wi, ref in zip(got, want, (q, k, v)):
+        assert gi.dtype == q.dtype and gi.shape == ref.shape
+        close(gi, np.asarray(wi, np.float32), atol=2e-5 if dtype == "float32" else _ulps(wi, 2))
+
+
+@pytest.mark.parametrize("nq,nk", CROSS)
+def test_autograd_matches_jax_grad_of_flash_v5_at_cross_attention(nq, nk):
+    """The differentiable wrapper on the CPU at Nq != Nk (plain K4 forward,
+    plain K6 + K5 backward) vs jax.grad of flash_attention_v5 in interpret
+    mode, bf16: 2 bf16 ulps of each gradient's peak, as at Nq == Nk."""
+    h, dh = 2, 40
+    (qn, kn, vn, gn), (q, k, v, g) = _cross(nq, nk, h, dh, "bfloat16", seed=17)
+    jg = jnp.asarray(gn).astype(jnp.float32)
+
+    def loss(a, b, c):
+        out = flash_attention_v5(a, b, c, h, block_q=128, block_k=64, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jg)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(FA.LAUNCHES)
+    out = FA.flash_attention(*leaves, h)
     (out.float() * g.float()).sum().backward()
     assert FA.LAUNCHES == before  # CPU tensors: plain versions, no launch
     for leaf, wi in zip(leaves, want):

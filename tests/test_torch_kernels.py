@@ -168,3 +168,16 @@ def test_nvcc_build_is_deferred_and_content_addressed():
     paths = {name: _native.lib_path(name) for name in _native.SOURCES}
     assert all(p.parent == _native.BUILD_DIR and p.suffix == ".so" for p in paths.values())
     assert len(set(paths.values())) == len(_native.SOURCES)
+
+
+# The forward kernel's query tile at every batch of the main paths (8 heads),
+# as k1_tiles on an H100 (132 SMs) measured it: 128 rows where 192-row tiles
+# give fewer than two CTAs per SM, else 192; K6 at dh 80 is built at 128 only.
+@pytest.mark.parametrize("b,n,dh,k1,k6", [
+    (1, 4096, 40, 2, 2), (2, 4096, 40, 3, 3), (4, 4096, 40, 3, 3), (6, 4096, 40, 3, 3), (12, 4096, 40, 3, 3),
+    (1, 1024, 80, 2, 2), (2, 1024, 80, 2, 2), (4, 1024, 80, 2, 2), (6, 1024, 80, 3, 2), (12, 1024, 80, 3, 2)])
+def test_forward_query_tile_rule(monkeypatch, b, n, dh, k1, k6):
+    monkeypatch.setattr(FA, "_sm_count", lambda device: 132)
+    assert FA.k1_consumers(b * 8, n, "cuda", False, dh) == k1
+    assert FA.k1_consumers(b * 8, n, "cuda", True, dh) == k6
+    assert FA.built_consumers(True, dh) == ((2,) if dh == 80 else (2, 3)) and FA.built_consumers(False, dh) == (2, 3)

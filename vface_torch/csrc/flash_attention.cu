@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in / bf16 out: K1 and K4.
+// Flash attention forward for Hopper (sm_90a), bf16 in / bf16 out: K1, K4,
+// K6 and K7.
 //
 // Replaces vface_tpu/ops/pallas_attention.py::flash_attention_v5
 // (_flash_kernel_v5 via _flash_v5_impl): multi-head attention of (B, Nq, H*dh)
@@ -10,6 +11,15 @@
 // the same kernel, which in addition writes each row's final m (natural-log
 // units, of the scaled scores) and l in fp32 to (B*H, Nq). Its output is the
 // plain instantiation's bit for bit: only the epilogue differs.
+//
+// The SPLIT instantiations replace _flash_v2_impl (_flash_kernel_v2, K6: the
+// forward that flash_attention_bwd recomputes O with) and, with STATS,
+// _flash_v2_stats (_flash_kernel_v2_stats, K7 at bf16): the same attention
+// with P kept at fp32 precision in P.V. Each P value is split in registers
+// into hi = bf16(p) and lo = bf16(p - hi), and P.V runs as two register-operand
+// wgmma groups, hi then lo, into the one fp32 accumulator: the pair carries
+// ~16 significant bits, far below the one rounding of the output. K7's output
+// is K6's bit for bit.
 //
 // What bounds it on the H100, at the UNet's self-attention sites:
 // * ds1 (N = 4096, dh = 40, padded to 48): the exponentials on paper. Every
@@ -25,9 +35,13 @@
 //   warpgroups per SM (PERF.md, K1).
 //
 // What the design does about each:
-// * One CTA owns 192 query rows of one (batch, head): three consumer
-//   warpgroups of 64 rows share each K/V tile, a third of the L2 traffic of
-//   64-row tiles. A producer warp keeps a ring of 4 K/V stages filled by TMA,
+// * One CTA owns 64 * NC query rows of one (batch, head): NC = 3 (or 2)
+//   consumer warpgroups of 64 rows share each K/V tile, a third (a half) of
+//   the L2 traffic of 64-row tiles. The wrapper picks NC from the grid and
+//   the card's SM count (flash_attention.py::k1_consumers): 128-row tiles
+//   where 192-row ones give fewer than two CTAs per SM (the train step's
+//   b = 1). With the producer warp, NC = 3 is 13 warps, which ptxas caps at
+//   128 registers a thread (NC = 2: 168). A producer warp keeps a ring of 4 K/V stages filled by TMA,
 //   completed on mbarriers (full: the bytes landed; empty: every consumer warp
 //   is done with the stage), so later tiles load while this one computes.
 // * Both products run on wgmma with fp32 accumulators: S = Q.K^T with Q and K
@@ -45,7 +59,7 @@
 //
 // Layout: heads are read strided straight out of (B, N, H*dh) by 3-D tensor
 // maps (columns, rows, batch), with no split-heads copy. Each TMA box is 16
-// columns (32 bytes) by 64 or 192 rows and lands with TMA's 32-byte swizzle,
+// columns (32 bytes) by 64 or 64 * NC rows and lands with TMA's 32-byte swizzle,
 // which is the wgmma operand layout of that swizzle for both majors: 16
 // columns are one k16 step of Q.K^T and 16 output columns of P.V. dh is padded
 // to 16/48/80 in shared memory: a padded head's box reads the next head's
@@ -63,86 +77,24 @@
 
 namespace {
 
-constexpr int kConsumers = 3;                    // consumer warpgroups, 64 q rows each
-constexpr int kBlockQ = 64 * kConsumers;         // q rows per CTA
-constexpr int kBlockK = 64;                      // keys per K/V tile: the softmax block
-constexpr int kStages = 4;                       // K/V tiles in flight
-constexpr int kThreads = 128 * kConsumers + 32;  // the consumers and one producer warp
+constexpr int kBlockK = 64;  // keys per K/V tile: the softmax block
+constexpr int kStages = 4;   // K/V tiles in flight
+
+// NC consumer warpgroups of 64 q rows each, and one producer warp
+template <int NC>
+constexpr int kThreads = 128 * NC + 32;
 
 // [column block][row][16 columns]; TMA swaps the two 16-byte halves of rows
 // 4-7 of every 8 (32-byte swizzle: address bit 4 ^= bit 7)
-template <int DHP>
+template <int DHP, int NC>
 struct Smem {
-  __nv_bfloat16 q[DHP / kAtom][kBlockQ][kAtom];
+  __nv_bfloat16 q[DHP / kAtom][64 * NC][kAtom];
   __nv_bfloat16 k[kStages][DHP / kAtom][kBlockK][kAtom];
   __nv_bfloat16 v[kStages][DHP / kAtom][kBlockK][kAtom];
   uint64_t q_full, full[kStages], empty[kStages];
 };
-template <int DHP>
-constexpr int kSmemBytes = sizeof(Smem<DHP>) + 1024;  // + the slack to align it to 1024 bytes
-
-// d += A . B, m64n16k16: A (bf16 pairs) from registers, B from shared memory, MN-major; `one` holds 1
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a, uint64_t db, uint32_t one) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
-}
-
-// d += A . B, m64n48k16: A (bf16 pairs) from registers, B from shared memory, MN-major; `one` holds 1
-__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t* a, uint64_t db, uint32_t one) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
-}
-
-// d += A . B, m64n80k16: A (bf16 pairs) from registers, B from shared memory, MN-major; `one` holds 1
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t* a, uint64_t db, uint32_t one) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
-}
-
-template <int DHP>
-__device__ __forceinline__ void wgmma_pv(float (&d)[DHP / 2], const uint32_t* a, uint64_t db, uint32_t one) {
-  if constexpr (DHP == 16) wgmma_rs_n16(d, a, db, one);
-  else if constexpr (DHP == 48) wgmma_rs_n48(d, a, db, one);
-  else wgmma_rs_n80(d, a, db, one);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+template <int DHP, int NC>
+constexpr int kSmemBytes = sizeof(Smem<DHP, NC>) + 1024;  // + the slack to align it to 1024 bytes
 
 // One 64-key tile of the online softmax for this thread's rows g and g + 8
 // (r = 0, 1). s holds the raw scores q.k in the m64n64 accumulator layout
@@ -180,22 +132,23 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&mr)[2], flo
   for (int r = 0; r < 2; ++r) l[r] = l[r] * al[r] + ls[r];
 }
 
-template <int DHP, bool STATS>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int DHP, int NC, bool STATS, bool SPLIT>
+__global__ void __launch_bounds__(kThreads<NC>, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out, int nq, int nk, int heads, int dh,
                       float scale) {
   constexpr int NB = DHP / kAtom;  // 16-column blocks: k16 steps of Q.K^T
   extern __shared__ uint8_t smem_raw[];
-  Smem<DHP>& sm = *reinterpret_cast<Smem<DHP>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  Smem<DHP, NC>& sm =
+      *reinterpret_cast<Smem<DHP, NC>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * 64 * NC;
   const int n_kt = (nk + kBlockK - 1) / kBlockK;
   const int col0 = h * dh;
-  const int active = min(kConsumers, (nq - q0 + 63) / 64);  // warpgroups with a row below nq
+  const int active = min(NC, (nq - q0 + 63) / 64);  // warpgroups with a row below nq
 
   if (tid == 0) {
     mbar_init(&sm.q_full, 1);
@@ -207,8 +160,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   }
   __syncthreads();
 
-  if (tid >= 128 * kConsumers) {  // the producer warp: one thread issues every load
-    if (tid == 128 * kConsumers) {
+  if (tid >= 128 * NC) {  // the producer warp: one thread issues every load
+    if (tid == 128 * NC) {
       mbar_expect_tx(&sm.q_full, sizeof(sm.q));
       for (int c = 0; c < NB; ++c) tma_load(&sm.q[c][0][0], &tq, &sm.q_full, col0 + c * kAtom, q0, b);
       for (int j = 0; j < n_kt; ++j) {
@@ -230,15 +183,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
   mbar_wait(&sm.q_full, 0);
   __syncwarp();
-  if (dh < DHP) {  // zero Q's padding columns of this warpgroup's rows
-    for (int i = tid & 127; i < 64 * (DHP - dh) / 8; i += 128) {
-      const int r = wg * 64 + (i & 63), col = dh + 8 * (i >> 6);
-      const int half = ((col & 15) >> 3) ^ ((r >> 2) & 1);
-      *reinterpret_cast<uint4*>(&sm.q[col / kAtom][r][8 * half]) = make_uint4(0u, 0u, 0u, 0u);
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  }
+  if (dh < DHP) zero_pad<DHP, 64 * NC>(sm.q, wg * 64, dh, tid & 127, 1 + wg);  // Q's padding columns
 
   auto wait_full = [&](int j) {
     mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
@@ -248,9 +193,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   // Descriptors in 16-byte units: Q's k16 steps are its column blocks, as are
   // K's; V's k16 steps are 16 keys (512 bytes), its 16-column blocks kBlockK *
   // 32 bytes apart. Every operand register of a wgmma group (descriptors, the
-  // accumulate flag, P, the accumulators) is defined before the group's
-  // wgmma.fence and pinned there: ptxas serializes all wgmmas of the kernel if
-  // an instruction defines one inside a group.
+  // accumulate flag, P and its lo half, the accumulators) is defined before
+  // the group's wgmma.fence and pinned there: ptxas serializes all wgmmas of
+  // the kernel if an instruction defines one inside a group.
   uint32_t one = 1, zero = 0;
   uint64_t dq[NB];
 #pragma unroll
@@ -268,9 +213,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
       else wgmma_ss_n64(s, dq[cb], dk[cb], one);
     }
   };
-  auto pv = [&](float (&acc)[DHP / 2], const uint32_t (&p)[16]) {  // acc += P.V
+  constexpr int NL = SPLIT ? 16 : 1;  // registers of P's lo half
+  auto pv = [&](float (&acc)[DHP / 2], const uint32_t (&p)[16], const uint32_t (&pl)[NL]) {  // acc += P.V
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_pv<DHP>(acc, &p[4 * kc], dv[kc], one);
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DHP>(acc, &p[4 * kc], dv[kc], one);
+      if constexpr (SPLIT) wgmma_rs_mn<DHP>(acc, &pl[4 * kc], dv[kc], one);
+    }
   };
   auto k_descs = [&](int j) {
 #pragma unroll
@@ -289,10 +238,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 #pragma unroll
   for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
   float s[32], mr[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, al[2];
-  uint32_t p[16];
+  uint32_t p[16], pl[NL];
   auto pack = [&] {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
+    for (int i = 0; i < 16; ++i) {
+      if constexpr (SPLIT) split_pack(s[2 * i], s[2 * i + 1], p[i], pl[i]);
+      else p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
+    }
   };
 
   // Tile j: S(j) = Q.K(j)^T and P(j-1).V(j-1) go to the tensor cores
@@ -314,10 +266,11 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     v_descs(j - 1);
     pin(acc);
     pin(p);
+    if constexpr (SPLIT) pin(pl);
     wgmma_fence();
     qk(s);
     wgmma_commit();
-    pv(acc, p);
+    pv(acc, p, pl);
     wgmma_commit();
     wgmma_wait<1>();  // S(j) is ready; P(j-1).V(j-1) may still run
     pin(s);
@@ -326,6 +279,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     wgmma_wait<0>();
     pin(acc);
     pin(p);
+    if constexpr (SPLIT) pin(pl);
     if (lane == 0) mbar_arrive(&sm.empty[(j - 1) % kStages]);
 #pragma unroll
     for (int i = 0; i < DHP / 2; ++i) acc[i] *= al[(i >> 1) & 1];
@@ -334,8 +288,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   v_descs(n_kt - 1);
   pin(acc);
   pin(p);
+  if constexpr (SPLIT) pin(pl);
   wgmma_fence();
-  pv(acc, p);
+  pv(acc, p, pl);
   wgmma_commit();
   wgmma_wait<0>();
   pin(acc);
@@ -370,33 +325,49 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
 
 // ---- host side (tensor maps: hopper.cuh)
 
-template <int DHP, bool STATS>
+template <int DHP, int NC, bool STATS, bool SPLIT>
 int launch(const void* q, const void* k, const void* v, void* o, float* m, float* l, int b, int nq, int nk,
            int heads, int dh, float scale, cudaStream_t stream) {
+  if (const cudaError_t err = bind_device(q); err != cudaSuccess) return static_cast<int>(err);
   const int cols = heads * dh;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, b, nq, cols, kBlockQ) || !tensor_map(&tk, k, b, nk, cols, kBlockK) ||
+  if (!tensor_map(&tq, q, b, nq, cols, 64 * NC) || !tensor_map(&tk, k, b, nk, cols, kBlockK) ||
       !tensor_map(&tv, v, b, nk, cols, kBlockK))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kSmem = kSmemBytes<DHP>;
-  static const cudaError_t attr = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DHP, STATS>,
+  constexpr int kSmem = kSmemBytes<DHP, NC>;
+  static const cudaError_t attr = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DHP, NC, STATS, SPLIT>,
                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((nq + kBlockQ - 1) / kBlockQ, b * heads);
-  flash_fwd_bf16_kernel<DHP, STATS><<<grid, kThreads, kSmem, stream>>>(
+  dim3 grid((nq + 64 * NC - 1) / (64 * NC), b * heads);
+  flash_fwd_bf16_kernel<DHP, NC, STATS, SPLIT><<<grid, kThreads<NC>, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), m, l, nq, nk, heads, dh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool STATS>
+// Three consumer warpgroups and the producer warp are 13 warps, which ptxas
+// caps at 128 registers a thread; at dh 80 the SPLIT form spills there, so
+// it is built with two (168 registers).
+template <int DHP, bool SPLIT>
+constexpr bool kBuilt3 = !(SPLIT && DHP == 80);
+
+template <int DHP, bool STATS, bool SPLIT>
+int by_consumers(int consumers, const void* q, const void* k, const void* v, void* o, float* m, float* l, int b,
+                 int nq, int nk, int heads, int dh, float scale, cudaStream_t st) {
+  if (consumers == 2) return launch<DHP, 2, STATS, SPLIT>(q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
+  if constexpr (kBuilt3<DHP, SPLIT>)
+    if (consumers == 3) return launch<DHP, 3, STATS, SPLIT>(q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool STATS, bool SPLIT>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* m, float* l, int b, int nq, int nk,
-             int heads, int dh, float scale, void* stream) {
+             int heads, int dh, float scale, int consumers, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh % 8 != 0 || nq < 1 || nk < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch ((dh + 15) / 16 * 16) {
-    case 16: return launch<16, STATS>(q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
-    case 48: return launch<48, STATS>(q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
-    case 80: return launch<80, STATS>(q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
+    case 16: return by_consumers<16, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
+    case 48: return by_consumers<48, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
+    case 80: return by_consumers<80, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -405,29 +376,49 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* m, flo
 
 // q, o: (b, nq, heads * dh); k, v: (b, nk, heads * dh); bf16, contiguous,
 // 16-byte aligned; dh a multiple of 8 that pads to 16, 48 or 80 (the UNet's
-// ds1 dh = 40 and ds2 dh = 80, and small widths for the tests). Returns
-// cudaGetLastError() after the launch.
+// ds1 dh = 40 and ds2 dh = 80, and small widths for the tests); `consumers`
+// 2 or 3: 128 or 192 query rows per CTA (2 only for K6 and K7 at dh 80).
+// Each returns cudaGetLastError() after the launch.
+
+// K1: P rounded to bf16 before P.V.
 extern "C" int vface_flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int b, int nq,
-                                          int nk, int heads, int dh, float scale, void* stream) {
-  return dispatch<false>(q, k, v, o, nullptr, nullptr, b, nq, nk, heads, dh, scale, stream);
+                                          int nk, int heads, int dh, float scale, int consumers, void* stream) {
+  return dispatch<false, false>(q, k, v, o, nullptr, nullptr, b, nq, nk, heads, dh, scale, consumers, stream);
 }
 
-// As above, and m, l: (b * heads, nq) fp32, each row's final running max (of
-// the scaled scores) and softmax denominator.
+// K4: K1 that also writes m, l: (b * heads, nq) fp32, each row's final
+// running max (of the scaled scores) and softmax denominator.
 extern "C" int vface_flash_attention_stats_bf16(const void* q, const void* k, const void* v, void* o, void* m,
                                                 void* l, int b, int nq, int nk, int heads, int dh, float scale,
-                                                void* stream) {
-  return dispatch<true>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), b, nq, nk, heads, dh, scale,
-                        stream);
+                                                int consumers, void* stream) {
+  return dispatch<true, false>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), b, nq, nk, heads, dh,
+                               scale, consumers, stream);
 }
 
-// Dynamic shared memory of the instantiation that takes head width dh, in
-// bytes (0 if none does).
-extern "C" int vface_flash_attention_smem_bytes(int dh) {
-  switch ((dh + 15) / 16 * 16) {
-    case 16: return kSmemBytes<16>;
-    case 48: return kSmemBytes<48>;
-    case 80: return kSmemBytes<80>;
+// K6: P kept at fp32 precision in P.V (hi + lo).
+extern "C" int vface_flash_attention_fp32p_bf16(const void* q, const void* k, const void* v, void* o, int b,
+                                                int nq, int nk, int heads, int dh, float scale, int consumers,
+                                                void* stream) {
+  return dispatch<false, true>(q, k, v, o, nullptr, nullptr, b, nq, nk, heads, dh, scale, consumers, stream);
+}
+
+// K7 at bf16: K6 that also writes m and l, its output K6's bit for bit.
+extern "C" int vface_flash_attention_fp32p_stats_bf16(const void* q, const void* k, const void* v, void* o,
+                                                      void* m, void* l, int b, int nq, int nk, int heads, int dh,
+                                                      float scale, int consumers, void* stream) {
+  return dispatch<true, true>(q, k, v, o, static_cast<float*>(m), static_cast<float*>(l), b, nq, nk, heads, dh,
+                              scale, consumers, stream);
+}
+
+// Dynamic shared memory of the instantiation that takes head width dh with
+// `consumers` warpgroups, in bytes (0 if none does).
+extern "C" int vface_flash_attention_smem_bytes(int dh, int consumers) {
+  const int dhp = (dh + 15) / 16 * 16;
+  if (consumers != 2 && consumers != 3) return 0;
+  switch (dhp) {
+    case 16: return consumers == 2 ? kSmemBytes<16, 2> : kSmemBytes<16, 3>;
+    case 48: return consumers == 2 ? kSmemBytes<48, 2> : kSmemBytes<48, 3>;
+    case 80: return consumers == 2 ? kSmemBytes<80, 2> : kSmemBytes<80, 3>;
     default: return 0;
   }
 }

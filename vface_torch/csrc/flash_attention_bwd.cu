@@ -1,530 +1,612 @@
-// Flash self-attention for training on Hopper (sm_90a): the fp32-P forward
-// that the backward recomputes (K6), its stats instantiation (K7) and the two
-// backward kernels (K5).
+// Flash attention backward for Hopper (sm_90a), bf16: K5.
 //
-// Replaces, in vface_tpu/ops/pallas_attention.py:
-//   * _flash_v2_impl (_flash_kernel_v2): attention with fp32 operands, P not
-//     rounded, out = (sum_j exp(s - m) v_j) / l rounded once to the input
-//     dtype. flash_attention_bwd calls it to recompute O for D = rowsum(dO*O);
-//   * _flash_v2_stats (_flash_kernel_v2_stats), the forward of
-//     flash_attention_v2's VJP: the STATS instantiation of the same kernel,
-//     which also writes each row's final m and l in fp32 to (B*H, N). Only the
-//     epilogue differs, so its output is K6's bit for bit (bf16 operands; the
-//     fp32-operand case is K8's kernel with the same epilogue, in
-//     flash_attention_f32.cu);
-//   * flash_attention_bwd's two kernels, _flash_bwd_dq_kernel (dQ, grid over
-//     query tiles, a loop over keys) and _flash_bwd_dkv_kernel (dK and dV,
-//     grid over key tiles, a loop over queries). Both recompute
-//     P = exp(s * scale - m) / l from the forward's row statistics and form
-//     dS = P * (dP - D) with dP = dO . V^T; dQ = scale * dS . K,
-//     dK = scale * dS^T . Q, dV = P^T . dO, each rounded once to bf16.
-//     P and dS never touch device memory.
+// Replaces vface_tpu/ops/pallas_attention.py::flash_attention_bwd and its two
+// kernels: _flash_bwd_dq_kernel (dQ; grid over query tiles, a loop over keys)
+// and _flash_bwd_dkv_kernel (dK and dV; grid over key tiles, a loop over
+// queries). Both recompute P = exp(s * scale - m) / l from the forward's row
+// statistics (m in the units K4 writes it in: the max of the scaled scores)
+// and dS = P * (dP - D) with dP = dO . V^T and D = rowsum(dO * O);
+// dQ = scale * dS . K, dK = scale * dS^T . Q, dV = P^T . dO, each rounded once
+// to bf16. P and dS never touch device memory. Queries (B, Nq, H*dh) and
+// keys (B, Nk, H*dh) may differ in length; m, l and D are (B*H, Nq). The two
+// kernels keep the JAX function's form: each output is summed in a fixed
+// order by one CTA, so the result is the same from launch to launch (a fused
+// kernel with fp32 atomics for dQ would not be).
 //
-// Precision. In the UNet q, k, v and dO are bf16 values, so S = Q K^T and
-// dP = dO V^T run on the tensor cores (mma.sync m16n8k16, bf16 operands,
-// fp32 accumulators) as exact products; only the summation order differs from
-// the TPU kernels' fp32 dots. P and dS are fp32 values and are NOT rounded to
-// bf16 alone (FlashAttention-2 does; the TPU kernels do not): each is split
-// into x = hi + lo with hi = bf16(x) and lo = bf16(x - hi), and its product
-// with the exact bf16 operand runs as two mma.sync into one fp32
-// accumulator. The pair carries about 16 significant bits, so each product
-// term is good to ~2^-17 relative, far below the one bf16 rounding of the
-// result.
+// Precision. q, k, v and dO are bf16 values, so S = Q K^T and dP = dO V^T are
+// exact products with fp32 sums. P and dS are fp32 values and are NOT rounded
+// to bf16 alone (FlashAttention-2 does; the TPU kernels do not): each is split
+// in registers into x = hi + lo with hi = bf16(x) and lo = bf16(x - hi), and
+// its product with the bf16 operand runs as two wgmma groups into one fp32
+// accumulator. The pair carries ~16 significant bits, so each product term is
+// good to ~2^-17 relative, far below the one bf16 rounding of the result.
 //
-// What bounds it on the H100: like the forward, the UNet shapes (N = 4096,
-// dh = 40; N = 1024, dh = 80) are tensor-core bound (K5 does 5 N^2-products,
-// K6 2, against 2-byte operands). This first version keeps one CTA of 4 warps
-// per 64-row tile, the streamed operand's tiles in shared memory (row-major
-// for the A . B^T products, transposed as they are stored for the products
-// that contract over the tile's rows), and the resident tile's fragments and
-// the fp32 accumulators in registers. The layout stays (B, N, H*dh) with heads
-// read strided: the TPU kernels' transposed (dh, N) layout is a TPU lane
-// trick. dh is zero-padded to the MMA k-step (40 -> 48, 80, 16 for tests);
-// ragged N is masked. Later work: wgmma, TMA, pipelined tiles, one fused
-// kernel with atomics for dQ.
+// What bounds it on the H100 at the UNet's training sites (ds1 N = 4096,
+// dh = 40 padded to 48; ds2 N = 1024, dh = 80): ten N^2-products at dh 48
+// (S and dP in both kernels, and dQ, dK, dV as hi + lo pairs) on the tensor
+// cores, ~0.13 ms at ds1, and 2 N^2 exponentials on the SFUs, ~0.06 ms; in
+// practice, as in K1, the latency of each warpgroup's chain S, dP -> P,
+// dS -> the products.
+//
+// The design, K1's (flash_attention.cu):
+// * One CTA owns 128 rows of one (batch, head): two consumer warpgroups of 64
+//   rows share each streamed tile. The dQ kernel holds its Q and dO rows
+//   resident and streams 64-key K and V tiles; the dK/dV kernel holds its K
+//   and V rows and streams 64-query Q and dO tiles. One warp of a producer
+//   warpgroup keeps a ring of 4 stages filled by TMA, completed on mbarriers
+//   (full: the bytes landed and, for dK/dV, the stage's statistics are
+//   written; empty: every consumer warp is done with the stage). The
+//   producer warpgroup hands its registers to the consumers (setmaxnreg,
+//   24 / 240): a consumer of the dK/dV kernel holds two accumulators, S^T and
+//   dP^T, and the hi and lo fragments of P^T and dS^T, which spilled at the
+//   168 registers a thread that a producer warp leaves (ptxas), and at dh 48
+//   left ptxas too few to keep the wgmma pipeline (C7511).
+// * Every product runs on wgmma with fp32 accumulators. The products that
+//   contract over dh (S, dP, S^T, dP^T) read both operands from shared memory
+//   K-major; the ones that contract over the tile's rows (dS.K, P^T.dO,
+//   dS^T.Q) take the split fp32 values as the register operand and read the
+//   streamed [row][dh] tile through wgmma's transposed-B (MN-major) mode, as
+//   K1 reads V: no operand is transposed through shared memory.
+// * The dK/dV kernel needs the statistics of its streamed queries by
+//   column of S^T, not by row: the producer warp writes each stage's
+//   lse = m * log2(e) + log2(l) and D for the tile's 64 queries into shared
+//   memory beside its Q and dO (+inf and 0 past Nq, so P = 0 there), and
+//   each thread reads its accumulator columns' values from there. P is then
+//   one FFMA and one ex2 a score: ex2(s * scale * log2(e) - lse). The dQ
+//   kernel's threads hold their two rows' lse and D in registers.
+// * Groups are issued as in K1's loop, so that a warpgroup's softmax work
+//   overlaps its own tensor work: tile j's S and dP and the products of tile
+//   j-1 go out together as three groups; P(j) is computed while dP(j) runs,
+//   dS(j) while the products run, and their hi and lo fragments are packed
+//   once the products are done (dQ; dK/dV at dh <= 48: at dh 80 its
+//   registers do not hold both tiles' fragments, and tile j's products follow
+//   in a group of their own). No group is in flight across the loop's back
+//   edge: the copies that carry registers there define the in-flight
+//   accumulators (C7515). Every operand register of a wgmma group
+//   (descriptors, the accumulate flags, the hi and lo fragments, the
+//   accumulators) is defined before the group's wgmma.fence and pinned
+//   there, and pinned again after the wait that retires it: ptxas serializes
+//   every wgmma of the kernel otherwise (C7513, C7515).
+//
+// Layout: heads are read strided straight out of (B, N, H*dh) by 3-D tensor
+// maps in 16-column boxes with TMA's 32-byte swizzle (hopper.cuh); rows past N
+// read as zeros. dh is padded to 16/48/80 in shared memory: the resident
+// operands' padding columns are zeroed (a padded box reads the next head's
+// first columns), so the products over dh see zeros there, and the streamed
+// tiles' padding columns land only in output columns that are not stored.
+// Keys past Nk are masked out of P in the dQ kernel's last tile.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kBlock = 64;     // rows of the resident tile and of each streamed tile
-constexpr int kThreads = 128;  // 4 warps, 16 resident rows each
-constexpr int kTS = kBlock + 8;  // row stride of a transposed tile (16 bytes of bank padding)
+constexpr int kBlock = 64;       // rows of each streamed tile (keys for dQ, queries for dK/dV)
+constexpr int kStages = 4;       // streamed tiles in flight
+constexpr int kNC = 2;           // consumer warpgroups, 64 resident rows each
+constexpr int kRows = 64 * kNC;  // resident rows per CTA
+// The consumers and a producer warpgroup that gives its registers to them
+// (setmaxnreg): the CTA launches at 168 a thread (a quarter of the register
+// file holds 3 warps), and 24 + 2 * 240 = 3 * 168 keeps the pool whole.
+constexpr int kThreads = 128 * kNC + 128, kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// [column block][row][16 columns], TMA's 32-byte swizzle. `res0`/`res1` are
+// the resident operands (Q and dO for dQ; K and V for dK/dV), `str0`/`str1`
+// the streamed ones (K and V; Q and dO), lse and dd the streamed queries'
+// statistics (dK/dV only).
+template <int DHP>
+struct Smem {
+  __nv_bfloat16 res0[DHP / kAtom][kRows][kAtom];
+  __nv_bfloat16 res1[DHP / kAtom][kRows][kAtom];
+  __nv_bfloat16 str0[kStages][DHP / kAtom][kBlock][kAtom];
+  __nv_bfloat16 str1[kStages][DHP / kAtom][kBlock][kAtom];
+  float lse[kStages][kBlock], dd[kStages][kBlock];
+  uint64_t res_full, full[kStages], empty[kStages];
+};
+template <int DHP>
+constexpr int kSmemBytes = sizeof(Smem<DHP>) + 1024;  // + the slack to align it to 1024 bytes
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// (a, b) as bf16 pairs hi = bf16(x), lo = bf16(x - hi), packed low half first.
-__device__ __forceinline__ void split_pack(float a, float b, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 r = __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&r);
-}
-
-// Stage a 64-row tile of one head, rows [r0, r0 + 64) of (B, N, H*dh), into
-// shared memory: row-major [row][DHP + 8] and/or transposed [col][kTS].
-// Rows past n and columns past dh are zero.
-template <int DHP, bool ROWS, bool TRANS>
-__device__ __forceinline__ void stage(const __nv_bfloat16* __restrict__ src, long long head_off,
-                                      long long tok, int r0, int n, int dh,
-                                      __nv_bfloat16* rows, __nv_bfloat16* trans, int tid) {
-  constexpr int QS = DHP + 8;
-  constexpr int VEC = DHP / 8;  // 16-byte vectors per padded row
-  const int vec_dh = dh / 8;
-  for (int idx = tid; idx < kBlock * VEC; idx += kThreads) {
-    const int r = idx / VEC, c = idx - r * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n && c < vec_dh)
-      val = *reinterpret_cast<const uint4*>(src + head_off + (long long)(r0 + r) * tok + c * 8);
-    if (ROWS) *reinterpret_cast<uint4*>(rows + r * QS + c * 8) = val;
-    if (TRANS) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+// d = A . B^T over dh, m64n64: A and B K-major in shared memory, NB k16 steps
+template <int NB>
+__device__ __forceinline__ void ss_n64(float (&d)[32], const uint64_t (&a)[NB], const uint64_t (&b)[NB],
+                                       uint32_t one, uint32_t zero) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) trans[(c * 8 + j) * kTS + r] = e[j];
+  for (int cb = 0; cb < NB; ++cb) {
+    if (cb == 0) wgmma_ss_n64_zero(d, a[0], b[0], zero);
+    else wgmma_ss_n64(d, a[cb], b[cb], one);
+  }
+}
+
+// acc += X . T over the tile's 64 rows: X's hi and lo fragments (4 k16 steps
+// of 4 registers) as the register operand, T MN-major; hi then lo per step
+template <int DHP>
+__device__ __forceinline__ void rs_split(float (&acc)[DHP / 2], const uint32_t (&hi)[16], const uint32_t (&lo)[16],
+                                         const uint64_t (&t)[4], uint32_t one) {
+#pragma unroll
+  for (int kc = 0; kc < 4; ++kc) {
+    wgmma_rs_mn<DHP>(acc, &hi[4 * kc], t[kc], one);
+    wgmma_rs_mn<DHP>(acc, &lo[4 * kc], t[kc], one);
+  }
+}
+
+// the 32 fp32 values of an m64n64 accumulator as hi and lo A fragments
+__device__ __forceinline__ void split16(const float (&x)[32], uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) split_pack(x[2 * i], x[2 * i + 1], hi[i], lo[i]);
+}
+
+// Store acc * mul (this thread's rows g and g + 8 of its warp, from row0) as
+// bf16 into (B, n, H*dh), rows below n and columns below dh.
+template <int DHP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, const float (&acc)[DHP / 2], float mul,
+                                           long long base, long long cols, int row0, int n, int dh, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    __nv_bfloat16* out = dst + base + (long long)row * cols;
+#pragma unroll
+    for (int j = 0; j < DHP / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < dh)
+        *reinterpret_cast<__nv_bfloat162*>(out + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
   }
 }
 
-// A fragments of this warp's 16 rows (from row wr) of a row-major tile.
-template <int DHP>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* rows, int wr, int g, int t4,
-                                       uint32_t (&f)[DHP / 16][4]) {
-  constexpr int QS = DHP + 8;
-#pragma unroll
-  for (int kc = 0; kc < DHP / 16; ++kc) {
-    const __nv_bfloat16* p = rows + (wr + g) * QS + kc * 16 + t4 * 2;
-    f[kc][0] = ld_u32(p);
-    f[kc][1] = ld_u32(p + 8 * QS);
-    f[kc][2] = ld_u32(p + 8);
-    f[kc][3] = ld_u32(p + 8 * QS + 8);
-  }
-}
-
-// acc (16 x 64) = A . T^T: A the warp's 16 x DHP fragments, T a row-major
-// [64][DHP + 8] tile. Exact bf16 products, fp32 sums.
-template <int DHP>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], uint32_t (&a)[DHP / 16][4],
-                                        const __nv_bfloat16* tile, int g, int t4) {
-  constexpr int QS = DHP + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < DHP / 16; ++kc) {
-      const __nv_bfloat16* p = tile + (j * 8 + g) * QS + kc * 16 + t4 * 2;
-      mma_bf16_16816(acc[j], a[kc], ld_u32(p), ld_u32(p + 8));
-    }
-  }
-}
-
-// acc (16 x DHP) += X . T: X the warp's 16 x 64 fp32 values in accumulator
-// layout, split hi + lo into A fragments; T a transposed [DHP][kTS] tile.
-template <int DHP>
-__device__ __forceinline__ void mma_split_xt(float (&acc)[DHP / 8][4], float (&x)[8][4],
-                                             const __nv_bfloat16* trans, int g, int t4) {
-#pragma unroll
-  for (int kc = 0; kc < kBlock / 16; ++kc) {
-    uint32_t hi[4], lo[4];
-    split_pack(x[2 * kc][0], x[2 * kc][1], hi[0], lo[0]);
-    split_pack(x[2 * kc][2], x[2 * kc][3], hi[1], lo[1]);
-    split_pack(x[2 * kc + 1][0], x[2 * kc + 1][1], hi[2], lo[2]);
-    split_pack(x[2 * kc + 1][2], x[2 * kc + 1][3], hi[3], lo[3]);
-#pragma unroll
-    for (int d = 0; d < DHP / 8; ++d) {
-      const __nv_bfloat16* p = trans + (d * 8 + g) * kTS + kc * 16 + t4 * 2;
-      const uint32_t b0 = ld_u32(p), b1 = ld_u32(p + 8);
-      mma_bf16_16816(acc[d], hi, b0, b1);
-      mma_bf16_16816(acc[d], lo, b0, b1);
-    }
-  }
-}
-
-// Store acc * mul (rows r0 = row g, r1 = row g + 8 of the warp) as bf16, strided.
-template <int DHP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst, long long head_off,
-                                           long long tok, int r0, int n, int dh,
-                                           float (&acc)[DHP / 8][4], float mul0, float mul1,
-                                           int t4) {
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int d = 0; d < DHP / 8; ++d) {
-    const int col = d * 8 + t4 * 2;
-    if (col < dh) {
-      if (r0 < n)
-        *reinterpret_cast<__nv_bfloat162*>(dst + head_off + (long long)r0 * tok + col) =
-            __floats2bfloat162_rn(acc[d][0] * mul0, acc[d][1] * mul0);
-      if (r1 < n)
-        *reinterpret_cast<__nv_bfloat162*>(dst + head_off + (long long)r1 * tok + col) =
-            __floats2bfloat162_rn(acc[d][2] * mul1, acc[d][3] * mul1);
-    }
-  }
-}
-
-// ---- K6: forward with P kept at fp32 precision in P.V; STATS (K7) also
-// writes each row's final m and l, leaving the output bit for bit as it is
+// The shared prologue: barriers, the producer warp's loop, the consumers'
+// wait for their resident rows and the padding of those. Returns false for
+// threads that are done (the producer, idle warpgroups). STATS: the producer
+// also writes each stage's lse and D (the dK/dV kernel's streamed queries).
 template <int DHP, bool STATS>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_fp32p_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ m_out, float* __restrict__ l_out, int n, int heads,
-                       int dh, float scale) {
-  constexpr int QS = DHP + 8;
-  constexpr int DT = DHP / 8;
-  __shared__ __align__(16) __nv_bfloat16 sk[kBlock * QS];  // Q, then each K tile
-  __shared__ __align__(16) __nv_bfloat16 svt[DHP * kTS];   // V^T
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int q0 = blockIdx.x * kBlock, wr = warp * 16;
-  const long long tok = (long long)heads * dh;
-  const long long head_off = (long long)b * n * tok + (long long)h * dh;
-
-  stage<DHP, true, false>(q, head_off, tok, q0, n, dh, sk, nullptr, tid);
+__device__ __forceinline__ bool prologue(Smem<DHP>& sm, const CUtensorMap* tr0, const CUtensorMap* tr1,
+                                         const CUtensorMap* ts0, const CUtensorMap* ts1, int r0, int n_res,
+                                         int n_tiles, int col0, int b, const float* __restrict__ m,
+                                         const float* __restrict__ l, const float* __restrict__ dd, long long st0,
+                                         int nq, int dh) {
+  constexpr int NB = DHP / kAtom;
+  const int tid = threadIdx.x;
+  const int active = min(kNC, (n_res - r0 + 63) / 64);  // warpgroups with a resident row below n_res
+  if (tid == 0) {
+    mbar_init(&sm.res_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], STATS ? 33 : 1);  // the TMA bytes (and the producer warp's statistics)
+      mbar_init(&sm.empty[s], 4 * active);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qf[DHP / 16][4];
-  load_a<DHP>(sk, wr, g, t4, qf);
 
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kBlock) {
-    __syncthreads();  // Q fragments loaded / the previous tile consumed
-    stage<DHP, true, false>(k, head_off, tok, k0, n, dh, sk, nullptr, tid);
-    stage<DHP, false, true>(v, head_off, tok, k0, n, dh, nullptr, svt, tid);
-    __syncthreads();
-    float s[8][4];
-    mma_abt<DHP>(s, qf, sk, g, t4);
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + t4 * 2 + (e & 1);
-        s[j][e] = key < n ? s[j][e] * scale : -INFINITY;
+  if (tid >= 128 * kNC) {  // the producer warpgroup: its first warp works, lane 0 issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = tid & 31;
+    if (tid >= 128 * kNC + 32 || (!STATS && lane != 0)) return false;
+    if (lane == 0) {
+      mbar_expect_tx(&sm.res_full, sizeof(sm.res0) + sizeof(sm.res1));
+      for (int c = 0; c < NB; ++c) {
+        tma_load(&sm.res0[c][0][0], tr0, &sm.res_full, col0 + c * kAtom, r0, b);
+        tma_load(&sm.res1[c][0][0], tr1, &sm.res_full, col0 + c * kAtom, r0, b);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      ls0 += s[j][0] + s[j][1];
-      ls1 += s[j][2] + s[j][3];
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % kStages;
+      if (lane == 0 || STATS) mbar_wait(&sm.empty[st], ((j / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full[st], sizeof(sm.str0[0]) + sizeof(sm.str1[0]));
+        for (int c = 0; c < NB; ++c) {
+          tma_load(&sm.str0[st][c][0][0], ts0, &sm.full[st], col0 + c * kAtom, j * kBlock, b);
+          tma_load(&sm.str1[st][c][0][0], ts1, &sm.full[st], col0 + c * kAtom, j * kBlock, b);
+        }
+      }
+      if (STATS) {  // P = ex2(s * scale * log2(e) - lse): 0 past nq
+        for (int c = lane; c < kBlock; c += 32) {
+          const int row = j * kBlock + c;
+          float lse = INFINITY, d = 0.f;
+          if (row < nq) {
+            lse = fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row]));
+            d = dd[st0 + row];
+          }
+          sm.lse[st][c] = lse;
+          sm.dd[st][c] = d;
+        }
+        mbar_arrive(&sm.full[st]);
+      }
     }
-    ls0 += __shfl_xor_sync(0xffffffffu, ls0, 1);
-    ls0 += __shfl_xor_sync(0xffffffffu, ls0, 2);
-    ls1 += __shfl_xor_sync(0xffffffffu, ls1, 1);
-    ls1 += __shfl_xor_sync(0xffffffffu, ls1, 2);
-    l0 = al0 * l0 + ls0;
-    l1 = al1 * l1 + ls1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      acc[d][0] *= al0;
-      acc[d][1] *= al0;
-      acc[d][2] *= al1;
-      acc[d][3] *= al1;
-    }
-    mma_split_xt<DHP>(acc, s, svt, g, t4);  // acc += P V, P at fp32 precision
+    return false;
   }
-  // out = bf16(acc / l), the TPU kernel's division
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    acc[d][0] /= l0;
-    acc[d][1] /= l0;
-    acc[d][2] /= l1;
-    acc[d][3] /= l1;
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = tid >> 7;
+  if (wg >= active) return false;
+  mbar_wait(&sm.res_full, 0);
+  __syncwarp();
+  if (dh < DHP) {  // the resident operands' padding columns (one named barrier per warpgroup)
+    zero_pad<DHP, kRows>(sm.res0, wg * 64, dh, tid & 127, 1 + wg);
+    zero_pad<DHP, kRows>(sm.res1, wg * 64, dh, tid & 127, 1 + wg);
   }
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-  store_rows<DHP>(o, head_off, tok, r0, n, dh, acc, 1.f, 1.f, t4);
-  if (STATS && t4 == 0) {  // the quad's four lanes hold the same m and l
-    const long long st = (long long)bh * n;
-    if (r0 < n) {
-      m_out[st + r0] = m0;
-      l_out[st + r0] = l0;
-    }
-    if (r1 < n) {
-      m_out[st + r1] = m1;
-      l_out[st + r1] = l1;
-    }
-  }
+  return true;
 }
 
-// ---- K5 part 1: dQ for one 64-row query tile, looping over key tiles
+// ---- K5, dQ: 128 query rows, a loop over 64-key tiles
 template <int DHP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ m, const float* __restrict__ l,
-                    const float* __restrict__ dd, __nv_bfloat16* __restrict__ dq, int n,
-                    int heads, int dh, float scale) {
-  constexpr int QS = DHP + 8;
-  constexpr int DT = DHP / 8;
-  __shared__ __align__(16) __nv_bfloat16 sa[kBlock * QS];   // Q, then each K tile
-  __shared__ __align__(16) __nv_bfloat16 sb[kBlock * QS];   // dO, then each V tile
-  __shared__ __align__(16) __nv_bfloat16 skt[DHP * kTS];    // K^T
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                    const float* __restrict__ m, const float* __restrict__ l, const float* __restrict__ dd,
+                    __nv_bfloat16* __restrict__ dq, int nq, int nk, int heads, int dh, float scale) {
+  constexpr int NB = DHP / kAtom;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<DHP>& sm = *reinterpret_cast<Smem<DHP>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
   const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int q0 = blockIdx.x * kBlock, wr = warp * 16;
-  const long long tok = (long long)heads * dh;
-  const long long head_off = (long long)b * n * tok + (long long)h * dh;
+  const int q0 = blockIdx.x * kRows, n_kt = (nk + kBlock - 1) / kBlock, col0 = h * dh;
+  const long long st0 = (long long)bh * nq;
+  // res0 = Q, res1 = dO; str0 = K, str1 = V
+  if (!prologue<DHP, false>(sm, &tq, &tdo, &tk, &tv, q0, nq, n_kt, col0, b, m, l, dd, st0, nq, dh)) return;
 
-  stage<DHP, true, false>(q, head_off, tok, q0, n, dh, sa, nullptr, tid);
-  stage<DHP, true, false>(dout, head_off, tok, q0, n, dh, sb, nullptr, tid);
-  __syncthreads();
-  uint32_t qf[DHP / 16][4], df[DHP / 16][4];
-  load_a<DHP>(sa, wr, g, t4, qf);
-  load_a<DHP>(sb, wr, g, t4, df);
-
-  // this thread's two rows: statistics, with P = 0 on rows past n (m = +inf)
-  const int r0 = q0 + wr + g, r1 = r0 + 8;
-  const long long st = (long long)bh * n;
-  const float m0 = r0 < n ? m[st + r0] : INFINITY, m1 = r1 < n ? m[st + r1] : INFINITY;
-  const float l0 = r0 < n ? l[st + r0] : 1.f, l1 = r1 < n ? l[st + r1] : 1.f;
-  const float d0 = r0 < n ? dd[st + r0] : 0.f, d1 = r1 < n ? dd[st + r1] : 0.f;
-
-  float acc[DT][4];
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + wg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+  float lse[2], drow[2];  // P = 0 on rows past nq
 #pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kBlock) {
-    __syncthreads();
-    stage<DHP, true, true>(k, head_off, tok, k0, n, dh, sa, skt, tid);
-    stage<DHP, true, false>(v, head_off, tok, k0, n, dh, sb, nullptr, tid);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    mma_abt<DHP>(s, qf, sa, g, t4);   // S = Q K^T
-    mma_abt<DHP>(dp, df, sb, g, t4);  // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + t4 * 2 + (e & 1);
-        const float mr = e < 2 ? m0 : m1, lr = e < 2 ? l0 : l1, dr = e < 2 ? d0 : d1;
-        const float p = key < n ? expf(s[j][e] * scale - mr) / lr : 0.f;
-        s[j][e] = p * (dp[j][e] - dr);  // dS
-      }
-    }
-    mma_split_xt<DHP>(acc, s, skt, g, t4);  // dQ += dS K
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
+    drow[r] = row < nq ? dd[st0 + row] : 0.f;
   }
-  store_rows<DHP>(dq, head_off, tok, r0, n, dh, acc, scale, scale, t4);
+
+  // descriptors (16-byte units): Q's, dO's, K's and V's k16 steps over dh are
+  // their column blocks; K read MN-major steps over 16 keys (512 bytes), its
+  // 16-column blocks kBlock * 32 bytes apart
+  uint32_t one = 1, zero = 0;
+  uint64_t dqd[NB], dod[NB];
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb) {
+    dqd[cb] = sdesc(&sm.res0[cb][wg * 64][0], 16, 256);
+    dod[cb] = sdesc(&sm.res1[cb][wg * 64][0], 16, 256);
+  }
+  pin(dqd);
+  pin(dod);
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dk0 = sdesc(&sm.str0[0][0][0][0], 16, 256);
+  const uint64_t dv0 = sdesc(&sm.str1[0][0][0][0], 16, 256);
+  const uint64_t dkm0 = sdesc(&sm.str0[0][0][0][0], kBlock * 32, 256);
+  constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
+  uint64_t dk[NB], dv[NB], dkm[4];
+  auto wait_full = [&](int j) {
+    mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+    __syncwarp();
+  };
+  auto kv_descs = [&](int j) {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      dk[cb] = dk0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
+      dv[cb] = dv0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
+    }
+    pin(dk);
+    pin(dv);
+  };
+
+  const float c = scale * kLog2e;
+  const int tail = nk - (n_kt - 1) * kBlock;  // valid keys of the last tile
+  float acc[DHP / 2];
+#pragma unroll
+  for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
+  pin(acc);
+  float s[32], dp[32];
+  uint32_t hi[16], lo[16];
+
+  auto k_mn = [&](int j) {  // K(j) as the MN-major B operand of dS.K
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) dkm[kc] = dkm0 + (j % kStages) * kStage + kc * (16 * 32 >> 4);
+    pin(dkm);
+  };
+
+  // Tile j, as K1's loop: S(j), dP(j) and dQ += dS(j-1).K(j-1) go to the
+  // tensor cores together (tile 0's third group is empty); P(j) is computed
+  // while dP(j) runs and dS(j) while dQ(j-1) runs. No group is in flight
+  // across the loop's back edge (the copies that carry its registers there
+  // would serialize every wgmma, C7515), and no wgmma sits in a branch (C7520):
+  // `prev` is a compile-time flag, tile 0 is peeled.
+  auto tile = [&](int j, auto prev) {
+    constexpr bool kPrev = decltype(prev)::value;
+    wait_full(j);
+    kv_descs(j);
+    if constexpr (kPrev) k_mn(j - 1);
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    wgmma_fence();
+    ss_n64<NB>(s, dqd, dk, one, zero);
+    wgmma_commit();
+    ss_n64<NB>(dp, dod, dv, one, zero);
+    wgmma_commit();
+    if constexpr (kPrev) rs_split<DHP>(acc, hi, lo, dkm, one);  // dQ += dS(j-1) . K(j-1)
+    wgmma_commit();
+    wgmma_wait<2>();  // S(j) is done
+    pin(s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], c, -lse[(i >> 1) & 1]));  // P
+    if (j == n_kt - 1 && tail < kBlock) {  // keys past nk
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (8 * (i >> 2) + 2 * t4 + (i & 1) >= tail) s[i] = 0.f;
+    }
+    wgmma_wait<1>();  // dP(j) is done
+    pin(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - drow[(i >> 1) & 1];  // dS
+    wgmma_wait<0>();  // dQ(j-1) is done: K(j-1) and the fragments are free
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    if (kPrev && lane == 0) mbar_arrive(&sm.empty[(j - 1) % kStages]);
+    split16(s, hi, lo);
+  };
+  tile(0, std::false_type{});
+  for (int j = 1; j < n_kt; ++j) tile(j, std::true_type{});
+  k_mn(n_kt - 1);
+  pin(acc);
+  pin(hi);
+  pin(lo);
+  wgmma_fence();
+  rs_split<DHP>(acc, hi, lo, dkm, one);  // dQ += dS(last) . K(last)
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(acc);
+  store_rows<DHP>(dq, acc, scale, (long long)b * nq * heads * dh + col0, (long long)heads * dh, row0, nq, dh, t4);
 }
 
-// ---- K5 part 2: dK and dV for one 64-row key tile, looping over query tiles
+// ---- K5, dK and dV: 128 key rows, a loop over 64-query tiles
 template <int DHP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ m, const float* __restrict__ l,
-                     const float* __restrict__ dd, __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int n, int heads, int dh, float scale) {
-  constexpr int QS = DHP + 8;
-  constexpr int DT = DHP / 8;
-  __shared__ __align__(16) __nv_bfloat16 sa[kBlock * QS];    // K, then each Q tile
-  __shared__ __align__(16) __nv_bfloat16 sb[kBlock * QS];    // V, then each dO tile
-  __shared__ __align__(16) __nv_bfloat16 sqt[DHP * kTS];     // Q^T
-  __shared__ __align__(16) __nv_bfloat16 sdot[DHP * kTS];    // dO^T
-  __shared__ float sm[kBlock], sl[kBlock], sd[kBlock];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ m, const float* __restrict__ l, const float* __restrict__ dd,
+                     __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int nq, int nk,
+                     int heads, int dh, float scale) {
+  constexpr int NB = DHP / kAtom;
+  // the products of tile j-1 issued with tile j's S^T and dP^T: at dh 80 the
+  // accumulators and both tiles' fragments do not fit in 240 registers
+  constexpr bool kOverlap = DHP <= 48;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<DHP>& sm = *reinterpret_cast<Smem<DHP>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
   const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int k0 = blockIdx.x * kBlock, wr = warp * 16;
-  const long long tok = (long long)heads * dh;
-  const long long head_off = (long long)b * n * tok + (long long)h * dh;
-  const long long st = (long long)bh * n;
+  const int k0 = blockIdx.x * kRows, n_qt = (nq + kBlock - 1) / kBlock, col0 = h * dh;
+  // res0 = K, res1 = V; str0 = Q, str1 = dO, with each query tile's lse and D
+  if (!prologue<DHP, true>(sm, &tk, &tv, &tq, &tdo, k0, nk, n_qt, col0, b, m, l, dd, (long long)bh * nq, nq, dh))
+    return;
 
-  stage<DHP, true, false>(k, head_off, tok, k0, n, dh, sa, nullptr, tid);
-  stage<DHP, true, false>(v, head_off, tok, k0, n, dh, sb, nullptr, tid);
-  __syncthreads();
-  uint32_t kf[DHP / 16][4], vf[DHP / 16][4];
-  load_a<DHP>(sa, wr, g, t4, kf);
-  load_a<DHP>(sb, wr, g, t4, vf);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
 
-  float acc_k[DT][4], acc_v[DT][4];
+  uint32_t one = 1, zero = 0;
+  uint64_t dkd[NB], dvd[NB];
 #pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    acc_k[d][0] = acc_k[d][1] = acc_k[d][2] = acc_k[d][3] = 0.f;
-    acc_v[d][0] = acc_v[d][1] = acc_v[d][2] = acc_v[d][3] = 0.f;
+  for (int cb = 0; cb < NB; ++cb) {
+    dkd[cb] = sdesc(&sm.res0[cb][wg * 64][0], 16, 256);
+    dvd[cb] = sdesc(&sm.res1[cb][wg * 64][0], 16, 256);
   }
+  pin(dkd);
+  pin(dvd);
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dq0 = sdesc(&sm.str0[0][0][0][0], 16, 256);
+  const uint64_t ddo0 = sdesc(&sm.str1[0][0][0][0], 16, 256);
+  const uint64_t dqm0 = sdesc(&sm.str0[0][0][0][0], kBlock * 32, 256);
+  const uint64_t ddom0 = sdesc(&sm.str1[0][0][0][0], kBlock * 32, 256);
+  constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
+  uint64_t dqk[NB], dok[NB], dqm[4], dom[4];
+  auto wait_full = [&](int j) {
+    mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+    __syncwarp();
+  };
+  auto issue_s = [&](int j, float (&st)[32], float (&dpt)[32]) {  // S^T = K.Q(j)^T, dP^T = V.dO(j)^T
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      dqk[cb] = dq0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
+      dok[cb] = ddo0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
+    }
+    pin(dqk);
+    pin(dok);
+    wgmma_fence();
+    ss_n64<NB>(st, dkd, dqk, one, zero);
+    wgmma_commit();
+    ss_n64<NB>(dpt, dvd, dok, one, zero);
+    wgmma_commit();
+  };
 
-  for (int q0 = 0; q0 < n; q0 += kBlock) {
-    __syncthreads();
-    stage<DHP, true, true>(q, head_off, tok, q0, n, dh, sa, sqt, tid);
-    stage<DHP, true, true>(dout, head_off, tok, q0, n, dh, sb, sdot, tid);
-    for (int i = tid; i < kBlock; i += kThreads) {  // P = 0 on query rows past n
-      const int r = q0 + i;
-      sm[i] = r < n ? m[st + r] : INFINITY;
-      sl[i] = r < n ? l[st + r] : 1.f;
-      sd[i] = r < n ? dd[st + r] : 0.f;
-    }
-    __syncthreads();
-    float pt[8][4], dpt[8][4];
-    mma_abt<DHP>(pt, kf, sa, g, t4);   // S^T = K Q^T (16 keys x 64 queries)
-    mma_abt<DHP>(dpt, vf, sb, g, t4);  // dP^T = V dO^T
+  const float c = scale * kLog2e;
+  float acc_k[DHP / 2], acc_v[DHP / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int i = 0; i < DHP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  pin(acc_k);
+  pin(acc_v);
+  float st[32], dpt[32];
+  uint32_t phi[16], plo[16], dhi[16], dlo[16];
+
+  auto qdo_mn = [&](int j) {  // Q(j) and dO(j) as the MN-major B operands of the products
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + t4 * 2 + (e & 1);
-        const float p = expf(pt[j][e] * scale - sm[c]) / sl[c];
-        pt[j][e] = p;                          // P^T
-        dpt[j][e] = p * (dpt[j][e] - sd[c]);   // dS^T
-      }
+    for (int kc = 0; kc < 4; ++kc) {
+      dqm[kc] = dqm0 + (j % kStages) * kStage + kc * (16 * 32 >> 4);
+      dom[kc] = ddom0 + (j % kStages) * kStage + kc * (16 * 32 >> 4);
     }
-    mma_split_xt<DHP>(acc_v, pt, sdot, g, t4);  // dV += P^T dO
-    mma_split_xt<DHP>(acc_k, dpt, sqt, g, t4);  // dK += dS^T Q
+    pin(dqm);
+    pin(dom);
+  };
+  auto products = [&] {  // dV += P^T . dO, dK += dS^T . Q, hi then lo
+    rs_split<DHP>(acc_v, phi, plo, dom, one);
+    rs_split<DHP>(acc_k, dhi, dlo, dqm, one);
+  };
+  auto pin_frags = [&] {
+    pin(acc_k);
+    pin(acc_v);
+    pin(phi);
+    pin(plo);
+    pin(dhi);
+    pin(dlo);
+  };
+
+  // Tile j, as K1's loop: S^T(j), dP^T(j) and (kOverlap) the products of tile
+  // j-1 go to the tensor cores together (tile 0's third group is empty);
+  // P^T(j) is computed while dP^T(j) runs and dS^T(j) while the products run.
+  // Without kOverlap the products of tile j follow in a group of their own.
+  // No group is in flight across the loop's back edge (C7515) and no wgmma
+  // sits in a branch (C7520): `prev` is a compile-time flag, tile 0 is peeled.
+  auto tile = [&](int j, auto prev) {
+    constexpr bool kPrev = decltype(prev)::value;
+    const int stage = j % kStages;
+    wait_full(j);
+    if constexpr (kPrev) qdo_mn(j - 1);
+    pin_frags();
+    issue_s(j, st, dpt);
+    if constexpr (kPrev) products();
+    wgmma_commit();
+    wgmma_wait<2>();  // S^T(j) is done
+    pin(st);
+    // this thread's columns: queries 8jj + 2*t4 + {0, 1} of the tile
+    const float* lse = sm.lse[stage];
+    const float* dcol = sm.dd[stage];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 ls = *reinterpret_cast<const float2*>(&lse[8 * jj + 2 * t4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[4 * jj + e] = ex2(fmaf(st[4 * jj + e], c, -(e & 1 ? ls.y : ls.x)));  // P^T
+    }
+    wgmma_wait<1>();  // dP^T(j) is done
+    pin(dpt);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 d = *reinterpret_cast<const float2*>(&dcol[8 * jj + 2 * t4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - (e & 1 ? d.y : d.x));  // dS^T
+    }
+    wgmma_wait<0>();  // the products of tile j-1 are done: its stage and the fragments are free
+    pin_frags();
+    if (kPrev && lane == 0) mbar_arrive(&sm.empty[(j - 1) % kStages]);
+    split16(st, phi, plo);
+    split16(dpt, dhi, dlo);
+    if constexpr (!kOverlap) {
+      qdo_mn(j);
+      pin_frags();
+      wgmma_fence();
+      products();
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin_frags();
+      if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    }
+  };
+  tile(0, std::false_type{});
+  for (int j = 1; j < n_qt; ++j) tile(j, std::integral_constant<bool, kOverlap>{});
+  if constexpr (kOverlap) {
+    qdo_mn(n_qt - 1);
+    pin_frags();
+    wgmma_fence();
+    products();
+    wgmma_commit();
   }
-  const int r0 = k0 + wr + g;
-  store_rows<DHP>(dk, head_off, tok, r0, n, dh, acc_k, scale, scale, t4);
-  store_rows<DHP>(dv, head_off, tok, r0, n, dh, acc_v, 1.f, 1.f, t4);
+  wgmma_wait<0>();
+  pin(acc_k);
+  pin(acc_v);
+  const long long base = (long long)b * nk * heads * dh + col0, cols = (long long)heads * dh;
+  const int row0 = k0 + wg * 64 + warp * 16 + g;
+  store_rows<DHP>(dk_out, acc_k, scale, base, cols, row0, nk, dh, t4);
+  store_rows<DHP>(dv_out, acc_v, 1.f, base, cols, row0, nk, dh, t4);
 }
+
+// ---- host side (tensor maps: hopper.cuh)
 
 struct Args {
-  const __nv_bfloat16 *q, *k, *v, *dout;
+  const void *q, *k, *v, *dout;
   const float *m, *l, *dd;
-  __nv_bfloat16 *o, *dq, *dk, *dv;
-  float *m_out, *l_out;
-  int b, n, heads, dh;
+  void *dq, *dk, *dv;
+  int b, nq, nk, heads, dh;
   float scale;
 };
 
-enum Which { kFwdFp32P, kFwdFp32PStats, kBwdDq, kBwdDkv };
-
-template <int DHP>
-void launch(Which which, const Args& a, cudaStream_t stream) {
-  dim3 grid((a.n + kBlock - 1) / kBlock, a.b * a.heads);
-  switch (which) {
-    case kFwdFp32P:
-      flash_fwd_fp32p_kernel<DHP, false><<<grid, kThreads, 0, stream>>>(
-          a.q, a.k, a.v, a.o, nullptr, nullptr, a.n, a.heads, a.dh, a.scale);
-      break;
-    case kFwdFp32PStats:
-      flash_fwd_fp32p_kernel<DHP, true><<<grid, kThreads, 0, stream>>>(
-          a.q, a.k, a.v, a.o, a.m_out, a.l_out, a.n, a.heads, a.dh, a.scale);
-      break;
-    case kBwdDq:
-      flash_bwd_dq_kernel<DHP><<<grid, kThreads, 0, stream>>>(
-          a.q, a.k, a.v, a.dout, a.m, a.l, a.dd, a.dq, a.n, a.heads, a.dh, a.scale);
-      break;
-    case kBwdDkv:
-      flash_bwd_dkv_kernel<DHP><<<grid, kThreads, 0, stream>>>(
-          a.q, a.k, a.v, a.dout, a.m, a.l, a.dd, a.dk, a.dv, a.n, a.heads, a.dh, a.scale);
-      break;
-  }
-}
-
-int dispatch(Which which, const Args& a, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.dh % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch ((a.dh + 15) / 16 * 16) {
-    case 16: launch<16>(which, a, st); break;
-    case 48: launch<48>(which, a, st); break;
-    case 80: launch<80>(which, a, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+template <int DHP, bool DKV>
+int launch(const Args& a, cudaStream_t stream) {
+  if (const cudaError_t err = bind_device(a.q); err != cudaSuccess) return static_cast<int>(err);
+  const int cols = a.heads * a.dh;
+  // the resident operands in boxes of kRows rows, the streamed ones of kBlock
+  const int rq = DKV ? kBlock : kRows, rk = DKV ? kRows : kBlock;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!tensor_map(&tq, a.q, a.b, a.nq, cols, rq) || !tensor_map(&tdo, a.dout, a.b, a.nq, cols, rq) ||
+      !tensor_map(&tk, a.k, a.b, a.nk, cols, rk) || !tensor_map(&tv, a.v, a.b, a.nk, cols, rk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = kSmemBytes<DHP>;
+  const int n_res = DKV ? a.nk : a.nq;
+  dim3 grid((n_res + kRows - 1) / kRows, a.b * a.heads);
+  if constexpr (DKV) {
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(flash_bwd_dkv_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    flash_bwd_dkv_kernel<DHP><<<grid, kThreads, kSmem, stream>>>(
+        tk, tv, tq, tdo, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+        a.nq, a.nk, a.heads, a.dh, a.scale);
+  } else {
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(flash_bwd_dq_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    flash_bwd_dq_kernel<DHP><<<grid, kThreads, kSmem, stream>>>(
+        tq, tdo, tk, tv, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dq), a.nq, a.nk, a.heads, a.dh, a.scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-Args args(const void* q, const void* k, const void* v, int b, int n, int heads, int dh,
-          float scale) {
-  Args a{};
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.b = b;
-  a.n = n;
-  a.heads = heads;
-  a.dh = dh;
-  a.scale = scale;
-  return a;
+template <bool DKV>
+int dispatch(const Args& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.dh % 8 != 0 || a.nq < 1 || a.nk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((a.dh + 15) / 16 * 16) {
+    case 16: return launch<16, DKV>(a, st);
+    case 48: return launch<48, DKV>(a, st);
+    case 80: return launch<80, DKV>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Tensors are (b, n, heads * dh) bf16, contiguous and 16-byte aligned; m, l,
-// dd are (b * heads, n) fp32; dh a multiple of 8 that pads to 16, 48 or 80.
-// Each returns cudaGetLastError() after its launch.
+// q, dout: (b, nq, heads * dh); k, v: (b, nk, heads * dh); bf16, contiguous,
+// 16-byte aligned; m, l, dd: (b * heads, nq) fp32 (m and l from K4 or K7, dd =
+// rowsum(dO * O) per head and row); dh a multiple of 8 that pads to 16, 48 or
+// 80. Each returns cudaGetLastError() after its launch.
 
-// K6: o = bf16(softmax(q k^T * scale) v) with P at fp32 precision.
-extern "C" int vface_flash_attention_fp32p_bf16(const void* q, const void* k, const void* v,
-                                                void* o, int b, int n, int heads, int dh,
-                                                float scale, void* stream) {
-  Args a = args(q, k, v, b, n, heads, dh, scale);
-  a.o = static_cast<__nv_bfloat16*>(o);
-  return dispatch(kFwdFp32P, a, stream);
+// K5, dQ: (b, nq, heads * dh).
+extern "C" int vface_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                                 const void* m, const void* l, const void* dd, void* dq, int b,
+                                                 int nq, int nk, int heads, int dh, float scale, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(m), static_cast<const float*>(l),
+               static_cast<const float*>(dd), dq, nullptr, nullptr, b, nq, nk, heads, dh, scale};
+  return dispatch<false>(a, stream);
 }
 
-// K7: K6 that also writes m, l: (b * heads, n) fp32, each row's final running
-// max of the scaled scores and softmax denominator; o is K6's bit for bit.
-extern "C" int vface_flash_attention_fp32p_stats_bf16(const void* q, const void* k, const void* v,
-                                                      void* o, void* m, void* l, int b, int n,
-                                                      int heads, int dh, float scale,
-                                                      void* stream) {
-  Args a = args(q, k, v, b, n, heads, dh, scale);
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.m_out = static_cast<float*>(m);
-  a.l_out = static_cast<float*>(l);
-  return dispatch(kFwdFp32PStats, a, stream);
+// K5, dK and dV: (b, nk, heads * dh) each.
+extern "C" int vface_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                                  const void* m, const void* l, const void* dd, void* dk, void* dv,
+                                                  int b, int nq, int nk, int heads, int dh, float scale,
+                                                  void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(m), static_cast<const float*>(l),
+               static_cast<const float*>(dd), nullptr, dk, dv, b, nq, nk, heads, dh, scale};
+  return dispatch<true>(a, stream);
 }
 
-// K5, dQ: m, l from the stats forward, dd = rowsum(dO * O) per head and row.
-extern "C" int vface_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                                 const void* dout, const void* m,
-                                                 const void* l, const void* dd, void* dq,
-                                                 int b, int n, int heads, int dh, float scale,
-                                                 void* stream) {
-  Args a = args(q, k, v, b, n, heads, dh, scale);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
-  a.m = static_cast<const float*>(m);
-  a.l = static_cast<const float*>(l);
-  a.dd = static_cast<const float*>(dd);
-  a.dq = static_cast<__nv_bfloat16*>(dq);
-  return dispatch(kBwdDq, a, stream);
-}
-
-// K5, dK and dV.
-extern "C" int vface_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                                  const void* dout, const void* m,
-                                                  const void* l, const void* dd, void* dk,
-                                                  void* dv, int b, int n, int heads, int dh,
-                                                  float scale, void* stream) {
-  Args a = args(q, k, v, b, n, heads, dh, scale);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
-  a.m = static_cast<const float*>(m);
-  a.l = static_cast<const float*>(l);
-  a.dd = static_cast<const float*>(dd);
-  a.dk = static_cast<__nv_bfloat16*>(dk);
-  a.dv = static_cast<__nv_bfloat16*>(dv);
-  return dispatch(kBwdDkv, a, stream);
+// Dynamic shared memory of either kernel at head width dh, in bytes (0 if no
+// instantiation takes it).
+extern "C" int vface_flash_attention_bwd_smem_bytes(int dh) {
+  switch ((dh + 15) / 16 * 16) {
+    case 16: return kSmemBytes<16>;
+    case 48: return kSmemBytes<48>;
+    case 80: return kSmemBytes<80>;
+    default: return 0;
+  }
 }

@@ -441,6 +441,7 @@ template <int C, int RW, int NI>
 int launch_fused(const void* x, const void* wp, const void* bp, const void* wo, const void* bo, void* out, int m,
                  int inner, cudaStream_t stream) {
   using F = Fused<C, RW, NI>;
+  if (const cudaError_t err = bind_device(x); err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tx, twp, two;
   if (inner % NI != 0 || !tensor_map(&tx, x, 1, m, C, F::kRows, kBlk, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&twp, wp, 1, 2 * inner, C, NI, kBlk, CU_TENSOR_MAP_SWIZZLE_128B) ||
@@ -458,6 +459,7 @@ template <bool GEGLU>
 int launch_gemm(const void* a, const void* w, const void* bias, void* dst, int m, int n, int k, int w_rows,
                 cudaStream_t stream) {
   using G = Gemm<GEGLU>;
+  if (const cudaError_t err = bind_device(a); err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap ta, tb;
   if (!tensor_map(&ta, a, 1, m, k, G::kRows, kBlk, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&tb, w, 1, w_rows, k, kGemmN, kBlk, CU_TENSOR_MAP_SWIZZLE_128B))

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels, shared by
-// flash_attention.cu (K1, K4, K12) and geglu_ff.cu (K2, K9, K13): mbarriers,
-// TMA loads, wgmma descriptors and instructions, register pins, and the host's
-// tensor maps. Every operand lands in shared memory as TMA's 32-byte swizzle
+// flash_attention.cu (K1, K4, K6, K7, K12), flash_attention_bwd.cu (K5) and
+// geglu_ff.cu (K2, K9, K13): mbarriers, TMA loads, wgmma descriptors and
+// instructions, register pins, the bf16 packing of fp32 fragments, and the
+// host's tensor maps. Every operand lands in shared memory as TMA's 32-byte swizzle
 // of 16-column boxes, [column block][row][16 columns], which is wgmma's
 // K-major (and MN-major) operand layout of that swizzle: one 16-column block
 // is one k16 step. _native.lib_path hashes this header with each source that
-// includes it, so an edit here rebuilds both libraries.
+// includes it, so an edit here rebuilds every library that includes it.
 
 #pragma once
 
@@ -248,6 +249,98 @@ __device__ __forceinline__ void wgmma_ss_n160(float (&d)[80], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(one));
 }
 
+// d += A . B, m64n16k16: A (bf16 pairs) from registers, B from shared memory, MN-major; `one` holds 1
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a, uint64_t db, uint32_t one) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+}
+
+// d += A . B, m64n48k16: A (bf16 pairs) from registers, B from shared memory, MN-major; `one` holds 1
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t* a, uint64_t db, uint32_t one) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+}
+
+// d += A . B, m64n80k16: A (bf16 pairs) from registers, B from shared memory, MN-major; `one` holds 1
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t* a, uint64_t db, uint32_t one) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+}
+
+// d += A . B over one k16 step, N = DHP output columns (a padded head): A's
+// four bf16-pair registers, B MN-major in shared memory (V of P.V, or a
+// [row][dh] tile contracted over its rows)
+template <int DHP>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[DHP / 2], const uint32_t* a, uint64_t db, uint32_t one) {
+  if constexpr (DHP == 16) wgmma_rs_n16(d, a, db, one);
+  else if constexpr (DHP == 48) wgmma_rs_n48(d, a, db, one);
+  else wgmma_rs_n80(d, a, db, one);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), packed low half
+// first: x = hi + lo to ~16 significant bits, so a product of x with a bf16
+// operand runs as two bf16 wgmmas into one fp32 accumulator
+__device__ __forceinline__ void split_pack(float a, float b, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 r = __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Zero the padding columns [dh, DHP) of rows [r0, r0 + 64) of a [DHP / 16][rows][16]
+// tile in TMA's 32-byte swizzle (a padded head's box reads the next head's
+// first columns), `t` = the thread's index in its warpgroup; made visible to
+// wgmma, then a named barrier `bar` over the warpgroup.
+template <int DHP, int ROWS>
+__device__ __forceinline__ void zero_pad(__nv_bfloat16 (&tile)[DHP / kAtom][ROWS][kAtom], int r0, int dh, int t,
+                                         int bar) {
+  for (int i = t; i < 64 * (DHP - dh) / 8; i += 128) {
+    const int r = r0 + (i & 63), col = dh + 8 * (i >> 6);
+    const int half = ((col & 15) >> 3) ^ ((r >> 2) & 1);
+    *reinterpret_cast<uint4*>(&tile[col / kAtom][r][8 * half]) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  bar_sync(bar, 128);
+}
+
 // ---- host side
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -269,6 +362,17 @@ EncodeTiled encode_tiled() {
                                                                        : nullptr;
   }();
   return fn;
+}
+
+// Make the primary context of the device that holds `p` current on this host
+// thread. A thread that has made no CUDA call yet has none (PyTorch's autograd
+// thread, which skips cudaSetDevice while its device already reads as
+// current), and cuTensorMapEncodeTiled then refuses every address. Every
+// launch that encodes tensor maps calls it first.
+inline cudaError_t bind_device(const void* p) {
+  cudaPointerAttributes a;
+  const cudaError_t err = cudaPointerGetAttributes(&a, p);
+  return err != cudaSuccess ? err : cudaSetDevice(a.device);
 }
 
 // (b, n, cols) bf16 as a tensor map of boxes of `box_cols` columns x `rows`

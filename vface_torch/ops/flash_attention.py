@@ -1,8 +1,8 @@
 """Flash attention, forward and backward: CUDA C++ for Hopper.
 
-Kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
-``csrc/flash_attention_f32.cu``), each replacing a TPU kernel of
-``vface_tpu/ops/pallas_attention.py``:
+Kernels (``csrc/flash_attention.cu``: K1, K4, K6, K7 at bf16;
+``csrc/flash_attention_bwd.cu``: K5; ``csrc/flash_attention_f32.cu``: K8),
+each replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py``:
 
 * K1 ``flash_attention`` (``flash_attention_v5`` / ``_flash_kernel_v5``):
   multi-head attention of (B, Nq, H*dh) bf16 queries over (B, Nk, H*dh) keys
@@ -12,10 +12,11 @@ Kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
 * K4 ``flash_attention_stats`` (``_flash_v5_stats``): K1 that also writes
   each row's final m and l, fp32 (B*H, Nq), for the backward;
 * K6 ``flash_attention_fp32`` (``_flash_v2_impl``): the same attention with P
-  kept at fp32 precision in P.V, which the backward uses to recompute O;
-* K5 ``flash_attention_bwd`` (``flash_attention_bwd``): dQ, dK and dV from q,
-  k, v, dO, m, l and D = rowsum(dO*O) in two kernels, one over query tiles
-  and one over key tiles;
+  kept at fp32 precision in P.V (K1's kernel with P split into bf16 hi + lo),
+  which the backward uses to recompute O;
+* K5 ``flash_attention_bwd`` (``flash_attention_bwd``): dQ, dK and dV from
+  (B, Nq, H*dh) q and dO, (B, Nk, H*dh) k and v, and m, l and D = rowsum(dO*O)
+  (B*H, Nq) in two kernels, one over query tiles and one over key tiles;
 * K7 ``flash_attention_v2_stats`` (``_flash_v2_stats``): K6 that also writes
   m and l, the forward of ``flash_attention_v2``'s VJP (bf16: K6's kernel with
   K4's epilogue; fp32: K8's kernel with the same epilogue);
@@ -23,13 +24,12 @@ Kernels (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and
   k-tiled v1): attention over (B, Nq, H*dh) x (B, Nk, H*dh), any input dtype
   cast to fp32, fp32 products on the CUDA cores, output in the input dtype.
 
-At the UNet's shapes (ds1 N = 4096, dh = 40; ds2 N = 1024, dh = 80) K1 and
-K4 are bound by the exponentials at ds1 and by the tensor cores and the
-exponentials together at ds2; they run both products on ``wgmma`` with a TMA
-ring of K/V tiles. K5 and K6 are tensor-core bound and run ``mma.sync``. All
-keep S, P and dS on chip and read the heads strided out of (B, N, H*dh)
-without a split-heads copy. K8 is bound by the fp32 rate of the CUDA cores.
-See the sources for the tiling.
+At the UNet's shapes (ds1 N = 4096, dh = 40; ds2 N = 1024, dh = 80) K1,
+K4, K6 and K5 are bound by the exponentials and the tensor cores together;
+they run every product on ``wgmma`` with a TMA ring of streamed tiles, and
+all take Nq != Nk. All keep S, P and dS on chip and read the heads strided
+out of (B, N, H*dh) without a split-heads copy. K8 is bound by the fp32 rate
+of the CUDA cores. See the sources for the tiling.
 
 :func:`flash_attention` is differentiable with the JAX package's VJP
 (``_flash_v5_diff``): where a gradient is needed the forward is K4 and saves
@@ -38,7 +38,7 @@ reduction here, as in JAX), then K5. Where none is needed (inference mode,
 ``no_grad``, inputs that do not require grad) it is K1 and writes no
 statistics; fp32 operands go to K8, which computes v5's function at fp32 (P
 is not rounded when it already has the operands' type). K5 is bf16-only, so
-on the card fp32 operands with a gradient raise.
+on the card fp32 operands with a gradient raise (ROADMAP §B).
 
 :func:`flash_attention_v1` and :func:`flash_attention_v2` are the JAX
 package's ``flash_attention`` and ``flash_attention_v2`` entry points with
@@ -55,6 +55,7 @@ or gradients its kernel does not take.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,12 +77,34 @@ LAUNCHES = dict.fromkeys(
      "flash_attention_v1", "flash_attention_v3", "flash_attention_v4", "flash_attention_v6"), 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_K1_ARGS = [_P] * 4 + [_I] * 5 + [_F, _P]
-_K4_ARGS = [_P] * 6 + [_I] * 5 + [_F, _P]
-_FWD_ARGS = [_P] * 4 + [_I] * 4 + [_F, _P]
-_STATS_ARGS = [_P] * 6 + [_I] * 4 + [_F, _P]
-_DQ_ARGS = [_P] * 8 + [_I] * 4 + [_F, _P]
-_DKV_ARGS = [_P] * 9 + [_I] * 4 + [_F, _P]
+_FWD_ARGS = [_P] * 4 + [_I] * 5 + [_F, _I, _P]
+_FWD_STATS_ARGS = [_P] * 6 + [_I] * 5 + [_F, _I, _P]
+_DQ_ARGS = [_P] * 8 + [_I] * 5 + [_F, _P]
+_DKV_ARGS = [_P] * 9 + [_I] * 5 + [_F, _P]
+CONSUMERS = (2, 3)  # the forward kernel's consumer warpgroups per CTA: 128 or 192 query rows
+
+
+def built_consumers(split: bool, dh: int) -> tuple:
+    """The forward kernel's query tiles built for head width ``dh``: both, but
+    only 128 rows for K6 and K7 (``split``) at dh 80, which spill at 192."""
+    return (2,) if split and -(-dh // 16) * 16 == 80 else CONSUMERS
+
+
+def k1_consumers(rows: int, nq: int, device: torch.device, split: bool, dh: int) -> int:
+    """The forward kernel's consumer warpgroups per CTA (K1, K4, K6, K7 with
+    ``split``) for ``rows`` = B*H heads of ``nq`` queries of width ``dh`` on a
+    CUDA device, among :func:`built_consumers`: 3 (192 query rows,
+    a third less K/V traffic than 128) unless 192-row tiles give fewer than
+    two CTAs per SM, then 2 (PERF.md, K4: the card's times of both tiles at
+    every batch of the main paths)."""
+    tiles = built_consumers(split, dh)
+    return 3 if 3 in tiles and -(-nq // 192) * rows >= 2 * _sm_count(torch.device(device)) else 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The device's SM count, read once: the query happens on every launch of a host-bound path."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ------------------------------------------------------------ plain versions
@@ -218,28 +241,33 @@ def _check_width(kernel: str, d: int, num_heads: int) -> None:
                          f"that pads to one of {PADDED_DH}")
 
 
-def _launch(kernel: str, symbol: str, argtypes, q, k, v, num_heads: int, extra: dict, outs):
-    """Launch one of ``csrc/flash_attention_bwd.cu``'s kernels (K6, K7 at bf16, K5):
-    self-attention, k and v have q's shape."""
-    b, n, d = q.shape
+def _launch_bwd(kernel: str, symbol: str, argtypes, q, k, v, do, num_heads: int, stats, outs) -> None:
+    """Launch one of K5's kernels (``csrc/flash_attention_bwd.cu``) on (B, Nq, D)
+    queries and dO over (B, Nk, D) keys and values; ``stats`` = (m, l, dd),
+    each (B*H, Nq) fp32; ``outs`` = (dq,) or (dk, dv)."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
     dh = d // num_heads
     bf = torch.bfloat16
-    ops = {"q": (q, bf, (b, n, d)), "k": (k, bf, (b, n, d)), "v": (v, bf, (b, n, d))}
-    stat = (b * num_heads, n)
-    for arg, t in extra.items():
-        ops[arg] = (t, bf, (b, n, d)) if t.dtype == bf else (t, torch.float32, stat)
+    ops = {"q": (q, bf, (b, nq, d)), "k": (k, bf, (b, nk, d)), "v": (v, bf, (b, nk, d)), "do": (do, bf, (b, nq, d))}
+    for arg, t in zip(("m", "l", "dd"), stats):
+        ops[arg] = (t, torch.float32, (b * num_heads, nq))
+    for i, t in enumerate(outs):
+        ops[f"out{i}"] = (t, bf, (b, nq if len(outs) == 1 else nk, d))
     _check(kernel, q, ops)
     _check_width(kernel, d, num_heads)
     fn = _native.function("flash_attention_bwd", symbol, argtypes)
-    ptrs = [t.data_ptr() for t in (q, k, v, *extra.values(), *outs)]
+    ptrs = [t.data_ptr() for t in (q, k, v, do, *stats, *outs)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _native.check(fn(*ptrs, b, n, num_heads, dh, float(dh**-0.5), stream), kernel)
+    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
     LAUNCHES[kernel] += 1
 
 
-def _launch_fwd(kernel: str, q, k, v, num_heads: int, outs) -> None:
-    """Launch K1's kernel on (B, Nq, D) queries over (B, Nk, D) keys and values:
-    ``outs`` = (out,), or (out, m, l) for its STATS instantiation (K4)."""
+def _launch_fwd(kernel: str, q, k, v, num_heads: int, outs, split: bool = False, consumers: int | None = None) -> None:
+    """Launch the forward kernel on (B, Nq, D) queries over (B, Nk, D) keys and
+    values: ``outs`` = (out,), or (out, m, l) for its STATS instantiations;
+    ``split`` keeps P at fp32 precision (K6, K7). ``consumers`` (2 or 3) fixes
+    the query tile, else :func:`k1_consumers` picks it."""
     b, nq, d = q.shape
     nk = k.shape[1]
     dh = d // num_heads
@@ -250,12 +278,16 @@ def _launch_fwd(kernel: str, q, k, v, num_heads: int, outs) -> None:
         ops[arg] = (t, torch.float32, (b * num_heads, nq))
     _check(kernel, q, ops)
     _check_width(kernel, d, num_heads)
+    if consumers is None:
+        consumers = k1_consumers(b * num_heads, nq, q.device, split, dh)
+    elif consumers not in built_consumers(split, dh):
+        raise ValueError(f"{kernel}: consumers must be one of {built_consumers(split, dh)}")
     stats = len(outs) == 3
-    fn = _native.function("flash_attention", "vface_flash_attention_" + ("stats_" if stats else "") + "bf16",
-                          _K4_ARGS if stats else _K1_ARGS)
+    symbol = "vface_flash_attention_" + ("fp32p_" if split else "") + ("stats_" if stats else "") + "bf16"
+    fn = _native.function("flash_attention", symbol, _FWD_STATS_ARGS if stats else _FWD_ARGS)
     ptrs = [t.data_ptr() for t in (q, k, v, *outs)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
+    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), consumers, stream), kernel)
     LAUNCHES[kernel] += 1
 
 
@@ -283,24 +315,24 @@ def flash_attention_stats(q, k, v, num_heads: int):
 
 
 def flash_attention_fp32(q, k, v, num_heads: int) -> torch.Tensor:
-    """K6; the kernel on CUDA, the plain version on the CPU."""
+    """K6: (B, Nq, D) over (B, Nk, D); the kernel on CUDA (bf16), the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_fp32_ref(q, k, v, num_heads)
     out = torch.empty_like(q)
-    _launch("flash_attention_fp32", "vface_flash_attention_fp32p_bf16", _FWD_ARGS, q, k, v, num_heads, {}, (out,))
+    _launch_fwd("flash_attention_fp32", q, k, v, num_heads, (out,), split=True)
     return out
 
 
 def flash_attention_bwd(q, k, v, do, m, l, dd, num_heads: int):
-    """K5: (dq, dk, dv), two kernel launches on CUDA, the plain version on the CPU."""
+    """K5: (dq, dk, dv) for (B, Nq, D) q and dO over (B, Nk, D) k and v, with m,
+    l and dd (B*H, Nq); two kernel launches on CUDA, the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, do, m, l, dd, num_heads)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    extra = {"do": do, "m": m, "l": l, "dd": dd}
-    _launch("flash_attention_bwd_dq", "vface_flash_attention_bwd_dq_bf16", _DQ_ARGS, q, k, v, num_heads, extra,
-            (dq,))
-    _launch("flash_attention_bwd_dkv", "vface_flash_attention_bwd_dkv_bf16", _DKV_ARGS, q, k, v, num_heads,
-            extra, (dk, dv))
+    _launch_bwd("flash_attention_bwd_dq", "vface_flash_attention_bwd_dq_bf16", _DQ_ARGS, q, k, v, do, num_heads,
+                (m, l, dd), (dq,))
+    _launch_bwd("flash_attention_bwd_dkv", "vface_flash_attention_bwd_dkv_bf16", _DKV_ARGS, q, k, v, do, num_heads,
+                (m, l, dd), (dk, dv))
     return dq, dk, dv
 
 
@@ -336,8 +368,8 @@ def _flash_attention_v1(q, k, v, num_heads: int, block_k: int = 256) -> torch.Te
 
 
 def flash_attention_v2_stats(q, k, v, num_heads: int, block_k: int = 1024):
-    """K7: (out, m, l); on CUDA K6's kernel with the stats epilogue for bf16
-    (self-attention, Nq == Nk) or K8's for fp32, the plain version on the CPU."""
+    """K7: (out, m, l); on CUDA K6's kernel with the stats epilogue for bf16 or
+    K8's for fp32, the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_v2_stats_ref(q, k, v, num_heads, block_k)
     out = torch.empty_like(q)
@@ -345,8 +377,7 @@ def flash_attention_v2_stats(q, k, v, num_heads: int, block_k: int = 1024):
     if q.dtype == torch.float32:
         _launch_f32("flash_attention_v2_stats", True, q, k, v, num_heads, (out, m, l))
     else:
-        _launch("flash_attention_v2_stats", "vface_flash_attention_fp32p_stats_bf16", _STATS_ARGS, q, k, v,
-                num_heads, {}, (out, m, l))
+        _launch_fwd("flash_attention_v2_stats", q, k, v, num_heads, (out, m, l), split=True)
     return out, m, l
 
 
@@ -382,13 +413,10 @@ def _refuse_grad_off_bf16(name: str, q: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Attention of (B, Nq, H*dh) queries over (B, Nk, H*dh) keys and values, the
     port of ``flash_attention_v5``; differentiable (K4 forward, K6 + K5
-    backward, bf16, Nq == Nk on the card) where a gradient is needed, K1 where
-    none is (K8 for fp32 operands)."""
+    backward, bf16 on the card) where a gradient is needed, K1 where none is
+    (K8 for fp32 operands)."""
     if needs_grad(q, k, v):
         _refuse_grad_off_bf16("flash_attention", q)
-        if q.device.type != "cpu" and q.shape[1] != k.shape[1]:
-            raise ValueError("flash_attention: a gradient needs Nq == Nk (the backward kernels K6 and K5 "
-                             "are self-attention only)")
         return _FlashAttention.apply(q, k, v, num_heads, False, flash_attention_stats)
     if q.dtype == torch.float32 and q.device.type != "cpu":
         return _flash_attention_v1(q, k, v, num_heads)
