@@ -11,7 +11,8 @@ Phases, one line each:
      (each entry's registers, shared memory and spills from ptxas, and any
      wgmma serialization it reports; the attention and GEGLU kernels' dynamic
      shared memory; every entry of the forward attention (K1, K4, K6, K7),
-     backward attention (K5) and GEGLU libraries holds wgmma (HGMMA) and no
+     backward attention (K5), fp32 attention (K7, K8, K10-K12 on fp32 operands;
+     but its split pass) and GEGLU libraries holds wgmma (HGMMA) and no
      mma.sync, and none of them spills), plus the Triton kernel's compile on
      its first launch;
   3. kernels: each hand-written kernel against its plain PyTorch version on
@@ -19,15 +20,17 @@ Phases, one line each:
      the time of one PyTorch library call computing the same function (where
      one exists; the unfused route for the GEGLU kernels) and the card's
      bound (K1, K4 and K12 also print their exp floor: B*H*Nq*Nk ex2 at 16
-     per clock per SM): K1-K3 at the shapes the swap path gives them, K4-K6
-     (the training attention) at the training shapes and K6, K5 at a ragged
-     Nq != Nk, K5 bit for bit over two launches, K7-K9 (the rest of
-     ``vface_tpu.ops``' kernels): K7 at the training shapes and a ragged
-     Nq != Nk, K8 at fp32 up to
-     the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4 feed-forward
-     (M = 3072, C = 1280) and the middle block's (M = 768); K10-K13 (the
-     archived attention variants and the GEGLU row-tile sweep) at the kernel
-     benches' shapes; with ``--previous`` (the parent's output in the same
+     per clock per SM; the fp32 attention rows are bounded at the 3xTF32 line
+     and also print the CUDA cores' FFMA line, fp32_ffma_ms): K1-K3 at the
+     shapes the swap path gives them, K4-K6 (the training attention) at the
+     training shapes and K6, K5 at a ragged Nq != Nk, K5 bit for bit over two
+     launches, K7-K9 (the rest of ``vface_tpu.ops``' kernels): K7 at the
+     training shapes and a ragged Nq != Nk, at bf16 and at fp32, K8 at fp32
+     up to the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4
+     feed-forward (M = 3072, C = 1280) and the middle block's (M = 768);
+     K10-K13 (the archived attention variants and the GEGLU row-tile sweep)
+     at the kernel benches' shapes, K10-K12 also on fp32 operands; with
+     ``--previous`` (the parent's output in the same
      call) each row's log line also shows the parent's time at its shape
      (K13, whose tiles changed: the parent's fastest tile at the same
      operands), which the ``kernels`` line leaves out; ``k1_tiles`` lines time
@@ -101,6 +104,7 @@ import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense tf32 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SMS = 0  # the card's streaming multiprocessors (set by phase_device)
 EX2_PER_CLOCK = 16  # ex2 results per clock per SM (the SFU, compute capability 9.0)
@@ -162,6 +166,22 @@ def exp_floor(exps: float) -> float:
     return exps / (EX2_PER_CLOCK * SMS * SM_CLOCK_MHZ * 1e6) * 1e3
 
 
+def tf32x3_bound(flops: float, nbytes: float, exps: float):
+    """The bound of attention on fp32 operands: fp32-accurate products on the
+    tensor cores are three tf32 terms (``flops`` at a third of the tf32 peak,
+    165 TFLOP/s), beside the bytes and the exponentials' floor; the largest.
+    The CUDA cores' FFMA line (:func:`ffma_ms`) is slower."""
+    t, by = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    e = exp_floor(exps)
+    return (e, "operations") if e > t else (t, by)
+
+
+def ffma_ms(flops: float) -> float:
+    """ms of ``flops`` fp32 FLOPs at the CUDA cores' FFMA peak, the bound of
+    fp32-accurate products off the tensor cores."""
+    return flops / PEAK_FP32_FLOPS * 1e3
+
+
 def phase_device() -> str:
     import torch
 
@@ -196,7 +216,8 @@ def phase_build() -> None:
     """Build every kernel; log each entry's registers, static shared memory and
     spill stores (ptxas), the dynamic shared memory of K1's and the GEGLU
     kernels' instantiations, and the tensor-core instructions of every entry of
-    the K1/K4 and GEGLU libraries (SASS): wgmma (HGMMA) and no mma.sync (HMMA)."""
+    the attention and GEGLU libraries (SASS): wgmma (HGMMA) and no mma.sync
+    (HMMA), but for the fp32 attention's split pass, which does no products."""
     import ctypes
 
     from vface_torch.ops import _native
@@ -231,10 +252,12 @@ def phase_build() -> None:
     log("k1_dynamic_smem", **{f"dh{dh}_nc{nc}": smem(dh, nc) for dh in (8, 40, 80) for nc in (2, 3)})
     smem = _native.function("flash_attention_bwd", "vface_flash_attention_bwd_smem_bytes", [ctypes.c_int])
     log("k5_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (8, 40, 80)})
+    smem = _native.function("flash_attention_f32", "vface_flash_attention_f32_smem_bytes", [ctypes.c_int])
+    log("k8_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (16, 32, 40, 80)})
     smem = _native.function("geglu_ff", "vface_geglu_ff_smem_bytes", [ctypes.c_int] * 3)
     log("geglu_dynamic_smem", **{f"fused_c{c}_tm{tm}": smem(c, tm, 0) for c, tm in ((64, 128), (320, 64), (320, 128))},
         **{f"gemm{gm}": smem(0, 128, gm) for gm in (1, 2)})
-    wgmma_sources = ("flash_attention", "flash_attention_bwd", "geglu_ff")
+    wgmma_sources = ("flash_attention", "flash_attention_bwd", "flash_attention_f32", "geglu_ff")
     spilled = [name for name in wgmma_sources if spills[name]]
     if spilled:
         raise SystemExit(f"chip_smoke: the wgmma kernels of {spilled} spill registers")
@@ -253,17 +276,22 @@ def phase_build() -> None:
         names = _demangle(list(counts))
         log("sass", source=name,
             entries=" | ".join(f"{n}: {c[0]} HGMMA, {c[1]} HMMA" for n, c in zip(names, counts.values())))
-        if not counts or any(c[0] == 0 or c[1] for c in counts.values()):
+        # the fp32 attention's split pass (split_kv_kernel) does no products
+        if not counts or any((c[0] == 0 and "split_kv_kernel" not in fn) or c[1] for fn, c in counts.items()):
             raise SystemExit(f"chip_smoke: every entry of {name} must run wgmma (HGMMA) and no mma.sync (HMMA)")
 
 
-def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, shape, exp_ms=None):
+def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, shape, exp_ms=None, ffma=None):
     """errs = (max abs error, max relative error); tol = ("abs" or "rel", limit);
-    exp_ms: the attention forward's exp floor (:func:`exp_floor`), beside the bound.
-    With ``--previous``, the log line shows the parent's time at the same shape
-    (:func:`previous_ms`); the returned row holds only this run's numbers."""
+    exp_ms: the attention forward's exp floor (:func:`exp_floor`), beside the bound;
+    ffma: an fp32 attention's FFMA line (:func:`ffma_ms`), beside its tf32 bound.
+    Both go on the log line only, as does the parent's time at the same shape
+    with ``--previous`` (:func:`previous_ms`): the returned row holds this run's
+    measurements and ``bound_ms``."""
     checked = errs[0] if tol[0] == "abs" else errs[1]
     floor = {} if exp_ms is None else {"exp_floor_ms": f"{exp_ms:.4f}"}
+    if ffma is not None:
+        floor["fp32_ffma_ms"] = f"{ffma:.4f}"
     prev, prev_shape = previous_ms(name, shape)
     if prev is not None:
         floor["previous_ms"] = f"{prev:.4f}"
@@ -275,12 +303,21 @@ def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, sh
         bound_by=bnd[1], **floor)
     if not checked <= tol[1]:
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version: {checked} > {tol}")
-    row = {"name": name, "route": route, "source": source, "replaces": replaces, "shape": shape,
-           "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-           "bound_by": bnd[1], "library_ms": lib_ms}
-    if exp_ms is not None:
-        row["exp_floor_ms"] = exp_ms
-    return row
+    return {"name": name, "route": route, "source": source, "replaces": replaces, "shape": shape,
+            "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": lib_ms}
+
+
+def equal_k6(got, k6, name: str, shape: str) -> None:
+    """K8's function on bf16 operands runs on K6's kernel (P at fp32
+    precision): its output must be K6's bit for bit. The 2-ulp limit of its
+    row cannot tell that from P rounded to bf16 (K1's kernel)."""
+    import torch
+
+    same = torch.equal(got, k6)
+    log("kernel_k6_check", name=name, shape=shape, equals_k6=same)
+    if not same:
+        raise SystemExit(f"chip_smoke: {name} on bf16 operands at {shape} is not K6's kernel's output")
 
 
 def _ff_bound(m: int, c: int, inner: int):
@@ -937,20 +974,23 @@ def phase_ops_kernels() -> dict:
     K7 (bf16, K6's kernel with the stats epilogue) at the training shapes and
     at the ragged Nq != Nk of :func:`phase_train_kernels`: output equal to
     K6's bit for bit, m and l within 1e-5 relative, 2 bf16 ulps against the
-    plain version, and the precision gate. K8 at fp32 (1, 4096,
-    320) and at the 1024^2 ds1 site (1, 16384, 320), within 1e-5 of the
-    output's peak (fp32 summation order), and at bf16 (1, 4096, 320), within 2
-    ulps of K6's plain version (the same function). K9 at the ds4 feed-forward,
-    (3072, 1280) with I = 5120, within 2 bf16 ulps at the output's peak
-    against K2's plain version (K9 computes K2's function).
+    plain version, and the precision gate; K7 on fp32 operands (the tf32
+    kernel's STATS form) at ds1 and the ragged Nq != Nk: output equal to K8's
+    bit for bit, m and l within 1e-5 relative, out within 1e-5 of its peak.
+    K8 at fp32 (1, 4096, 320) and at the 1024^2 ds1 site (1, 16384, 320), on
+    the tf32 kernel, within 1e-5 of the output's peak (three tf32 terms per
+    product and another summation order), and at bf16 (1, 4096, 320), on K6's
+    kernel, within 2 ulps of K6's plain version (the same function) and equal
+    to K6's output bit for bit (:func:`equal_k6`). K9 at the
+    ds4 feed-forward, (3072, 1280) with I = 5120, within 2 bf16 ulps at the
+    output's peak against K2's plain version (K9 computes K2's function).
 
-    Bounds: K7's function at the bf16 tensor-core peak (as K6's row); K8's two
-    N^2-products at the 67 TFLOP/s fp32 peak for fp32 operands (fp32-accurate
-    products, which the tensor cores give only through multi-term splits) and
-    at the bf16 tensor-core peak for bf16 operands (K6's function, which K6
-    computes on the tensor cores); K9's 6*M*C*I at the bf16 peak, or each
-    one's bytes. Library: SDPA on fp32 inputs (K7, K8), the unfused route (K9).
-    K9 also at the middle block's M = 768."""
+    Bounds: bf16 operands' attention (K7, K8) at the bf16 tensor-core peak;
+    fp32 operands' (K7, K8) at the 3xTF32 line (:func:`tf32x3_bound`: the
+    products at 165 TFLOP/s, the bytes or the exponentials), with the CUDA
+    cores' FFMA line beside it (``fp32_ffma_ms``); K9's 6*M*C*I at the bf16
+    peak, or each one's bytes. Library: SDPA on fp32 inputs (K7, K8), the
+    unfused route (K9). K9 also at the middle block's M = 768."""
     import torch
     import torch.nn.functional as F
 
@@ -988,6 +1028,31 @@ def phase_ops_kernels() -> dict:
             bound(4.0 * b * h * nq * nk * dh, (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * h * nq * 4), shape))
         del qf, kf, vf
 
+    for nq, nk in ((4096, 4096), (RAGGED_NQ, RAGGED_NK)):  # K7 on fp32 operands: the tf32 kernel
+        h, b, c = 8, 1, 320
+        dh = c // h
+        q, k, v = (randn(b, n, c, dtype=torch.float32) for n in (nq, nk, nk))
+        shape = _shape(b, nq, nk, c, h) + " fp32"
+        out, m, l = FA.flash_attention_v2_stats(q, k, v, h)
+        want, wm, wl = FA.flash_attention_v2_stats_ref(q, k, v, h)
+        torch.cuda.synchronize()
+        rel_ml = max(((m - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(), ((l - wl).abs() / wl).max().item())
+        bitwise = torch.equal(out, FA._flash_attention_v1(q, k, v, h))
+        log("kernel_v2_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05", equals_k8=bitwise)
+        if not (rel_ml <= 1e-5 and bitwise):
+            raise SystemExit("chip_smoke: fp32 flash_attention_v2_stats's m/l disagree or its output is not K8's")
+        split = lambda t: t.view(b, -1, h, dh).transpose(1, 2)
+        flops = 4.0 * b * h * nq * nk * dh
+        rows["flash_attention_v2_stats"].append(_row(
+            "flash_attention_v2_stats", "cuda", "vface_torch/csrc/flash_attention_f32.cu",
+            "vface_tpu/ops/pallas_attention.py:302", _errs(out, want), ("rel", 1e-5),
+            cuda_ms(lambda: FA.flash_attention_v2_stats(q, k, v, h)),
+            cuda_ms(lambda: FA.flash_attention_v2_stats_ref(q, k, v, h), reps=3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))),
+            tf32x3_bound(flops, (2 * q.numel() + 2 * k.numel()) * 4 + 2 * b * h * nq * 4, b * h * nq * nk), shape,
+            ffma=ffma_ms(flops)))
+        del q, k, v, out, m, l, want, wm, wl
+
     for n, dtype in ((4096, torch.float32), (16384, torch.float32), (4096, torch.bfloat16)):
         h, b, c = 8, 1, 320
         dh = c // h
@@ -1003,17 +1068,20 @@ def phase_ops_kernels() -> dict:
             plain = lambda: FA.flash_attention_fp32_ref(q, k, v, h)
             want = plain()
             tol = ("abs", 2 * bf16_ulp(want.float().abs().max().item()))
+            equal_k6(got, FA.flash_attention_fp32(q, k, v, h), "flash_attention_v1", shape)
         torch.cuda.synchronize()
         split = lambda t: t.view(b, n, h, dh).transpose(1, 2).float()
         qf, kf, vf = split(q), split(k), split(v)
+        flops, nbytes = 4.0 * b * h * n * n * dh, 4 * q.numel() * q.element_size()
+        f32 = dtype == torch.float32
         rows["flash_attention_v1"].append(_row(
-            "flash_attention_v1", "cuda", "vface_torch/csrc/flash_attention_f32.cu",
+            "flash_attention_v1", "cuda", f"vface_torch/csrc/{'flash_attention_f32.cu' if f32 else 'flash_attention.cu'}",
             "vface_tpu/ops/pallas_attention.py:44", _errs(got, want), tol,
             cuda_ms(lambda: O.flash_attention_v1(q, k, v, h), reps=3 if fast else 10),
             cuda_ms(plain, reps=1 if fast else 3, warmup=1),
             cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf), reps=3 if fast else 10),
-            bound(4.0 * b * h * n * n * dh, 4 * q.numel() * q.element_size(),
-                  PEAK_FP32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS), shape))
+            tf32x3_bound(flops, nbytes, b * h * n * n) if f32 else bound(flops, nbytes), shape,
+            ffma=ffma_ms(flops) if f32 else None))
         del q, k, v, qf, kf, vf, got, want
 
     c = 1280  # ds4 at the sampling batch (2 chunks x 6 frames x 16^2 tokens) and the middle block (8^2)
@@ -1041,17 +1109,21 @@ def phase_ops_kernels() -> dict:
 def phase_bench_kernels() -> dict:
     """K10-K13 against their plain versions at the benches' shapes; returns the rows.
 
-    K10 (v3) and K11 (v4), K8's kernel, and K12 (v6), K1's kernel, at the
+    K10 (v3) and K11 (v4), on K6's kernel, and K12 (v6), on K1's, at the
     attention bench's ds1 and ds2 shapes (b 12, N 4096 and 1024, h 8, dh 40,
     bf16), JAX's default 1024-key blocks: 2 bf16 ulps at the output's peak
-    against ``flash_attention_v1_ref`` over those blocks (K10, K11) and K1's
-    plain version (K12). K13 at the row-tile sweep's shapes (C 320 with M =
-    24*4096, C 640 with M = 24*1024, the bench's operands), each built tile:
-    2 ulps against K2's plain version.
+    against ``flash_attention_v1_ref`` over those blocks (K10, K11; both also
+    equal to K6's output bit for bit, :func:`equal_k6`) and K1's plain
+    version (K12); all three on fp32 operands (the tf32 kernel) at
+    (12, 1024, 320), within 1e-5 of the output's peak against
+    ``flash_attention_v1_ref``. K13 at the row-tile sweep's shapes (C 320
+    with M = 24*4096, C 640 with M = 24*1024, the bench's operands), each
+    built tile: 2 ulps against K2's plain version.
 
     Bounds at the bf16 tensor-core peak (bf16 operands: the tensor cores
-    compute K8's function as K6 does) or the bytes. Library: SDPA on the
-    fp32-cast inputs (K10, K11), SDPA (K12), the unfused route (K13)."""
+    compute K8's function as K6 does) or the bytes; fp32 operands at the
+    3xTF32 line with the FFMA line beside it. Library: SDPA on the fp32-cast
+    inputs (K10, K11), SDPA (K12; fp32 SDPA at fp32), the unfused route (K13)."""
     import torch
     import torch.nn.functional as F
 
@@ -1061,8 +1133,6 @@ def phase_bench_kernels() -> dict:
     from vface_torch.ops import geglu_ff as FF
 
     rows = {name: [] for name in BENCH_KERNELS}
-    src = {"flash_attention_v3": "flash_attention_f32.cu", "flash_attention_v4": "flash_attention_f32.cu",
-           "flash_attention_v6": "flash_attention.cu"}
     line = {"flash_attention_v3": 72, "flash_attention_v4": 158, "flash_attention_v6": 247}
     h, dh = BA.H, BA.DH
     with torch.inference_mode():
@@ -1082,14 +1152,36 @@ def phase_bench_kernels() -> dict:
                     lib = lambda: F.scaled_dot_product_attention(split(q).float(), split(k).float(),
                                                                  split(v).float())
                 got, want = fn(q, k, v, h, blk, blk), plain()
+                if name != "flash_attention_v6":
+                    equal_k6(got, FA.flash_attention_fp32(q, k, v, h), name, shape)
                 torch.cuda.synchronize()
                 rows[name].append(_row(
-                    name, "cuda", f"vface_torch/csrc/{src[name]}", f"vface_tpu/ops/_archive_attention.py:{line[name]}",
+                    name, "cuda", "vface_torch/csrc/flash_attention.cu", f"vface_tpu/ops/_archive_attention.py:{line[name]}",
                     _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
                     cuda_ms(lambda: fn(q, k, v, h, blk, blk)), cuda_ms(plain, reps=2, warmup=1), cuda_ms(lib),
                     bnd, shape, exp_floor(b * h * n * n) if name == "flash_attention_v6" else None))
                 del got, want
             del q, k, v
+        b, n = 12, 1024  # fp32 operands, all three on the tf32 kernel (v6's P rounding is a no-op at fp32)
+        q, k, v = (BA.randn((b, n, h * dh), seed=s, dtype=torch.float32) for s in range(3))
+        shape = f"({b},{n},{h * dh})h{h} fp32"
+        split = lambda t: t.view(b, n, h, dh).transpose(1, 2)
+        flops = 4.0 * b * h * n * n * dh
+        bnd = tf32x3_bound(flops, 4 * q.numel() * 4, b * h * n * n)
+        plain = lambda: FA.flash_attention_v1_ref(q, k, v, h, block_k=n)
+        want = plain()
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)))
+        for name in ("flash_attention_v3", "flash_attention_v4", "flash_attention_v6"):
+            fn = getattr(AA, name)
+            got = fn(q, k, v, h, n, n)
+            torch.cuda.synchronize()
+            rows[name].append(_row(
+                name, "cuda", "vface_torch/csrc/flash_attention_f32.cu",
+                f"vface_tpu/ops/_archive_attention.py:{line[name]}", _errs(got, want), ("rel", 1e-5),
+                cuda_ms(lambda: fn(q, k, v, h, n, n)), plain_ms, lib_ms, bnd, shape, ffma=ffma_ms(flops)))
+            del got
+        del q, k, v, want
         for c, m in BF.CASES:
             args = BF.operands(c, m)
             want = FF.geglu_ff_ref(*args)
@@ -1625,8 +1717,7 @@ def kernels_line(rows: dict, launches: dict) -> dict:
         head = dict(sites[0])
         head["max_abs_err"] = max(r["max_abs_err"] for r in sites)
         head["launches"] = launches[name + "_dq" if name == "flash_attention_bwd" else name]
-        head["sites"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                                             "exp_floor_ms", "max_abs_err") if k in r}
+        head["sites"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                          for r in sites]
         head.pop("shape")
         out.append(head)

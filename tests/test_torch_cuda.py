@@ -316,11 +316,14 @@ def _rand(gen, *shape, dtype=torch.float32):
 
 @pytest.mark.parametrize("nq,nk,heads,dh,dtype", [
     (300, 300, 2, 40, torch.float32), (130, 70, 3, 16, torch.float32), (257, 1000, 2, 80, torch.float32),
-    (64, 200, 4, 32, torch.float32), (300, 130, 2, 40, torch.bfloat16), (1024, 1024, 8, 80, torch.bfloat16)])
+    (64, 200, 4, 32, torch.float32), (300, 130, 2, 40, torch.bfloat16), (1024, 1024, 8, 80, torch.bfloat16),
+    (333, 100, 2, 40, torch.float32), (200, 130, 3, 32, torch.bfloat16)])
 def test_flash_attention_v1_kernel(gen, nq, nk, heads, dh, dtype):
-    """K8 (ragged Nq and Nk, Nq != Nk, every head width) vs its plain version
-    over the same fp32 math: fp32 within 1e-5 of the output's peak (summation
-    order only); bf16 within 2 bf16 ulps (both round the same fp32 value once)."""
+    """K8 (ragged Nq and Nk, Nq != Nk both ways, every head width) vs its plain
+    version over the same fp32 math: fp32 on the tf32 kernel within 1e-5 of the
+    output's peak (three tf32 terms per product leave ~2^-21 relative; one term
+    errs by ~1e-3, tests/test_torch_kernels.py); bf16 within 2 bf16 ulps (both
+    round the same fp32 value once), on K6's kernel or, at dh 32, the tf32 one."""
     q, k, v = _rand(gen, 2, nq, heads * dh, dtype=dtype), *(_rand(gen, 2, nk, heads * dh, dtype=dtype) for _ in "kv")
     before = FA.LAUNCHES["flash_attention_v1"]
     got = FA._flash_attention_v1(q, k, v, heads)
@@ -331,12 +334,36 @@ def test_flash_attention_v1_kernel(gen, nq, nk, heads, dh, dtype):
     assert (got.float() - want.float()).abs().max() <= tol
 
 
+@pytest.mark.parametrize("nq,nk,heads,dh,dtype", [(300, 300, 2, 40, torch.float32), (257, 1000, 2, 80, torch.float32),
+                                                 (333, 100, 2, 16, torch.float32)])
+def test_flash_attention_v1_kernel_is_deterministic(gen, nq, nk, heads, dh, dtype):
+    """The tf32 kernel walks each row's keys in one fixed order: two launches
+    (each with its own split pass) are equal bit for bit."""
+    q, k, v = _rand(gen, 2, nq, heads * dh, dtype=dtype), *(_rand(gen, 2, nk, heads * dh, dtype=dtype) for _ in "kv")
+    assert torch.equal(FA._flash_attention_v1(q, k, v, heads), FA._flash_attention_v1(q, k, v, heads))
+
+
+@pytest.mark.parametrize("nq,nk,heads,dh", [(300, 130, 2, 40), (1024, 1024, 8, 80), (130, 300, 3, 16)])
+def test_k8_on_bf16_operands_is_k6s_kernel(gen, nq, nk, heads, dh):
+    """bf16 K8, K10 and K11 launch K6's kernel (its SPLIT instantiation computes
+    their function): their outputs are K6's bit for bit, counted under their own keys."""
+    q, k, v = _randn(gen, 2, nq, heads * dh), *(_randn(gen, 2, nk, heads * dh) for _ in "kv")
+    want = FA.flash_attention_fp32(q, k, v, heads)
+    for name, fn in (("flash_attention_v1", lambda: FA._flash_attention_v1(q, k, v, heads)),
+                     ("flash_attention_v3", lambda: AA.flash_attention_v3(q, k, v, heads, 1, 1)),
+                     ("flash_attention_v4", lambda: AA.flash_attention_v4(q, k, v, heads, 1, 1))):
+        before = dict(FA.LAUNCHES)
+        got = fn()
+        assert {key: FA.LAUNCHES[key] - before[key] for key in before if FA.LAUNCHES[key] != before[key]} == {name: 1}
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("nq,nk,heads,dh,dtype", [
     (300, 300, 2, 40, torch.bfloat16), (130, 130, 3, 16, torch.bfloat16), (300, 300, 2, 80, torch.bfloat16),
     (300, 300, 2, 40, torch.float32), (130, 130, 3, 32, torch.float32), (300, 130, 2, 40, torch.bfloat16),
     (128, 320, 2, 80, torch.bfloat16), (130, 300, 3, 16, torch.bfloat16), (300, 130, 2, 40, torch.float32)])
 def test_flash_attention_v2_stats_kernel(gen, nq, nk, heads, dh, dtype):
-    """K7: bf16, K6's output bit for bit; fp32, K8's. Against the plain version:
+    """K7: bf16, K6's output bit for bit; fp32, K8's (the tf32 kernel). Against the plain version:
     out within 2 bf16 ulps (bf16) or 1e-5 of its peak (fp32), m and l within
     1e-5 relative; Nq != Nk both ways."""
     q = _rand(gen, 2, nq, heads * dh, dtype=dtype)
@@ -426,7 +453,8 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(gen):
 @pytest.mark.parametrize("n,heads,dh,dtype", [(256, 4, 40, torch.float32), (256, 4, 40, torch.bfloat16),
                                               (1024, 8, 80, torch.bfloat16)])
 def test_archive_kernels(gen, name, n, heads, dh, dtype):
-    """K10/K11 (K8's kernel) and K12 (K1's kernel for bf16, K8's for fp32), each
+    """K10/K11 (K8's kernels: K6's for bf16, the tf32 one for fp32) and K12 (K1's
+    kernel for bf16, the tf32 one for fp32), each
     counted under its own key, against its plain version on the same blocks:
     fp32 within 1e-5 of the output's peak, bf16 within 2 ulps."""
     q, k, v = (_rand(gen, 2, n, heads * dh, dtype=dtype) for _ in range(3))

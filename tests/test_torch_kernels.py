@@ -181,3 +181,60 @@ def test_forward_query_tile_rule(monkeypatch, b, n, dh, k1, k6):
     assert FA.k1_consumers(b * 8, n, "cuda", False, dh) == k1
     assert FA.k1_consumers(b * 8, n, "cuda", True, dh) == k6
     assert FA.built_consumers(True, dh) == ((2,) if dh == 80 else (2, 3)) and FA.built_consumers(False, dh) == (2, 3)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: to nearest, ties away
+    from zero, the 13 low mantissa bits cleared (wgmma reads only the top 19)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_attention(q, k, v, heads: int, terms: frozenset) -> torch.Tensor:
+    """The tf32 kernel's arithmetic in plain form: every operand split into
+    hi = tf32(x), lo = tf32(x - hi); S and P.V each summed over the product
+    terms in ``terms`` ("s_hh", "s_lh", "s_hl", "pv_hh", "pv_lh", "pv_hl": hi.hi,
+    lo.hi, hi.lo), exactly (float64); the softmax in float64 over all keys."""
+    b, nq, d = q.shape
+    dh = d // heads
+    heads_of = lambda x: x.reshape(b, -1, heads, dh).transpose(1, 2)
+    split = lambda x: (tf32(x), tf32(x - tf32(x)))
+    (qh, ql), (kh, kl), (vh, vl) = (tuple(heads_of(p).double() for p in split(x)) for x in (q, k, v))
+    pairs = {"hh": lambda a, b: (a[0], b[0]), "lh": lambda a, b: (a[1], b[0]), "hl": lambda a, b: (a[0], b[1])}
+    s = sum(x @ y.transpose(-1, -2) for t, f in pairs.items() if f"s_{t}" in terms for x, y in [f((qh, ql), (kh, kl))])
+    p = torch.exp(s * dh**-0.5 - (s * dh**-0.5).amax(-1, keepdim=True)).float()
+    ph, pl = (x.double() for x in split(p))
+    o = sum(x @ y for t, f in pairs.items() if f"pv_{t}" in terms for x, y in [f((ph, pl), (vh, vl))])
+    return (o / p.double().sum(-1, keepdim=True)).float().transpose(1, 2).reshape(b, nq, d)
+
+
+ALL_TERMS = frozenset({"s_hh", "s_lh", "s_hl", "pv_hh", "pv_lh", "pv_hl"})
+
+
+@pytest.mark.parametrize("terms,meets", [
+    (ALL_TERMS, True), (frozenset({"s_hh", "pv_hh"}), False),
+    (ALL_TERMS - {"s_lh"}, False), (ALL_TERMS - {"pv_lh"}, False)])
+@pytest.mark.parametrize("nq,nk,heads,dh", [(300, 300, 2, 40), (130, 70, 3, 16), (257, 1000, 2, 80), (64, 200, 4, 32)])
+def test_tf32_terms_against_the_card_limit(nq, nk, heads, dh, terms, meets):
+    """Calibration of the fp32 card tests' limit, 1e-5 of the output's peak
+    against K8's plain version, at their fp32 shapes: S and P.V as three tf32
+    terms each (the tf32 kernel's split) meet it; one term each (plain tf32),
+    or three with Q_lo.K_hi^T or P_lo.V_hi dropped, miss it. So the card tests
+    tell a dropped lo term from the kernel's own round-off."""
+    rng = np.random.default_rng(nq + nk + dh)
+    q = torch.from_numpy(rng.normal(size=(2, nq, heads * dh)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, nk, heads * dh)).astype(np.float32)) for _ in range(2))
+    want = FA.flash_attention_v1_ref(q, k, v, heads)
+    err = (_tf32_attention(q, k, v, heads, terms) - want).abs().max() / want.abs().max()
+    assert (err <= 1e-5) == meets, float(err)
+
+
+def test_tf32_rounding_matches_its_definition():
+    """tf32: the nearest value with 10 stored mantissa bits, ties away from zero."""
+    x = torch.tensor([1.0 + 2**-10, 1.0 + 2**-11, 1.0 + 2**-11 + 2**-20, -(1.0 + 3 * 2**-11), 3.0 + 2**-12, 0.0])
+    want = torch.tensor([1.0 + 2**-10, 1.0 + 2**-10, 1.0 + 2**-10, -(1.0 + 2**-9), 3.0, 0.0])
+    assert torch.equal(tf32(x), want)
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    hi = tf32(r)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((r - hi).abs() <= r.abs() * 2**-11).all())

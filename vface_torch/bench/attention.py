@@ -8,17 +8,17 @@ Each JAX variant maps to its port counterpart:
   einsum   -> ``multi_head_attention`` (plain PyTorch)
   flash_v2 -> ``flash_attention_v2`` (K6, fp32 P)
   flash_v5 -> ``flash_attention`` (K1)
-  flash_v3 -> ``flash_attention_v3`` (K10, K8's kernel)
-  flash_v4 -> ``flash_attention_v4`` (K11, K8's kernel)
+  flash_v3 -> ``flash_attention_v3`` (K10: K8's function, here on K6's kernel)
+  flash_v4 -> ``flash_attention_v4`` (K11: likewise, K6's kernel)
   flash_v6 -> ``flash_attention_v6`` (K12, K1's kernel)
   xla_dpa  -> ``F.scaled_dot_product_attention``
   jax_fa, splash -> none: TPU library kernels
 
 The JAX script sweeps the TPU kernels' ``block_q``/``block_k``; the port's
-kernels stage fixed tiles (K1 64 query rows and 64-key tiles, K8 64 rows and
-64-key tiles) and take no tile parameter, so each of those variants has one
-row, at JAX's default blocks (which decide only the routing and the plain
-versions' key blocks).
+kernels stage fixed tiles (K1's kernel, K6's with it: 128 or 192 query rows
+and 64-key tiles) and take no tile parameter, so each of those variants has
+one row, at JAX's default blocks (which decide only the routing and the
+plain versions' key blocks).
 
 Run: ``python -m vface_torch.bench.attention [--packed] [--reps N]``
 """

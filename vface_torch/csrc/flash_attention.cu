@@ -96,42 +96,6 @@ struct Smem {
 template <int DHP, int NC>
 constexpr int kSmemBytes = sizeof(Smem<DHP, NC>) + 1024;  // + the slack to align it to 1024 bytes
 
-// One 64-key tile of the online softmax for this thread's rows g and g + 8
-// (r = 0, 1). s holds the raw scores q.k in the m64n64 accumulator layout
-// (s[4j + e]: row g + 8*(e >> 1), key 8j + 2*t4 + (e & 1)); with MASK, keys
-// from `valid` on are dropped. Replaces s by P = exp(scale*s - m), updates
-// the running raw row maxima mr and this thread's partial sums l, and
-// returns the rescale factors al. Packed to bf16 pairs, P is the A operand of
-// P.V as it stands: pairs 8kc..8kc+7 hold keys 16kc..16kc+15.
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&mr)[2], float (&l)[2], float (&al)[2],
-                                             float c, int valid, int t4) {
-  if (MASK) {
-#pragma unroll
-    for (int i = 0; i < 32; ++i)
-      if (8 * (i >> 2) + 2 * t4 + (i & 1) >= valid) s[i] = -INFINITY;
-  }
-  float mx[2] = {mr[0], mr[1]};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    al[r] = ex2((mr[r] - mx[r]) * c);  // 0 on the first tile (mr = -inf)
-    mr[r] = mx[r];
-  }
-  const float mc[2] = {mx[0] * c, mx[1] * c};
-  float ls[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
-    ls[(i >> 1) & 1] += s[i];
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) l[r] = l[r] * al[r] + ls[r];
-}
-
 template <int DHP, int NC, bool STATS, bool SPLIT>
 __global__ void __launch_bounds__(kThreads<NC>, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -239,6 +203,9 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
   float s[32], mr[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, al[2];
   uint32_t p[16], pl[NL];
+  // softmax_tile (hopper.cuh) leaves P in S's accumulator layout; packed to
+  // bf16 pairs it is the A operand of P.V as it stands: pairs 8kc..8kc+7 hold
+  // keys 16kc..16kc+15
   auto pack = [&] {
 #pragma unroll
     for (int i = 0; i < 16; ++i) {

@@ -1,280 +1,414 @@
-// Flash attention in full fp32 on the CUDA cores for Hopper (sm_90a): K8.
+// Flash attention with fp32 operands for Hopper (sm_90a), on the tensor cores
+// as 3xTF32: K8, and K7, K10, K11 and K12 on fp32 operands.
 //
 // Replaces vface_tpu/ops/pallas_attention.py::flash_attention (_flash_kernel,
-// the k-tiled v1 kernel): multi-head attention over q (B, Nq, H*dh) and k, v
-// (B, Nk, H*dh), any input type cast to fp32; s = (q . k^T) in fp32 times
-// dh^-0.5; an online softmax over key blocks with fp32 running max m and sum
-// l; P kept in fp32 for the fp32 P.V product; out = acc / l, rounded once to
-// the input type. Nq != Nk is allowed. For bf16 inputs this is K6's function
-// (_flash_v2_impl) computed in fp32 throughout.
+// the k-tiled v1: K8) and, at fp32, the TPU kernels that compute its
+// function: _archive_attention.py::flash_attention_v3 and _v4 (K10, K11),
+// flash_attention_v6 (K12: P rounded to the operands' type, a no-op at fp32)
+// and pallas_attention.py::_flash_v2_stats (K7, the STATS instantiation).
+// Attention of (B, Nq, H*dh) queries over (B, Nk, H*dh) keys and values with
+// every operand cast to fp32: s = (q . k^T) times dh^-0.5, an online softmax
+// over 64-key tiles with fp32 running max m and sum l, P in fp32 in the P.V
+// product, out = acc / l in fp32; Nq != Nk is allowed.
+// STATS also writes each query row's final m (of the scaled scores) and l,
+// fp32 (B*H, Nq); its output is the plain instantiation's bit for bit. bf16
+// operands take K6's kernel (flash_attention.cu, SPLIT), which computes the
+// same function, except at dh 32, which that kernel is not built for: the
+// wrapper casts those to fp32 for this kernel (bf16 values are exact in tf32)
+// and rounds the fp32 output once to bf16.
 //
-// The STATS instantiation also writes each query row's final m and l, fp32
-// (B*H, Nq): for fp32 operands it is the port's _flash_v2_stats (K7), the
-// forward of flash_attention_v2's VJP. Its output is the plain
-// instantiation's bit for bit: only the epilogue differs.
+// What bounds it on the H100: two N^2-products (2*Nq*Nk*dh FLOPs each per
+// head) and Nq*Nk exponentials per head, far above the bytes line. fp32
+// operands need fp32-accurate products. The CUDA cores give those at 67
+// TFLOP/s (FFMA); the tensor cores only through a multi-term split: with
+// hi = tf32(x) and lo = tf32(x - hi), a.b ~ a_hi.b_hi + a_lo.b_hi + a_hi.b_lo
+// to ~2^-21 relative (a_lo.b_lo lies below fp32's rounding), three tf32
+// products at 495 TFLOP/s dense: 165 TFLOP/s of fp32-accurate products, 2.5x
+// the FFMA line. At dh 40 the three products take ~4x as long as the
+// exponentials on the SFUs, so the products at 165 TFLOP/s bound it
+// (chip_smoke.py prints the FFMA line beside that bound as fp32_ffma_ms).
 //
-// What bounds it on the H100: the work is 2 products of 2*Nq*Nk*dh FLOPs per
-// head against (Nq + 2*Nk)*dh input values, far above the bytes line, and
-// fp32 operands need fp32-accurate S and P.V. The tensor cores give that only
-// through multi-term splits (3xTF32, bf16x3), left for later work, so this
-// first version is bound by the fp32 FFMA rate of the CUDA cores, 67 TFLOP/s.
-//
-// Design. One CTA of 8 warps owns one (batch*head, 64-row query tile). Each
-// thread owns one query row: q and the fp32 accumulator stay in registers
-// (2*dh floats). The 256 threads form 4 key groups of 64 threads (2 warps);
-// the CTA stages 64-key K and V tiles in shared memory as fp32, and group g
-// takes keys [16g, 16g + 16) of each tile, so every thread of a warp reads the
-// same K/V row (a shared-memory broadcast, one 16-byte load feeding 4 FFMAs)
-// and 4x as many warps are in flight as rows alone would give. Each group runs
-// its own online softmax (expf, not __expf) over its keys; at the end the
-// groups' (m, l, acc) are merged through shared memory in a fixed order, so
-// the result does not vary from run to run. Heads are read strided out of
-// (B, N, H*dh) with 16-byte loads (no split-heads copy); ragged Nq and Nk are
-// masked. dh is one of 16, 32, 40 and 80 (the JAX tests' widths and the
-// UNet's ds1 and ds2); other widths are refused.
-//
-// Later work: 3xTF32 or bf16x3 tensor-core products, double-buffered tiles.
+// The design is K1's (flash_attention.cu), with what tf32 changes:
+// * wgmma reads 32-bit operands from shared memory K-major only (its
+//   transpose modes are for 16-bit types), so V cannot be read in its
+//   [key][dh] layout as K1 reads it. A split pass (split_kv_kernel) writes,
+//   once per call, each 64-key tile's four planes side by side into a scratch
+//   tensor the wrapper allocates: K_hi and K_lo as [dh/8][64 keys][8], V^T_hi
+//   and V^T_lo as [8 key groups][dh][8], tf32-rounded fp32 values in 32-byte
+//   rows, keys past Nk zero. Its bytes (4x K's and V's) are small beside the
+//   N^2 products.
+// * Each consumer thread loads its two rows of Q straight from (B, Nq, H*dh)
+//   and splits them in registers into the hi and lo A fragments of S = Q.K^T
+//   (dh registers): once, or at dh 80, for registers, before each tile (L1
+//   hits); Q never passes through shared memory.
+// * P never leaves registers: S's accumulator is split into P's hi and lo A
+//   fragments. The m64n64 accumulator holds keys 2*t4 and 2*t4 + 1 of each
+//   group of 8 where the tf32 A fragment takes columns t4 and t4 + 4; P.V
+//   sums over the keys, so the split pass stores each group of 8 keys of V^T
+//   in the order 0 2 4 6 1 3 5 7 (perm8), and the accumulator's registers
+//   are the A fragment as they stand.
+// * One CTA owns 128 query rows of one (batch, head): two consumer
+//   warpgroups of 64 rows, and a producer warpgroup whose first lane keeps a
+//   ring of tile stages (4 at dh <= 40, 2 at dh 80: 160 KB) filled by TMA
+//   in 256-row boxes through the 32-byte swizzle, completed on mbarriers
+//   (full: the bytes landed; empty: every consumer warp is done with the
+//   stage), and which hands its registers to the consumers (setmaxnreg
+//   24 / 240): a consumer holds Q's fragments (dh registers), S (32), the
+//   running output and one tile's P.V (dh / 2 each; at dh 80 the tile's in
+//   two halves) and P's hi and lo fragments (64).
+// * Per tile each warpgroup issues S = Q_lo.K_hi^T + Q_hi.K_lo^T +
+//   Q_hi.K_hi^T (3 * dh / 8 wgmma of m64n64k8, the small terms first) as one
+//   group, waits, runs the softmax (one FFMA and one ex2 a score; only a
+//   ragged last tile is masked), splits P, and issues P_lo.V^T_hi +
+//   P_hi.V^T_lo + P_hi.V^T_hi (24 wgmma of N = dh; at dh 80 two groups of
+//   N = 40, for registers) as a second group into a fresh accumulator, which
+//   it adds to the rescaled running output with FFMAs: the tensor cores' fp32
+//   sums do not round to nearest, and summed over a whole row of keys on
+//   them the error grew with Nk, past 1e-5 of the output's peak at Nk = 4096.
+//   The other warpgroup's products fill the tensor cores while one runs its
+//   softmax. Every operand register of a group is pinned before its
+//   wgmma.fence (ptxas serializes every wgmma of the kernel otherwise,
+//   C7513), and no group is in flight across the loop's back edge (C7515).
+// * Each row walks its keys in one fixed order: two launches are equal bit
+//   for bit.
+// dh is one of 16, 32, 40 and 80 (the JAX tests' widths and the UNet's ds1
+// and ds2); other widths are refused.
 
-#include <cuda_bf16.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kRows = 64;             // query rows per CTA, one per thread of a group
-constexpr int kGroups = 4;            // key groups per CTA
-constexpr int kThreads = kRows * kGroups;
-constexpr int kTile = 64;             // keys per staged K/V tile
-constexpr int kKeys = kTile / kGroups;  // keys of each tile per group
+constexpr int kBlockK = 64;      // keys per tile: the softmax block
+constexpr int kNC = 2;           // consumer warpgroups, 64 query rows each
+constexpr int kRows = 64 * kNC;  // query rows per CTA
+// The consumers and a producer warpgroup that gives its registers to them:
+// the CTA launches at 168 a thread (a quarter of the register file holds 3
+// warps), and 24 + 2 * 240 = 3 * 168 keeps the pool whole.
+constexpr int kThreads = 128 * kNC + 128, kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kBoxRows = 256;  // 32-byte rows per TMA box of the scratch tensor
+constexpr float kLog2e = 1.4426950408889634f;
 
-// 16 bytes of input as fp32 values: 4 floats or 8 bf16s.
-template <typename T>
-struct Vec;
+// tiles in flight: a stage is 4 planes of 64 * DH fp32 values, 160 KB of
+// stages at dh 40 and at dh 80
+template <int DH>
+constexpr int kStages = DH <= 40 ? 4 : 2;
 
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-  __device__ __forceinline__ static void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
+// A stage's planes, each 8 * DH rows of 8 fp32 values in TMA's 32-byte
+// swizzle: K_hi and K_lo as [DH / 8][64 keys][8], V^T_hi and V^T_lo as
+// [8 key groups][DH][8] with each group's keys in perm8 order.
+template <int DH>
+struct Smem {
+  float kv[kStages<DH>][4][8 * DH][8];
+  uint64_t full[kStages<DH>], empty[kStages<DH>];
 };
+template <int DH>
+constexpr int kSmemBytes = sizeof(Smem<DH>) + 1024;  // + the slack to align it to 1024 bytes
 
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
+// Position i of a group of 8 keys of V^T holds key perm8(i): 0 2 4 6 1 3 5 7,
+// so that the tf32 A fragment's columns t4 and t4 + 4 are the accumulator's
+// keys 2*t4 and 2*t4 + 1.
+__device__ __forceinline__ int perm8(int i) { return 2 * (i & 3) + (i >> 2); }
+
+// The split pass: one CTA per (64-key tile j, batch * head) stages the tile's
+// keys and values (zeros past nk) and writes its four planes, split
+// into tf32 hi and lo, to kv[bh][j] (4 * 64 * DH values).
+template <int DH>
+__global__ void __launch_bounds__(256)
+split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ kv, int nk, int heads) {
+  __shared__ float sk[kBlockK][DH + 1], sv[kBlockK][DH + 1];
+  const int j = blockIdx.x, bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const long long cols = (long long)heads * DH;
+  for (int i = threadIdx.x; i < kBlockK * DH; i += blockDim.x) {
+    const int r = i / DH, d = i - r * DH, key = j * kBlockK + r;
+    float kx = 0.f, vx = 0.f;
+    if (key < nk) {
+      const long long off = ((long long)b * nk + key) * cols + h * DH + d;
+      kx = k[off];
+      vx = v[off];
     }
+    sk[r][d] = kx;
+    sv[r][d] = vx;
   }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* in) {
-    uint4 v;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = v;
-  }
-};
-
-template <typename T, int DH, bool STATS>
-__global__ void __launch_bounds__(kThreads)
-flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-                 int nq, int nk, int heads, float scale) {
-  using V = Vec<T>;
-  constexpr int EV = V::kN;      // input elements per 16-byte vector
-  constexpr int VPR = DH / EV;   // vectors per head row
-  constexpr int MS = DH + 2;     // floats of one row's partial (acc, m, l) in the merge
-  static_assert(DH % 8 == 0 && DH % EV == 0, "dh must be a multiple of 8");
-  // K and V tiles [key][DH] fp32; reused for the merge of the groups' partials
-  constexpr int TILE_FLOATS = 2 * kTile * DH;
-  static_assert(MS * kRows <= TILE_FLOATS, "merge buffer must fit in the tile buffer");
-  __shared__ __align__(16) float smem[TILE_FLOATS];
-  float* sk = smem;
-  float* sv = smem + kTile * DH;
-
-  const int tid = threadIdx.x;
-  const int row = tid % kRows, grp = tid / kRows;
-  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int q_row = blockIdx.x * kRows + row;
-  const long long tok = (long long)heads * DH;  // elements between tokens
-  const T* kh = k + (long long)b * nk * tok + (long long)h * DH;
-  const T* vh = v + (long long)b * nk * tok + (long long)h * DH;
-  const long long q_off = (long long)b * nq * tok + (long long)q_row * tok + (long long)h * DH;
-
-  float qr[DH], acc[DH];
-#pragma unroll
-  for (int c = 0; c < VPR; ++c) {
-    if (q_row < nq) {
-      V::load(q + q_off + c * EV, qr + c * EV);
-    } else {
-#pragma unroll
-      for (int e = 0; e < EV; ++e) qr[c * EV + e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < kTile * VPR; idx += kThreads) {
-      const int r = idx / VPR, c = idx - r * VPR;
-      float kv[EV], vv[EV];
-      if (k0 + r < nk) {
-        const long long off = (long long)(k0 + r) * tok + c * EV;
-        V::load(kh + off, kv);
-        V::load(vh + off, vv);
-      } else {
-#pragma unroll
-        for (int e = 0; e < EV; ++e) kv[e] = vv[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < EV; e += 4) {
-        Vec<float>::store(sk + r * DH + c * EV + e, kv + e);
-        Vec<float>::store(sv + r * DH + c * EV + e, vv + e);
-      }
-    }
-    __syncthreads();
-
-    // ---- s = (q . k) * scale for this group's keys of the tile
-    const int key0 = grp * kKeys;
-    float s[kKeys];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(sk + (key0 + j) * DH);
-      float dot = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 kk = kr[d4];
-        dot = fmaf(qr[4 * d4], kk.x, dot);
-        dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-        dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-        dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
-      }
-      s[j] = k0 + key0 + j < nk ? dot * scale : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    if (mx == -INFINITY) continue;  // every key of this group's slice lies past nk
-
-    // ---- online softmax in fp32, then acc += P V with P in fp32
-    const float mn = fmaxf(m, mx);
-    const float alpha = expf(m - mn);
-    float ls = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      s[j] = expf(s[j] - mn);
-      ls += s[j];
-    }
-    l = alpha * l + ls;
-    m = mn;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(sv + (key0 + j) * DH);
-      const float p = s[j];
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-      }
-    }
-  }
-
-  // ---- merge groups 1..3 into group 0, one at a time, in a fixed order;
-  // the buffer is [MS][kRows] so that a warp's rows are consecutive floats
-  for (int g = 1; g < kGroups; ++g) {
-    __syncthreads();
-    if (grp == g) {
-#pragma unroll
-      for (int d = 0; d < DH; ++d) smem[d * kRows + row] = acc[d];
-      smem[DH * kRows + row] = m;
-      smem[(DH + 1) * kRows + row] = l;
-    }
-    __syncthreads();
-    if (grp == 0) {
-      const float mg = smem[DH * kRows + row], lg = smem[(DH + 1) * kRows + row];
-      const float mn = fmaxf(m, mg);  // finite: group 0 holds key 0
-      const float a = expf(m - mn), bg = expf(mg - mn);
-      l = a * l + bg * lg;
-      m = mn;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = a * acc[d] + bg * smem[d * kRows + row];
-    }
-  }
-  if (grp != 0 || q_row >= nq) return;
-
-  // ---- out = acc / l rounded once to the input type (the TPU kernel's division)
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] /= l;
-#pragma unroll
-  for (int c = 0; c < VPR; ++c) V::store(o + q_off + c * EV, acc + c * EV);
-  if (STATS) {
-    m_out[(long long)bh * nq + q_row] = m;
-    l_out[(long long)bh * nq + q_row] = l;
+  __syncthreads();
+  constexpr int P = kBlockK * DH;  // values per plane
+  float* out = kv + ((long long)bh * gridDim.x + j) * 4 * P;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const int row = i >> 3, c = i & 7;
+    uint32_t hi, lo;
+    split_tf32(sk[row & 63][8 * (row >> 6) + c], hi, lo);  // K: row = column block * 64 + key
+    out[i] = __uint_as_float(hi);
+    out[P + i] = __uint_as_float(lo);
+    const int kg = row / DH, d = row - kg * DH;  // V^T: row = key group * DH + column
+    split_tf32(sv[8 * kg + perm8(c)][d], hi, lo);
+    out[2 * P + i] = __uint_as_float(hi);
+    out[3 * P + i] = __uint_as_float(lo);
   }
 }
 
-template <typename T, bool STATS>
-int dispatch(const void* q, const void* k, const void* v, void* o, void* m, void* l, int b,
-             int nq, int nk, int heads, int dh, float scale, void* stream) {
+template <int DH, bool STATS>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restrict__ q, float* __restrict__ out,
+                  float* __restrict__ m_out, float* __restrict__ l_out, int nq, int nk, int heads, float scale) {
+  constexpr int NB = DH / 8;  // k8 steps of Q.K^T
+  constexpr int S = kStages<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int q0 = blockIdx.x * kRows;
+  const int n_kt = (nk + kBlockK - 1) / kBlockK;
+  const int active = min(kNC, (nq - q0 + 63) / 64);  // warpgroups with a row below nq
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4 * active);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128 * kNC) {  // the producer warpgroup: its first thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 128 * kNC) {
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % S;
+        mbar_wait(&sm.empty[st], ((j / S) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[st], sizeof(sm.kv[0]));
+        for (int c = 0; c < 32 * DH / kBoxRows; ++c)
+          tma_load(&sm.kv[st][0][0][0] + c * kBoxRows * 8, &tkv, &sm.full[st], 0, j * 32 * DH + c * kBoxRows, bh);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = tid >> 7;
+  if (wg >= active) return;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + wg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+  const long long cols = (long long)heads * DH;
+
+  // Q's hi and lo A fragments: k8 step cb in registers 4cb .. 4cb + 3, rows
+  // (row0, row0 + 8, row0, row0 + 8) at columns (t4, t4, t4 + 4, t4 + 4).
+  // Loaded once at dh <= 40; at dh 80 their 80 registers do not fit beside
+  // the rest (ptxas spilled 136 bytes), and each tile reloads them (L1 hits).
+  constexpr bool kQResident = DH <= 40;
+  uint32_t qhi[4 * NB], qlo[4 * NB];
+  const float* qb = q + (long long)b * nq * cols + h * DH;
+  auto load_q = [&] {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e & 1);
+        const float x = row < nq ? qb[row * cols + 8 * cb + t4 + 4 * (e >> 1)] : 0.f;
+        split_tf32(x, qhi[4 * cb + e], qlo[4 * cb + e]);
+      }
+    }
+    pin(qhi);
+    pin(qlo);
+  };
+  if constexpr (kQResident) load_q();
+
+  // Descriptors in 16-byte units: K's k8 steps are its column blocks, 64
+  // keys * 32 bytes apart; V^T's are its key groups, DH rows * 32 bytes apart.
+  // Every operand register of a wgmma group (descriptors, the accumulate
+  // flag, the A fragments, the accumulators) is defined before the group's
+  // wgmma.fence and pinned there.
+  uint32_t one = 1, zero = 0;
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t d0 = sdesc(&sm.kv[0][0][0][0], 16, 256);
+  constexpr uint64_t kPlane = sizeof(sm.kv[0][0]) >> 4, kStage = sizeof(sm.kv[0]) >> 4;
+  uint64_t dk[2 * NB], dv[16];  // hi steps, then lo steps
+  // P.V in NH blocks of DN output columns: at dh 80 two of 40, for
+  // registers (one of 80 spilled 88 bytes)
+  constexpr int NH = DH == 80 ? 2 : 1, DN = DH / NH;
+  auto k_descs = [&](int st) {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      dk[cb] = d0 + st * kStage + cb * (kBlockK * 32 >> 4);
+      dk[NB + cb] = dk[cb] + kPlane;
+    }
+    pin(dk);
+  };
+  auto v_descs = [&](int st, int hb) {  // column block hb: DN rows of each key group
+#pragma unroll
+    for (int kg = 0; kg < 8; ++kg) {
+      dv[kg] = d0 + st * kStage + 2 * kPlane + kg * (DH * 32 >> 4) + hb * (DN * 32 >> 4);
+      dv[8 + kg] = dv[kg] + kPlane;
+    }
+    pin(dv);
+  };
+
+  const float c = scale * kLog2e;             // scores to log2 units in the exponent's FFMA
+  const int tail = nk - (n_kt - 1) * kBlockK;  // valid keys of the last tile
+  // o: the running output, summed over tiles on the CUDA cores (fp32, round
+  // to nearest); acc: one tile's P.V on the tensor cores. The tensor cores'
+  // fp32 sums do not round to nearest, and over a whole row of keys (6144
+  // wgmma at Nk = 16384) their error grew past 1e-5 of the output's peak.
+  float o[DH / 2], acc[DN / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  float s[32], mr[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, al[2];
+  uint32_t phi[32], plo[32];
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % S;
+    mbar_wait(&sm.full[st], (j / S) & 1);
+    __syncwarp();
+
+    // S = Q_lo.K_hi^T + Q_hi.K_lo^T + Q_hi.K_hi^T
+    if constexpr (!kQResident) load_q();
+    k_descs(st);
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      if (cb == 0) wgmma_tf32_n64_zero(s, &qlo[0], dk[0], zero);
+      else wgmma_tf32_n64(s, &qlo[4 * cb], dk[cb], one);
+    }
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) wgmma_tf32_n64(s, &qhi[4 * cb], dk[NB + cb], one);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) wgmma_tf32_n64(s, &qhi[4 * cb], dk[cb], one);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+
+    if (j == n_kt - 1 && tail < kBlockK) softmax_tile<true>(s, mr, l, al, c, tail, t4);
+    else softmax_tile<false>(s, mr, l, al, c, kBlockK, t4);
+    // P's A fragments: step kg's columns t4 and t4 + 4 hold keys 8kg + 2*t4
+    // and 8kg + 2*t4 + 1 (perm8), S's registers 4kg + (0, 2) and 4kg + (1, 3)
+#pragma unroll
+    for (int kg = 0; kg < 8; ++kg) {
+      split_tf32(s[4 * kg], phi[4 * kg], plo[4 * kg]);
+      split_tf32(s[4 * kg + 2], phi[4 * kg + 1], plo[4 * kg + 1]);
+      split_tf32(s[4 * kg + 1], phi[4 * kg + 2], plo[4 * kg + 2]);
+      split_tf32(s[4 * kg + 3], phi[4 * kg + 3], plo[4 * kg + 3]);
+    }
+
+    // acc = P_lo.V^T_hi + P_hi.V^T_lo + P_hi.V^T_hi; o = o * alpha + acc,
+    // per block of DN columns
+    pin(phi);
+    pin(plo);
+#pragma unroll
+    for (int hb = 0; hb < NH; ++hb) {
+      v_descs(st, hb);
+      wgmma_fence();
+#pragma unroll
+      for (int kg = 0; kg < 8; ++kg) {
+        if (kg == 0) wgmma_tf32_dh<DN, true>(acc, &plo[0], dv[0], zero);
+        else wgmma_tf32_dh<DN>(acc, &plo[4 * kg], dv[kg], one);
+      }
+#pragma unroll
+      for (int kg = 0; kg < 8; ++kg) wgmma_tf32_dh<DN>(acc, &phi[4 * kg], dv[8 + kg], one);
+#pragma unroll
+      for (int kg = 0; kg < 8; ++kg) wgmma_tf32_dh<DN>(acc, &phi[4 * kg], dv[kg], one);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i)
+        o[hb * DN / 2 + i] = fmaf(o[hb * DN / 2 + i], al[(i >> 1) & 1], acc[i]);
+    }
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
+  }
+
+  // ---- out = o / l (the TPU kernel's division), written strided into
+  // (B, Nq, H*dh)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= nq) continue;
+    float* orow = out + ((long long)b * nq + row) * cols + h * DH;
+#pragma unroll
+    for (int jc = 0; jc < DH / 8; ++jc)
+      *reinterpret_cast<float2*>(orow + 8 * jc + 2 * t4) =
+          make_float2(o[4 * jc + 2 * r] / l[r], o[4 * jc + 2 * r + 1] / l[r]);
+    if (STATS && t4 == 0) {  // the quad's four lanes hold the same m and l
+      m_out[(long long)bh * nq + row] = mr[r] * scale;
+      l_out[(long long)bh * nq + row] = l[r];
+    }
+  }
+}
+
+// ---- host side (tensor maps: hopper.cuh)
+
+template <int DH, bool STATS>
+int launch(const void* q, const void* k, const void* v, void* o, float* m, float* l, float* kv, int b, int nq,
+           int nk, int heads, float scale, cudaStream_t stream) {
+  if (const cudaError_t err = bind_device(q); err != cudaSuccess) return static_cast<int>(err);
+  const int n_kt = (nk + kBlockK - 1) / kBlockK;
+  CUtensorMap tkv;  // the scratch tensor as (b * heads) x (n_kt * 32 * DH rows) x 8 fp32 values
+  if (!tensor_map(&tkv, kv, b * heads, n_kt * 32 * DH, 8, kBoxRows, 8, CU_TENSOR_MAP_SWIZZLE_32B,
+                  CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = kSmemBytes<DH>;
+  static const cudaError_t attr = cudaFuncSetAttribute(flash_tf32_kernel<DH, STATS>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  split_kv_kernel<DH><<<dim3(n_kt, b * heads), 256, 0, stream>>>(static_cast<const float*>(k),
+                                                                 static_cast<const float*>(v), kv, nk, heads);
+  if (const cudaError_t err = cudaGetLastError(); err != cudaSuccess) return static_cast<int>(err);
+  flash_tf32_kernel<DH, STATS><<<dim3((nq + kRows - 1) / kRows, b * heads), kThreads, kSmem, stream>>>(
+      tkv, static_cast<const float*>(q), static_cast<float*>(o), m, l, nq, nk, heads, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool STATS>
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, void* m, void* l, void* kv, int b, int nq,
+                 int nk, int heads, int dh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((nq + kRows - 1) / kRows, b * heads);
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  T* oo = static_cast<T*>(o);
-  float* mm = static_cast<float*>(m);
-  float* ll = static_cast<float*>(l);
+  float *mm = static_cast<float*>(m), *ll = static_cast<float*>(l), *kk = static_cast<float*>(kv);
+  if (nq < 1 || nk < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
-    case 16: flash_f32_kernel<T, 16, STATS><<<grid, kThreads, 0, st>>>(qq, kk, vv, oo, mm, ll, nq, nk, heads, scale); break;
-    case 32: flash_f32_kernel<T, 32, STATS><<<grid, kThreads, 0, st>>>(qq, kk, vv, oo, mm, ll, nq, nk, heads, scale); break;
-    case 40: flash_f32_kernel<T, 40, STATS><<<grid, kThreads, 0, st>>>(qq, kk, vv, oo, mm, ll, nq, nk, heads, scale); break;
-    case 80: flash_f32_kernel<T, 80, STATS><<<grid, kThreads, 0, st>>>(qq, kk, vv, oo, mm, ll, nq, nk, heads, scale); break;
+    case 16: return launch<16, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
+    case 32: return launch<32, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
+    case 40: return launch<40, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
+    case 80: return launch<80, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o: (b, nq, heads * dh); k, v: (b, nk, heads * dh); all fp32 (the _f32
-// entry points) or all bf16 (the _bf16 ones), contiguous and 16-byte aligned;
-// dh one of 16, 32, 40, 80. The _stats entry points also write m, l: (b *
-// heads, nq) fp32. Each returns cudaGetLastError() after its launch.
-extern "C" int vface_flash_attention_v1_f32(const void* q, const void* k, const void* v, void* o,
-                                            int b, int nq, int nk, int heads, int dh,
-                                            float scale, void* stream) {
-  return dispatch<float, false>(q, k, v, o, nullptr, nullptr, b, nq, nk, heads, dh, scale, stream);
+// q, o: (b, nq, heads * dh); k, v: (b, nk, heads * dh); contiguous and 16-byte
+// aligned; kv: the split pass's scratch, b * heads * ceil(nk / 64) * 4 * 64 *
+// dh fp32 values. Each launches the split pass, then the attention kernel,
+// and returns cudaGetLastError() after them.
+
+// fp32, dh one of 16, 32, 40, 80.
+extern "C" int vface_flash_attention_v1_f32(const void* q, const void* k, const void* v, void* o, void* kv, int b,
+                                            int nq, int nk, int heads, int dh, float scale, void* stream) {
+  return dispatch_f32<false>(q, k, v, o, nullptr, nullptr, kv, b, nq, nk, heads, dh, scale, stream);
 }
 
-extern "C" int vface_flash_attention_v1_bf16(const void* q, const void* k, const void* v, void* o,
-                                             int b, int nq, int nk, int heads, int dh,
-                                             float scale, void* stream) {
-  return dispatch<__nv_bfloat16, false>(q, k, v, o, nullptr, nullptr, b, nq, nk, heads, dh, scale,
-                                        stream);
+// fp32 that also writes m, l: (b * heads, nq) fp32, each row's final running
+// max (of the scaled scores) and softmax denominator.
+extern "C" int vface_flash_attention_v1_stats_f32(const void* q, const void* k, const void* v, void* o, void* m,
+                                                  void* l, void* kv, int b, int nq, int nk, int heads, int dh,
+                                                  float scale, void* stream) {
+  return dispatch_f32<true>(q, k, v, o, m, l, kv, b, nq, nk, heads, dh, scale, stream);
 }
 
-extern "C" int vface_flash_attention_v1_stats_f32(const void* q, const void* k, const void* v,
-                                                  void* o, void* m, void* l, int b, int nq, int nk,
-                                                  int heads, int dh, float scale, void* stream) {
-  return dispatch<float, true>(q, k, v, o, m, l, b, nq, nk, heads, dh, scale, stream);
+// Dynamic shared memory of the attention kernel at head width dh, in bytes (0 if none is built).
+extern "C" int vface_flash_attention_f32_smem_bytes(int dh) {
+  switch (dh) {
+    case 16: return kSmemBytes<16>;
+    case 32: return kSmemBytes<32>;
+    case 40: return kSmemBytes<40>;
+    case 80: return kSmemBytes<80>;
+    default: return 0;
+  }
 }

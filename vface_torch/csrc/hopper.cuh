@@ -1,18 +1,22 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels, shared by
-// flash_attention.cu (K1, K4, K6, K7, K12), flash_attention_bwd.cu (K5) and
-// geglu_ff.cu (K2, K9, K13): mbarriers, TMA loads, wgmma descriptors and
-// instructions, register pins, the bf16 packing of fp32 fragments, and the
-// host's tensor maps. Every operand lands in shared memory as TMA's 32-byte swizzle
-// of 16-column boxes, [column block][row][16 columns], which is wgmma's
-// K-major (and MN-major) operand layout of that swizzle: one 16-column block
-// is one k16 step. _native.lib_path hashes this header with each source that
-// includes it, so an edit here rebuilds every library that includes it.
+// flash_attention.cu (K1, K4, K6, K7, K12), flash_attention_bwd.cu (K5),
+// flash_attention_f32.cu (K7, K8, K10-K12 on fp32) and geglu_ff.cu (K2, K9,
+// K13): mbarriers, TMA loads, wgmma descriptors and instructions (bf16, and
+// tf32 for fp32 operands split into hi + lo), register pins, the bf16 and
+// tf32 splits of fp32 values, the attention forward's online softmax, and the
+// host's tensor maps. Every operand lands in shared memory as TMA's 32-byte
+// swizzle of 32-byte boxes, [column block][row][32 bytes], which is wgmma's
+// K-major (and, for 16-bit types, MN-major) operand layout of that swizzle:
+// one block is one k16 step of bf16 (16 columns) or one k8 step of tf32 (8).
+// _native.lib_path hashes this header with each source that includes it, so
+// an edit here rebuilds every library that includes it.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -325,6 +329,189 @@ __device__ __forceinline__ void split_pack(float a, float b, uint32_t& hi, uint3
   lo = *reinterpret_cast<uint32_t*>(&r);
 }
 
+// One 64-key tile of the online softmax for this thread's rows g and g + 8
+// (r = 0, 1). s holds the raw scores q.k in the m64n64 accumulator layout
+// (s[4j + e]: row g + 8*(e >> 1), key 8j + 2*t4 + (e & 1)); with MASK, keys
+// from `valid` on are dropped. Replaces s by P = exp(scale*s - m) (c =
+// scale*log2(e): one FFMA and one ex2 a score), updates the running raw row
+// maxima mr and this thread's partial sums l, and returns the rescale
+// factors al (0 on the first tile, where mr = -inf).
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&mr)[2], float (&l)[2], float (&al)[2],
+                                             float c, int valid, int t4) {
+  if (MASK) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (8 * (i >> 2) + 2 * t4 + (i & 1) >= valid) s[i] = -INFINITY;
+  }
+  float mx[2] = {mr[0], mr[1]};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    al[r] = ex2((mr[r] - mx[r]) * c);
+    mr[r] = mx[r];
+  }
+  const float mc[2] = {mx[0] * c, mx[1] * c};
+  float ls[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
+    ls[(i >> 1) & 1] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * al[r] + ls[r];
+}
+
+// ---- tf32: fp32 operands as hi + lo pairs (3xTF32)
+
+// x rounded to tf32 (10 stored mantissa bits, to nearest, ties away from
+// zero), as an fp32 bit pattern with its 13 low bits clear: wgmma's tf32 reads
+// only the top 19 bits of a 32-bit operand, so an unrounded value would be
+// truncated
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x as hi = tf32(x) and lo = tf32(x - hi): hi + lo carries ~22 significant
+// bits, so a product of two such pairs, a_hi.b_hi + a_lo.b_hi + a_hi.b_lo
+// (a_lo.b_lo lies below fp32's rounding), is good to ~2^-21 relative
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The tf32 A fragment of one k8 step (rows g and g + 8 of the warp's 16,
+// columns t4 and t4 + 4): a[0] = (g, t4), a[1] = (g + 8, t4), a[2] = (g, t4 + 4),
+// a[3] = (g + 8, t4 + 4). B is K-major in shared memory: [row][8 fp32 values]
+// in 32-byte swizzled rows, sdesc(p, 16, 256).
+
+// d = A . B^T, m64n64k8 tf32, the accumulators' old values unread: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n64_zero(float (&d)[32], const uint32_t* a, uint64_t db, uint32_t zero) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(zero));
+}
+
+// d += A . B^T, m64n16k8 tf32: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8], const uint32_t* a, uint64_t db, uint32_t one) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+}
+
+// d += A . B^T, m64n32k8 tf32: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t* a, uint64_t db, uint32_t one) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+}
+
+// d += A . B^T, m64n40k8 tf32: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n40(float (&d)[20], const uint32_t* a, uint64_t db, uint32_t one) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+}
+
+// d += A . B^T, m64n64k8 tf32: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t* a, uint64_t db, uint32_t one) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(one));
+}
+
+// d = A . B^T, m64n16k8 tf32, the accumulators' old values unread: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n16_zero(float (&d)[8], const uint32_t* a, uint64_t db, uint32_t zero) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(zero));
+}
+
+// d = A . B^T, m64n32k8 tf32, the accumulators' old values unread: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n32_zero(float (&d)[16], const uint32_t* a, uint64_t db, uint32_t zero) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(zero));
+}
+
+// d = A . B^T, m64n40k8 tf32, the accumulators' old values unread: A (four tf32 registers) from registers, B K-major
+__device__ __forceinline__ void wgmma_tf32_n40_zero(float (&d)[20], const uint32_t* a, uint64_t db, uint32_t zero) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(zero));
+}
+
+// d += A . B^T (ZERO: d = A . B^T) over one k8 step, N output columns (16,
+// 32 or 40: a head, or half of dh 80): A's four tf32 registers, B K-major in
+// shared memory; `flag` holds 1 (0 for ZERO)
+template <int N, bool ZERO = false>
+__device__ __forceinline__ void wgmma_tf32_dh(float (&d)[N / 2], const uint32_t* a, uint64_t db, uint32_t flag) {
+  if constexpr (N == 16) ZERO ? wgmma_tf32_n16_zero(d, a, db, flag) : wgmma_tf32_n16(d, a, db, flag);
+  else if constexpr (N == 32) ZERO ? wgmma_tf32_n32_zero(d, a, db, flag) : wgmma_tf32_n32(d, a, db, flag);
+  else ZERO ? wgmma_tf32_n40_zero(d, a, db, flag) : wgmma_tf32_n40(d, a, db, flag);
+}
+
 // Zero the padding columns [dh, DHP) of rows [r0, r0 + 64) of a [DHP / 16][rows][16]
 // tile in TMA's 32-byte swizzle (a padded head's box reads the next head's
 // first columns), `t` = the thread's index in its warpgroup; made visible to
@@ -375,18 +562,20 @@ inline cudaError_t bind_device(const void* p) {
   return err != cudaSuccess ? err : cudaSetDevice(a.device);
 }
 
-// (b, n, cols) bf16 as a tensor map of boxes of `box_cols` columns x `rows`
-// rows x 1, with the given swizzle (box_cols * 2 bytes wide at most: 16
-// columns for 32 bytes, 64 for 128); columns past `cols` and rows past n read
-// as zeros.
+// (b, n, cols) bf16 (or fp32, `type`) as a tensor map of boxes of `box_cols`
+// columns x `rows` rows x 1, with the given swizzle (box_cols * 2 bytes wide at
+// most, bf16: 16 columns for 32 bytes, 64 for 128; fp32: 8 for 32); columns
+// past `cols` and rows past n read as zeros.
 bool tensor_map(CUtensorMap* map, const void* base, int b, int n, int cols, int rows, int box_cols = kAtom,
-                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_32B) {
+                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_32B,
+                CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)n, (cuuint64_t)b};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)n * cols * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * size, (cuuint64_t)n * cols * size};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)rows, 1}, elem[3] = {1, 1, 1};
-  return encode && encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                          elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode && encode(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -12,11 +12,15 @@ meaning on the H100. What each computes maps onto a port kernel:
 
 * v3 and v4 cast the operands to fp32 and run an online softmax over
   ``block_k``-key blocks with fp32 P, the output in the input dtype: K8's
-  function (``csrc/flash_attention_f32.cu``). The kernel stages its own key
-  tiles; the plain version walks the caller's ``block_k`` blocks.
+  function, on K8's kernels (``flash_attention._launch_k8``): bf16 operands
+  on K6's kernel (``csrc/flash_attention.cu``, P as a bf16 hi + lo pair; dh
+  32 on the tf32 kernel), fp32 ones on the tf32 kernel
+  (``csrc/flash_attention_f32.cu``, 3xTF32 products). The kernels walk their
+  own 64-key tiles; the plain version walks the caller's ``block_k`` blocks.
 * v6 takes bf16 operands with fp32 scores and rounds P to the operands' dtype
   before P.V: K1's function (``csrc/flash_attention.cu``). On fp32 operands
-  the rounding is a no-op and v6 computes v2's function, which K8 computes.
+  the rounding is a no-op and v6 computes v2's function, which the tf32
+  kernel computes.
 
 Routing is JAX's: where ``block_q`` or ``block_k`` (capped at N) does not
 divide Nq or Nk, :func:`~vface_torch.ops.attention.multi_head_attention`
@@ -41,13 +45,13 @@ def _refuse_grad(name: str, q, k, v) -> None:
 
 
 def _k8(name: str, q, k, v, num_heads: int, block_k: int) -> torch.Tensor:
-    """K8's function: the kernel on CUDA, ``flash_attention_v1_ref`` over
+    """K8's function: K8's kernels on CUDA, ``flash_attention_v1_ref`` over
     ``block_k``-key blocks on the CPU."""
     if q.device.type == "cpu":
         return FA.flash_attention_v1_ref(q, k, v, num_heads, block_k=block_k)
     _refuse_grad(name, q, k, v)
     out = torch.empty_like(q)
-    FA._launch_f32(name, False, q, k, v, num_heads, (out,))
+    FA._launch_k8(name, q, k, v, num_heads, out)
     return out
 
 
@@ -68,7 +72,7 @@ def flash_attention_v4(q, k, v, num_heads: int, block_q: int = 1024, block_k: in
 def flash_attention_v6(q, k, v, num_heads: int, block_q: int = 1024, block_k: int = 1024) -> torch.Tensor:
     """K12: bf16 operands, fp32 scores, P rounded to bf16 before P.V: K1's
     kernel on the card, K1's plain version on the CPU. fp32 operands: v2's
-    function, K8's kernel (plain: over ``block_k``-key blocks)."""
+    function, the tf32 kernel (plain: over ``block_k``-key blocks)."""
     if not FA._tiles(q, k, block_q, block_k):
         return multi_head_attention(q, k, v, num_heads, dtype=q.dtype)
     if q.dtype == torch.float32:

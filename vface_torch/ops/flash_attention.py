@@ -1,8 +1,8 @@
 """Flash attention, forward and backward: CUDA C++ for Hopper.
 
-Kernels (``csrc/flash_attention.cu``: K1, K4, K6, K7 at bf16;
-``csrc/flash_attention_bwd.cu``: K5; ``csrc/flash_attention_f32.cu``: K8),
-each replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py``:
+Kernels (``csrc/flash_attention.cu``: K1, K4, K6, and K7 and K8 at bf16;
+``csrc/flash_attention_bwd.cu``: K5; ``csrc/flash_attention_f32.cu``: K8 and
+K7 at fp32), each replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py``:
 
 * K1 ``flash_attention`` (``flash_attention_v5`` / ``_flash_kernel_v5``):
   multi-head attention of (B, Nq, H*dh) bf16 queries over (B, Nk, H*dh) keys
@@ -19,26 +19,35 @@ each replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py``:
   (B*H, Nq) in two kernels, one over query tiles and one over key tiles;
 * K7 ``flash_attention_v2_stats`` (``_flash_v2_stats``): K6 that also writes
   m and l, the forward of ``flash_attention_v2``'s VJP (bf16: K6's kernel with
-  K4's epilogue; fp32: K8's kernel with the same epilogue);
+  K4's epilogue; fp32: the tf32 kernel with the same epilogue);
 * K8 ``flash_attention_v1`` (``flash_attention`` / ``_flash_kernel``, the
   k-tiled v1): attention over (B, Nq, H*dh) x (B, Nk, H*dh), any input dtype
-  cast to fp32, fp32 products on the CUDA cores, output in the input dtype.
+  cast to fp32, output in the input dtype. fp32 operands run on the tf32
+  kernel: every product as three tf32 ``wgmma`` terms of hi + lo splits
+  (3xTF32), fed by a TMA ring from a split pass that writes K's and V's hi
+  and lo planes once per call. bf16 operands run on K6's kernel, which
+  computes the same function (exact bf16 products, P as a bf16 hi + lo
+  pair), except at dh 32, which K6's kernel is not built for: those are cast
+  to fp32 for the tf32 kernel (bf16 values are exact in tf32) and its output
+  is rounded once to bf16.
 
 At the UNet's shapes (ds1 N = 4096, dh = 40; ds2 N = 1024, dh = 80) K1,
 K4, K6 and K5 are bound by the exponentials and the tensor cores together;
 they run every product on ``wgmma`` with a TMA ring of streamed tiles, and
 all take Nq != Nk. All keep S, P and dS on chip and read the heads strided
-out of (B, N, H*dh) without a split-heads copy. K8 is bound by the fp32 rate
-of the CUDA cores. See the sources for the tiling.
+out of (B, N, H*dh) without a split-heads copy. K8 on fp32 operands is bound
+by its three tf32 products, 165 TFLOP/s of fp32-accurate products against
+the CUDA cores' 67. See the sources for the tiling.
 
 :func:`flash_attention` is differentiable with the JAX package's VJP
 (``_flash_v5_diff``): where a gradient is needed the forward is K4 and saves
 q, k, v, m and l; the backward runs K6, D = rowsum(dO*O6) (a plain float32
 reduction here, as in JAX), then K5. Where none is needed (inference mode,
 ``no_grad``, inputs that do not require grad) it is K1 and writes no
-statistics; fp32 operands go to K8, which computes v5's function at fp32 (P
-is not rounded when it already has the operands' type). K5 is bf16-only, so
-on the card fp32 operands with a gradient raise (ROADMAP §B).
+statistics; fp32 operands go to K8's tf32 kernel, which computes v5's
+function at fp32 (P is not rounded when it already has the operands' type).
+K5 is bf16-only, so on the card fp32 operands with a gradient raise (ROADMAP
+§B).
 
 :func:`flash_attention_v1` and :func:`flash_attention_v2` are the JAX
 package's ``flash_attention`` and ``flash_attention_v2`` entry points with
@@ -67,7 +76,9 @@ BLOCK_K = 64  # the kernels' K/V (and query) tile; the plain versions walk the s
 # head widths padded to the MMA k-step that the kernels are instantiated for:
 # ds1's dh = 40 (as 48), ds2's dh = 80, and 16 for small test shapes
 PADDED_DH = (16, 48, 80)
-# K8's head widths: the JAX tests' 16, 32 and 40, and the UNet's 40 and 80
+# the tf32 kernel's head widths: the JAX tests' 16, 32 and 40, and the UNet's
+# 40 and 80; K8 on bf16 operands casts them to fp32 for it at 32, the one of
+# these that K6's kernel is not built for
 F32_DH = (16, 32, 40, 80)
 
 # kernel launches since the last reset (read by chip_smoke.py)
@@ -234,9 +245,14 @@ def _check(name: str, q: torch.Tensor, tensors: dict) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
 
 
-def _check_width(kernel: str, d: int, num_heads: int) -> None:
+def _pads(d: int, num_heads: int) -> bool:
+    """Whether the bf16 kernels are built for head width d / num_heads."""
     dh = d // num_heads
-    if d % num_heads or dh % 8 or -(-dh // 16) * 16 not in PADDED_DH:
+    return d % num_heads == 0 and dh % 8 == 0 and -(-dh // 16) * 16 in PADDED_DH
+
+
+def _check_width(kernel: str, d: int, num_heads: int) -> None:
+    if not _pads(d, num_heads):
         raise ValueError(f"{kernel}: head width {d}/{num_heads} must be a multiple of 8 "
                          f"that pads to one of {PADDED_DH}")
 
@@ -337,25 +353,46 @@ def flash_attention_bwd(q, k, v, do, m, l, dd, num_heads: int):
 
 
 def _launch_f32(kernel: str, stats: bool, q, k, v, num_heads: int, outs) -> None:
-    """Launch K8's kernel (fp32 or bf16 operands; ``stats``: fp32 only, writing m and l)."""
+    """Launch the tf32 kernel (``csrc/flash_attention_f32.cu``) on fp32 operands
+    at ``F32_DH`` (``stats`` also writes m and l): its split pass writes each
+    key tile's K and V^T tf32 hi and lo planes to a scratch tensor, then the
+    attention kernel runs; one launch in ``LAUNCHES``."""
     b, nq, d = q.shape
     nk = k.shape[1]
     dh = d // num_heads
-    dt = q.dtype
-    if dt not in ((torch.float32,) if stats else (torch.float32, torch.bfloat16)):
-        raise ValueError(f"{kernel}: unsupported dtype {dt}")
-    ops = {"q": (q, dt, (b, nq, d)), "k": (k, dt, (b, nk, d)), "v": (v, dt, (b, nk, d))}
+    f32 = torch.float32
+    if q.dtype != f32:
+        raise ValueError(f"{kernel}: unsupported dtype {q.dtype}")
+    ops = {"q": (q, f32, (b, nq, d)), "k": (k, f32, (b, nk, d)), "v": (v, f32, (b, nk, d))}
     for i, t in enumerate(outs):
-        ops[f"out{i}"] = (t, dt, (b, nq, d)) if i == 0 else (t, torch.float32, (b * num_heads, nq))
+        ops[f"out{i}"] = (t, f32, (b, nq, d) if i == 0 else (b * num_heads, nq))
     _check(kernel, q, ops)
     if d % num_heads or dh not in F32_DH:
         raise ValueError(f"{kernel}: head width {d}/{num_heads} must be one of {F32_DH}")
-    symbol = "vface_flash_attention_v1_" + ("stats_" if stats else "") + ("f32" if dt == torch.float32 else "bf16")
-    fn = _native.function("flash_attention_f32", symbol, [_P] * (3 + len(outs)) + [_I] * 5 + [_F, _P])
-    ptrs = [t.data_ptr() for t in (q, k, v, *outs)]
+    # the split pass's planes; freed when this returns, which is safe: the caching
+    # allocator hands the memory only to work queued after the kernels on this stream
+    kv = torch.empty(b * num_heads * -(-nk // BLOCK_K) * 4 * BLOCK_K * dh, dtype=torch.float32, device=q.device)
+    symbol = "vface_flash_attention_v1_" + ("stats_" if stats else "") + "f32"
+    fn = _native.function("flash_attention_f32", symbol, [_P] * (4 + len(outs)) + [_I] * 5 + [_F, _P])
+    ptrs = [t.data_ptr() for t in (q, k, v, *outs, kv)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
     LAUNCHES[kernel] += 1
+
+
+def _launch_k8(kernel: str, q, k, v, num_heads: int, out) -> None:
+    """K8's function on the card, counted under ``kernel``: fp32 operands on
+    the tf32 kernel; bf16 ones on K6's kernel (``split``) where it is built for
+    the width, else (dh 32) cast to fp32 for the tf32 kernel, whose output is
+    rounded once to bf16."""
+    if q.dtype != torch.bfloat16:
+        _launch_f32(kernel, False, q, k, v, num_heads, (out,))
+    elif _pads(q.shape[2], num_heads):
+        _launch_fwd(kernel, q, k, v, num_heads, (out,), split=True)
+    else:
+        o32 = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+        _launch_f32(kernel, False, q.float(), k.float(), v.float(), num_heads, (o32,))
+        out.copy_(o32)
 
 
 def _flash_attention_v1(q, k, v, num_heads: int, block_k: int = 256) -> torch.Tensor:
@@ -363,13 +400,13 @@ def _flash_attention_v1(q, k, v, num_heads: int, block_k: int = 256) -> torch.Te
     if q.device.type == "cpu":
         return flash_attention_v1_ref(q, k, v, num_heads, block_k)
     out = torch.empty_like(q)
-    _launch_f32("flash_attention_v1", False, q, k, v, num_heads, (out,))
+    _launch_k8("flash_attention_v1", q, k, v, num_heads, out)
     return out
 
 
 def flash_attention_v2_stats(q, k, v, num_heads: int, block_k: int = 1024):
     """K7: (out, m, l); on CUDA K6's kernel with the stats epilogue for bf16 or
-    K8's for fp32, the plain version on the CPU."""
+    the tf32 kernel's for fp32, the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_v2_stats_ref(q, k, v, num_heads, block_k)
     out = torch.empty_like(q)
@@ -414,7 +451,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
     """Attention of (B, Nq, H*dh) queries over (B, Nk, H*dh) keys and values, the
     port of ``flash_attention_v5``; differentiable (K4 forward, K6 + K5
     backward, bf16 on the card) where a gradient is needed, K1 where none is
-    (K8 for fp32 operands)."""
+    (K8's tf32 kernel for fp32 operands)."""
     if needs_grad(q, k, v):
         _refuse_grad_off_bf16("flash_attention", q)
         return _FlashAttention.apply(q, k, v, num_heads, False, flash_attention_stats)
