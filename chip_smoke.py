@@ -11,25 +11,27 @@ Phases, one line each:
      (each entry's registers, shared memory and spills from ptxas, and any
      wgmma serialization it reports; the attention and GEGLU kernels' dynamic
      shared memory; every entry of the forward attention (K1, K4, K6, K7),
-     backward attention (K5), fp32 attention (K7, K8, K10-K12 on fp32 operands;
-     but its split pass) and GEGLU libraries holds wgmma (HGMMA) and no
-     mma.sync, and none of them spills), plus the Triton kernel's compile on
-     its first launch;
+     backward attention (K5, bf16 and fp32), fp32 attention (K7, K8, K10-K12
+     on fp32 operands) and GEGLU libraries holds wgmma (HGMMA) and no
+     mma.sync, but their split passes, which do no products, and none of them
+     spills; K3's library, gn_sums, has no products);
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, with the stated tolerance, its time, the plain version's time,
      the time of one PyTorch library call computing the same function (where
      one exists; the unfused route for the GEGLU kernels) and the card's
      bound (K1, K4 and K12 also print their exp floor: B*H*Nq*Nk ex2 at 16
-     per clock per SM; the fp32 attention rows are bounded at the 3xTF32 line
-     and also print the CUDA cores' FFMA line, fp32_ffma_ms): K1-K3 at the
-     shapes the swap path gives them, K4-K6 (the training attention) at the
+     per clock per SM; the fp32 rows are bounded at the 3xTF32 line and also
+     print the CUDA cores' FFMA line, fp32_ffma_ms): K1-K3 at the
+     shapes the swap path gives them (K3 also prints its kernel's own device
+     time from torch.profiler, device_ms, apart from the wrapper's host time), K4-K6 (the training attention) at the
      training shapes and K6, K5 at a ragged Nq != Nk, K5 bit for bit over two
      launches, K7-K9 (the rest of ``vface_tpu.ops``' kernels): K7 at the
      training shapes and a ragged Nq != Nk, at bf16 and at fp32, K8 at fp32
      up to the 1024^2 ds1 site (N = 16384) and at bf16, K9 at the ds4
      feed-forward (M = 3072, C = 1280) and the middle block's (M = 768);
      K10-K13 (the archived attention variants and the GEGLU row-tile sweep)
-     at the kernel benches' shapes, K10-K12 also on fp32 operands; with
+     at the kernel benches' shapes, K10-K12 also on fp32 operands; K5, K2 and
+     K9 on fp32 operands (3xTF32) at the training and sampling shapes; with
      ``--previous`` (the parent's output in the same
      call) each row's log line also shows the parent's time at its shape
      (K13, whose tiles changed: the parent's fastest tile at the same
@@ -60,6 +62,13 @@ Phases, one line each:
      and one full-width UNet eval on the 3-chunk window batch per fusion mode
      added by the slice (replace, temporal, adain, mix, fft_vfixed), each
      against the same eval with the plain versions;
+  7b. fp32_unet: the SD-v1 UNet at fp32 (``UNetConfig.sd_v1_inpaint`` at
+     fp32: use_flash, use_fused_ff) with seeded weights: one eval without a
+     gradient at the sampling batch (K8's tf32 attention, K2 and K9 fp32)
+     and one loss + backward at batch 1 (the tf32 forward's STATS form, the
+     tf32 recompute, K5's fp32 kernels, K2 fp32), each against the same
+     call with the plain versions in relative L2; launches, wall time, peak
+     memory;
   8. video: ``VideoSwapPipeline.swap_video_frames`` at full width with the
      conditioner (CLIP ViT-L/14, IR-50) and the aux nets (BiSeNet and RAFT
      seeded, the landmark net from its shipped weights) on a seeded 8-frame
@@ -153,6 +162,23 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """The device time of one call of ``fn`` in the kernels whose name holds
+    ``kernel`` (torch.profiler's CUDA time over ``reps`` calls), without the
+    host's dispatch; NaN where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    return sum(e.self_device_time_total for e in evs) / 1e3 / reps if evs else float("nan")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -257,7 +283,9 @@ def phase_build() -> None:
     smem = _native.function("geglu_ff", "vface_geglu_ff_smem_bytes", [ctypes.c_int] * 3)
     log("geglu_dynamic_smem", **{f"fused_c{c}_tm{tm}": smem(c, tm, 0) for c, tm in ((64, 128), (320, 64), (320, 128))},
         **{f"gemm{gm}": smem(0, 128, gm) for gm in (1, 2)})
-    wgmma_sources = ("flash_attention", "flash_attention_bwd", "flash_attention_f32", "geglu_ff")
+    smem = _native.function("flash_attention_bwd_f32", "vface_flash_attention_bwd_f32_smem_bytes", [ctypes.c_int] * 2)
+    log("k5_f32_dynamic_smem", **{f"dh{dh}_{k}": smem(dh, i) for dh in (16, 32, 40, 80) for i, k in enumerate(("dq", "dkv"))})
+    wgmma_sources = ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_f32", "flash_attention_f32", "geglu_ff")
     spilled = [name for name in wgmma_sources if spills[name]]
     if spilled:
         raise SystemExit(f"chip_smoke: the wgmma kernels of {spilled} spill registers")
@@ -276,20 +304,23 @@ def phase_build() -> None:
         names = _demangle(list(counts))
         log("sass", source=name,
             entries=" | ".join(f"{n}: {c[0]} HGMMA, {c[1]} HMMA" for n, c in zip(names, counts.values())))
-        # the fp32 attention's split pass (split_kv_kernel) does no products
-        if not counts or any((c[0] == 0 and "split_kv_kernel" not in fn) or c[1] for fn, c in counts.items()):
+        # the split passes of the fp32 kernels (split_kv_kernel, split_planes_kernel, split_tf32_kernel) do no products
+        if not counts or any((c[0] == 0 and "split_" not in fn) or c[1] for fn, c in counts.items()):
             raise SystemExit(f"chip_smoke: every entry of {name} must run wgmma (HGMMA) and no mma.sync (HMMA)")
 
 
-def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, shape, exp_ms=None, ffma=None):
+def _row(name, route, source, replaces, errs, tol, ms, plain_ms, lib_ms, bnd, shape, exp_ms=None, ffma=None,
+         extra=None):
     """errs = (max abs error, max relative error); tol = ("abs" or "rel", limit);
     exp_ms: the attention forward's exp floor (:func:`exp_floor`), beside the bound;
-    ffma: an fp32 attention's FFMA line (:func:`ffma_ms`), beside its tf32 bound.
-    Both go on the log line only, as does the parent's time at the same shape
-    with ``--previous`` (:func:`previous_ms`): the returned row holds this run's
-    measurements and ``bound_ms``."""
+    ffma: an fp32 row's FFMA line (:func:`ffma_ms`), beside its tf32 bound;
+    extra: other figures for the log line. All go on the log line only, as
+    does the parent's time at the same shape with ``--previous``
+    (:func:`previous_ms`): the returned row holds this run's measurements and
+    ``bound_ms``."""
     checked = errs[0] if tol[0] == "abs" else errs[1]
     floor = {} if exp_ms is None else {"exp_floor_ms": f"{exp_ms:.4f}"}
+    floor.update(extra or {})
     if ffma is not None:
         floor["fp32_ffma_ms"] = f"{ffma:.4f}"
     prev, prev_shape = previous_ms(name, shape)
@@ -487,7 +518,9 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
 
     # K3 at the VAE's largest and smallest eligible GroupNorm sites on the
     # crops, and at the largest on the video path's HD frames (the background
-    # trick): rows of 56 whole 16384-element segments and a partial one
+    # trick): 16384-element rows (one CTA each), 262,144 and 921,600 (a
+    # cluster of 8 CTAs each); the event time holds the wrapper's host time,
+    # device_ms the kernel's alone
     gn_rows = []
     for c, hh, ww in ((128, 512, 512), (512, 128, 128), (128, 720, 1280)):
         x = randn(vae_batch, c, hh, ww)
@@ -496,9 +529,10 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
         plain_ms = cuda_ms(lambda: GN.gn_sums_ref(x))
         lib_ms = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3)))
         bnd = bound(2.0 * x.numel(), x.numel() * 2 + 2 * vae_batch * c * 4, PEAK_FP32_FLOPS)
-        gn_rows.append(_row("gn_sums", "triton", "vface_torch/ops/gn_sums.py",
+        dev_ms = device_ms(lambda: GN.gn_sums(x), "gn_sums")
+        gn_rows.append(_row("gn_sums", "cuda", "vface_torch/csrc/gn_sums.cu",
                             "vface_tpu/models/layers.py:45", errs, tol, ms, plain_ms, lib_ms, bnd,
-                            f"({vae_batch},{c},{hh},{ww})"))
+                            f"({vae_batch},{c},{hh},{ww})", extra={"device_ms": f"{dev_ms:.4f}"}))
     rows["gn_sums"] = gn_rows
     return rows
 
@@ -517,7 +551,8 @@ def kernel_counts() -> dict:
     from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
 
     return {**FA.LAUNCHES, "geglu_ff": FF.LAUNCHES, "geglu_ff_wide": FF.WIDE_LAUNCHES,
-            "geglu_ff_split": FF.SPLIT_LAUNCHES, "gn_sums": GN.LAUNCHES}
+            "geglu_ff_split": FF.SPLIT_LAUNCHES, "geglu_ff_f32": FF.F32_LAUNCHES,
+            "geglu_ff_wide_f32": FF.WIDE_F32_LAUNCHES, "gn_sums": GN.LAUNCHES}
 
 
 def reset_counts() -> None:
@@ -528,6 +563,8 @@ def reset_counts() -> None:
     FF.LAUNCHES = 0
     FF.WIDE_LAUNCHES = 0
     FF.SPLIT_LAUNCHES = 0
+    FF.F32_LAUNCHES = 0
+    FF.WIDE_F32_LAUNCHES = 0
     GN.LAUNCHES = 0
 
 
@@ -936,6 +973,99 @@ def phase_train_kernels() -> dict:
             cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
             bound(10.0 * n2dh, 3 * act_q + 4 * act_k + 3 * stat), shape))
         del leaves, sdpa_out, got, again, want5, yard
+    return rows
+
+
+def phase_f32_kernels() -> dict:
+    """K5, K2 and K9 on fp32 operands (3xTF32) against their plain versions on
+    the card; returns the rows.
+
+    K5 at the training shapes on fp32, (1, 4096, 320) and (1, 1024, 640) h8
+    and the ragged 4113 x 1029, on the m and l of K4's fp32 form (the tf32
+    kernel's STATS) and D from the tf32 recompute: each gradient within 1e-5
+    of its peak (tests/test_torch_kernels.py calibrates the limit: three tf32
+    terms per product meet it, one term or a dropped lo term miss it), two
+    launches equal bit for bit; the split pass, dQ and dK/dV kernels timed
+    apart (kernel_bwd_f32_check). K2 at the sampling batch's ds1 and ds2
+    feed-forwards and K9 at ds4's and the middle block's, within 1e-5 of the
+    output's peak, two launches equal bit for bit.
+
+    Bounds: the FLOPs as three tf32 products at the tf32 peak (165 TFLOP/s of
+    fp32-accurate products) or the bytes (fp32), and for K5 the exp floor (P
+    is computed in both kernels: 2*B*H*Nq*Nk ex2); the CUDA cores' FFMA line
+    on the log line. Library: SDPA's autograd backward on fp32 inputs (K5), the
+    unfused route on fp32 (two cuBLAS SGEMMs, TF32 off; K2, K9)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vface_torch.ops import flash_attention as FA
+    from vface_torch.ops import geglu_ff as FF
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
+    rows = {"flash_attention_bwd_f32": [], "geglu_ff_f32": [], "geglu_ff_wide_f32": []}
+    for nq, nk, c in ((4096, 4096, 320), (1024, 1024, 640), (RAGGED_NQ, RAGGED_NK, 320)):
+        h, b = 8, 1
+        dh = c // h
+        q, do = randn(b, nq, c), randn(b, nq, c)
+        k, v = randn(b, nk, c), randn(b, nk, c)
+        shape = _shape(b, nq, nk, c, h) + " fp32"
+        _, m, l = FA.flash_attention_stats(q, k, v, h)
+        dd = FA.rowsum_do_o(do, FA.flash_attention_fp32(q, k, v, h), h)
+        got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+        again = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+        want = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, g) for a, g in zip(again, got))
+        rels = [_errs(gi, wi)[1] for gi, wi in zip(got, want)]
+        worst = max(range(3), key=lambda i: rels[i])
+        planes = FA._bwd_f32_planes(q, k, v, do, h)
+        split_ms = cuda_ms(lambda: FA._bwd_f32_planes(q, k, v, do, h))
+        dq_ms = cuda_ms(lambda: FA._launch_bwd_f32("flash_attention_bwd_dq_f32", planes, q, k, h, (m, l, dd),
+                                                   (again[0],)))
+        dkv_ms = cuda_ms(lambda: FA._launch_bwd_f32("flash_attention_bwd_dkv_f32", planes, q, k, h, (m, l, dd),
+                                                    again[1:]))
+        log("kernel_bwd_f32_check", shape=shape.replace(" ", "_"), dq_dk_dv_rel_err=",".join(f"{r:.3e}" for r in rels),
+            tol="1e-05", two_launches="bitwise" if same else "differ", split_ms=f"{split_ms:.4f}",
+            dq_ms=f"{dq_ms:.4f}", dkv_ms=f"{dkv_ms:.4f}")
+        if not same:
+            raise SystemExit("chip_smoke: two launches of the fp32 flash_attention_bwd differ")
+        split = lambda t: t.view(b, -1, h, dh).transpose(1, 2)
+        leaves = [split(t).detach().requires_grad_(True) for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+        dsplit = split(do)
+        flops = 10.0 * b * h * nq * nk * dh  # S, dP, dQ, dK, dV
+        nbytes = (3 * q.numel() + 4 * k.numel()) * 4 + 3 * b * h * nq * 4
+        rows["flash_attention_bwd_f32"].append(_row(
+            "flash_attention_bwd_f32", "cuda", "vface_torch/csrc/flash_attention_bwd_f32.cu",
+            "vface_tpu/ops/pallas_attention.py:444", _errs(got[worst], want[worst]), ("rel", 1e-5),
+            cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)),
+            cuda_ms(lambda: FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h), reps=3, warmup=1),
+            cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
+            tf32x3_bound(flops, nbytes, 2 * b * h * nq * nk), shape, ffma=ffma_ms(flops)))
+        del q, k, v, do, got, again, want, planes, leaves, sdpa_out
+
+    for name, fn, line, sites in (("geglu_ff_f32", FF.geglu_ff, 70, ((12 * 4096, 320), (12 * 1024, 640))),
+                                  ("geglu_ff_wide_f32", FF.geglu_ff_wide, 120, ((12 * 256, 1280), (12 * 64, 1280)))):
+        for m, c in sites:
+            inner = 4 * c
+            args = (randn(m, c), randn(2 * inner, c, scale=c**-0.5), randn(2 * inner, scale=0.1),
+                    randn(c, inner, scale=inner**-0.5), randn(c, scale=0.1))
+            got, again = fn(*args), fn(*args)
+            want = FF.geglu_ff_ref(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise SystemExit(f"chip_smoke: two launches of {name} differ")
+            flops = 6.0 * m * c * inner
+            rows[name].append(_row(
+                name, "cuda", "vface_torch/csrc/geglu_ff.cu", f"vface_tpu/ops/pallas_ff.py:{line}", _errs(got, want),
+                ("rel", 1e-5), cuda_ms(lambda: fn(*args)), cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=3, warmup=1),
+                cuda_ms(lambda: FF.geglu_ff_unfused(*args)),
+                bound(3.0 * flops, (2 * m * c + 3 * c * inner + 2 * inner + c) * 4, PEAK_TF32_FLOPS),
+                f"({m},{c})I{inner} fp32", ffma=ffma_ms(flops)))
+            del args, got, again, want
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1503,6 +1633,98 @@ def phase_ops(model, frames: int, seed: int) -> dict:
     return launches
 
 
+# the fp32 UNet's kernels: without a gradient (the attention on K8's tf32
+# kernel), and with one (its 64^2 latents take no GroupNorm kernel: K3 serves
+# the VAE's 128^2-512^2 stages)
+F32_EVAL_KERNELS = ("flash_attention_v1", "geglu_ff_f32", "geglu_ff_wide_f32")
+F32_TRAIN_KERNELS = ("flash_attention_stats_f32", "flash_attention_fp32_f32", "flash_attention_bwd_dq_f32",
+                     "flash_attention_bwd_dkv_f32", "geglu_ff_f32")
+
+
+def phase_fp32_unet(smi: str, frames: int, seed: int) -> dict:
+    """The SD-v1 UNet at fp32 (``ModelConfig.sd_v1_inpaint(dtype=float32)``:
+    use_flash, use_fused_ff, remat) at full width with seeded weights: one
+    eval without a gradient at the sampling batch (2 chunks x the window, 64^2
+    latents) and one loss (MSE of epsilon against a seeded target) + backward
+    at batch 1, counters reset before each; each held to the same call under
+    :func:`plain_kernels` in relative L2 (epsilon; all UNet parameters'
+    gradients together). Returns the launches of both runs."""
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.utils.convert import init_params
+
+    cfg = ModelConfig.sd_v1_inpaint(dtype=torch.float32)
+    model = VFaceModel(cfg, device="cuda")
+    model.load_params(init_params(cfg, torch.Generator(device="cuda").manual_seed(seed)))
+    unet = model.unet
+    del model.vae
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    hl, d, b = cfg.latent_size, cfg.unet.context_dim, 2 * frames
+    x9 = torch.randn((b, hl, hl, 9), generator=g, device="cuda")
+    ts = torch.full((b,), 961, device="cuda")
+    ctx = torch.randn((b, 1, d), generator=g, device="cuda")
+    target = torch.randn((1, hl, hl, 4), generator=g, device="cuda")
+    rel = lambda a, w: float((a - w).norm() / w.norm())
+
+    def loss_grads():
+        unet.zero_grad(set_to_none=True)
+        loss = ((unet(x9[:1], ts[:1], ctx[:1]) - target) ** 2).mean()
+        loss.backward()
+        return float(loss), [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                             for p in unet.parameters()]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        eps_k = unet(x9, ts, ctx)
+    torch.cuda.synchronize()
+    eval_s, eval_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    eval_launches = kernel_counts()
+    with torch.inference_mode(), plain_kernels():
+        eps_p = unet(x9, ts, ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss_k, grads_k = loss_grads()
+    torch.cuda.synchronize()
+    train_s, train_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    train_launches = kernel_counts()
+    with plain_kernels():
+        loss_p, grads_p = loss_grads()
+    unet.zero_grad(set_to_none=True)
+    e_eps = rel(eps_k, eps_p)
+    e_grad = math.sqrt(sum(float((a - w).norm()) ** 2 for a, w in zip(grads_k, grads_p))) / math.sqrt(
+        sum(float(w.norm()) ** 2 for w in grads_p))
+    finite = bool(torch.isfinite(eps_k).all()) and all(bool(torch.isfinite(a).all()) for a in grads_k)
+    # each fp32 kernel is within ~1e-6 of its plain version (three tf32 terms
+    # per product, other summation orders); ~70 random-weight layers carry the
+    # bf16 path's 2^-9 roundings to ~1e-2, so these to ~1e-5. 1e-3 leaves that
+    # margin, while one tf32 term per product (~2^-11 relative each) would not
+    tol = 1e-3
+    log("fp32_unet", config="sd_v1_inpaint fp32 (use_flash, use_fused_ff, remat)", card=smi.replace(" ", "_"),
+        eval_batch=b, latent=f"{hl}^2", eval_s=f"{eval_s:.3f}", eval_peak_gib=f"{eval_peak:.2f}",
+        eps_rel_l2_vs_plain=f"{e_eps:.3e}", train_batch=1, train_s=f"{train_s:.3f}",
+        train_peak_gib=f"{train_peak:.2f}", loss_kernels=f"{loss_k:.7f}", loss_plain=f"{loss_p:.7f}",
+        grad_rel_l2_vs_plain=f"{e_grad:.3e}", tol=tol, finite=finite)
+    log("fp32_unet_launches", run="eval", **{k: v for k, v in eval_launches.items() if v})
+    log("fp32_unet_launches", run="loss_backward", **{k: v for k, v in train_launches.items() if v})
+    del unet, model, eps_k, eps_p, grads_k, grads_p
+    torch.cuda.empty_cache()
+    if not (finite and e_eps <= tol and e_grad <= tol):
+        raise SystemExit("chip_smoke: the fp32 UNet's kernel path disagrees with its plain path")
+    for run, launched, wanted in (("eval", eval_launches, F32_EVAL_KERNELS),
+                                  ("loss_backward", train_launches, F32_TRAIN_KERNELS)):
+        missing = [k for k in wanted if launched[k] == 0]
+        stray = [k for k in launched if k not in wanted and launched[k]]
+        if missing or stray:
+            raise SystemExit(f"chip_smoke: the fp32 UNet's {run} launched no {missing} / stray {stray} kernels")
+    return {k: eval_launches[k] + train_launches[k] for k in eval_launches}
+
+
 def train_batch(model, batch: int, seed: int, device="cuda") -> dict:
     """A seeded synthetic batch shaped as the JAX package's train-step bench:
     images and mask at the model's size, the 224^2 CLIP reference, the 112^2
@@ -1710,13 +1932,14 @@ def kernels_line(rows: dict, launches: dict) -> dict:
 
     ``launches`` is each kernel's count over its main path's run (K1-K3 and K9
     the swap window, K4-K6 the timed train steps, K7-K8 the ops phase, K10-K13
-    the bench phase); K5's two kernels launch together, and its entry carries
+    the bench phase, the fp32 forms of K5, K2 and K9 the fp32 UNet's eval and
+    loss + backward); K5's two kernels launch together, and its entries carry
     the dQ kernel's count."""
     out = []
     for name, sites in rows.items():
         head = dict(sites[0])
         head["max_abs_err"] = max(r["max_abs_err"] for r in sites)
-        head["launches"] = launches[name + "_dq" if name == "flash_attention_bwd" else name]
+        head["launches"] = launches[name.replace("_bwd", "_bwd_dq", 1)]
         head["sites"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                          for r in sites]
         head.pop("shape")
@@ -1743,6 +1966,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(batch=2 * FRAMES, vae_batch=FRAMES)
     rows.update(phase_train_kernels())
+    rows.update(phase_f32_kernels())
     phase_k1_tiles()
     rows.update(phase_ops_kernels())
     rows.update(phase_bench_kernels())
@@ -1757,6 +1981,7 @@ def main() -> int:
         phase_profile(model, FRAMES, SEED, args.profile)
     del model  # serving's swap_window needs no conditioner; the video path and training do
     torch.cuda.empty_cache()
+    f32_launches = phase_fp32_unet(smi, FRAMES, SEED)
     model = build_model(SEED, conditioner=True)
     phase_video(model, SEED)
     torch.cuda.empty_cache()
@@ -1767,6 +1992,7 @@ def main() -> int:
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     launches.update({k: ops_launches[k] for k in OPS_KERNELS})
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
+    launches.update({k: f32_launches[k] for k in ("flash_attention_bwd_dq_f32", "geglu_ff_f32", "geglu_ff_wide_f32")})
     print(smi, flush=True)
     print(json.dumps(kernels_line(rows, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

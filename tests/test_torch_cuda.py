@@ -1,7 +1,6 @@
 """The port's kernels on the card, each against its plain version, and their gradients.
 
-These need an NVIDIA GPU with nvcc and triton (Hopper, sm_90a); elsewhere they
-skip. Run them on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+These need an NVIDIA GPU with nvcc (Hopper, sm_90a); elsewhere they skip. Run them on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 ``chip_smoke.py`` holds the same kernels to the same plain versions at the
 swap path's full shapes.
 """
@@ -272,7 +271,8 @@ def test_gradients_flow_through_every_wrapper(gen):
     assert {k: FA.LAUNCHES[k] - before[k] for k in before} == {
         "flash_attention": 0, "flash_attention_stats": 1, "flash_attention_fp32": 1,
         "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1, "flash_attention_v2_stats": 0,
-        "flash_attention_v1": 0, "flash_attention_v3": 0, "flash_attention_v4": 0, "flash_attention_v6": 0}
+        "flash_attention_v1": 0, "flash_attention_v3": 0, "flash_attention_v4": 0, "flash_attention_v6": 0,
+        **F32_NONE}
     grads = [x.grad for x in leaves]
     for x in leaves:
         x.grad = None
@@ -308,6 +308,11 @@ def test_gradients_flow_through_every_wrapper(gen):
     assert GN.LAUNCHES == before_gn + 1
     want = (w1[:, :, None, None] + 2.0 * x.detach().float() * w2[:, :, None, None]).to(torch.bfloat16)
     assert torch.equal(x.grad, want)
+
+
+# the fp32 forms' launch keys, none launched by a bf16 path
+F32_NONE = dict.fromkeys(("flash_attention_stats_f32", "flash_attention_fp32_f32", "flash_attention_bwd_dq_f32",
+                          "flash_attention_bwd_dkv_f32"), 0)
 
 
 def _rand(gen, *shape, dtype=torch.float32):
@@ -384,7 +389,11 @@ def test_flash_attention_v2_stats_kernel(gen, nq, nk, heads, dh, dtype):
 def test_flash_attention_v2_gradients_and_fp32_route(gen):
     """v2 with a gradient: K7 forward, K6 + K5 backward, the same gradients as
     the plain path within 2 ulps. The port's flash_attention on fp32 operands
-    without a gradient launches K8 (v5's function at fp32)."""
+    without a gradient launches K8 (v5's function at fp32); with one, on fp32
+    operands, flash_attention and flash_attention_v2 launch the tf32 forward
+    (STATS: K7's fp32 form), the tf32 recompute and K5's fp32 kernels, each
+    gradient within 1e-5 of its peak of the same autograd graph through the
+    plain versions (tests/test_torch_kernels.py calibrates the limit)."""
     heads, dh, n = 2, 40, 300
     leaves = [_randn(gen, 1, n, heads * dh).requires_grad_(True) for _ in range(3)]
     do = _randn(gen, 1, n, heads * dh)
@@ -394,7 +403,7 @@ def test_flash_attention_v2_gradients_and_fp32_route(gen):
     assert {k: FA.LAUNCHES[k] - before[k] for k in before} == {
         "flash_attention": 0, "flash_attention_stats": 0, "flash_attention_fp32": 1, "flash_attention_v2_stats": 1,
         "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1, "flash_attention_v1": 0,
-        "flash_attention_v3": 0, "flash_attention_v4": 0, "flash_attention_v6": 0}
+        "flash_attention_v3": 0, "flash_attention_v4": 0, "flash_attention_v6": 0, **F32_NONE}
     grads = [x.grad for x in leaves]
     for x in leaves:
         x.grad = None
@@ -407,6 +416,25 @@ def test_flash_attention_v2_gradients_and_fp32_route(gen):
     assert FA.LAUNCHES["flash_attention_v1"] == before["flash_attention_v1"] + 1
     want = FA.flash_attention_ref(q, q, q, heads)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    q, k, v, do = (_rand(gen, 2, n, heads * dh) for _ in range(4))
+    for entry, fwd in ((FA.flash_attention, "flash_attention_stats_f32"),
+                       (lambda *a: FA.flash_attention_v2(*a, 300, 300), "flash_attention_v2_stats")):
+        grads = []
+        for fn in (entry, FA.flash_attention_ref if fwd.endswith("f32") else None):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = dict(FA.LAUNCHES)
+            if fn is None:  # v2's plain path: K7's plain forward, the plain backward
+                FA._FlashAttention.apply(*leaves, heads, True, FA.flash_attention_v2_stats_ref).backward(do)
+            else:
+                fn(*leaves, heads).backward(do)
+            torch.cuda.synchronize()
+            launched = {k_: FA.LAUNCHES[k_] - before[k_] for k_ in before if FA.LAUNCHES[k_] != before[k_]}
+            grads.append(([x.grad for x in leaves], launched))
+        (got, launched), (want, none) = grads
+        assert launched == {fwd: 1, "flash_attention_fp32_f32": 1, "flash_attention_bwd_dq_f32": 1,
+                            "flash_attention_bwd_dkv_f32": 1} and none == {}
+        for gi, wi in zip(got, want):
+            assert gi.dtype == torch.float32 and (gi - wi).abs().max() <= 1e-5 * wi.abs().max()
 
 
 @pytest.mark.parametrize("m,c", [(3072, 1280), (1000, 1024), (17, 1280), (768, 1280)])
@@ -436,9 +464,11 @@ def test_new_wrappers_refuse_what_their_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="pads to"):
         FA.flash_attention_bwd(b, b, b, b, st, st + 1, st, 2)
     g = _rand(gen, 1, 64, 80).requires_grad_(True)
-    for fn in (FA.flash_attention_v1, FA.flash_attention_v2, FA.flash_attention):
-        with pytest.raises(ValueError, match="gradient"):
-            fn(g, g, g, 2)
+    with pytest.raises(ValueError, match="gradient"):  # v2 and v5 take fp32 gradients (K5's fp32 kernels)
+        FA.flash_attention_v1(g, g, g, 2)
+    g24 = _rand(gen, 1, 64, 2 * 24)
+    with pytest.raises(ValueError, match="must be one of"):
+        FA.flash_attention_bwd(g24, g24, g24, g24, st, st + 1, st, 2)
     args = [_randn(gen, 32, 768), _randn(gen, 6144, 768), _randn(gen, 6144), _randn(gen, 768, 3072),
             _randn(gen, 768)]
     with pytest.raises(ValueError, match="must be one of"):
@@ -545,3 +575,103 @@ def test_unet_wide_feed_forward_takes_k9_only_without_a_gradient(gen):
     assert FF.WIDE_LAUNCHES == before + 1 and xg.grad is not None
     unfused = FF.geglu_ff_unfused(x, *w).float()
     assert (out.detach().float() - unfused).abs().max() <= _ulps(unfused)
+
+
+# K5 on fp32 at every built head width: self-attention shapes with a ragged
+# tile, Nq != Nk both ways, Nq and Nk below one tile
+F32_BWD_SHAPES = [(2, 300, 300, 2, 40), (2, 130, 70, 3, 16), (2, 257, 1000, 2, 80), (2, 64, 200, 4, 32),
+                  (2, 300, 130, 2, 40), (1, 1000, 257, 2, 80), (2, 17, 33, 2, 16), (1, 1024, 1024, 8, 80)]
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,dh", F32_BWD_SHAPES)
+def test_flash_attention_bwd_f32_kernels(gen, b, nq, nk, heads, dh):
+    """K5's fp32 kernels (3xTF32) vs the plain version on the same m, l and D:
+    each gradient within 1e-5 of its peak (three tf32 terms per product meet
+    it, one term or a dropped lo term miss it: tests/test_torch_kernels.py),
+    and two launches equal bit for bit (each output summed in a fixed order)."""
+    q, k, v, do = _rand(gen, b, nq, heads * dh), *(_rand(gen, b, nk, heads * dh) for _ in "kv"), \
+        _rand(gen, b, nq, heads * dh)
+    _, m, l = FA.flash_attention_stats(q, k, v, heads)
+    dd = FA.rowsum_do_o(do, FA.flash_attention_fp32(q, k, v, heads), heads)
+    before = dict(FA.LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, heads)
+    again = FA.flash_attention_bwd(q, k, v, do, m, l, dd, heads)
+    torch.cuda.synchronize()
+    assert {key: FA.LAUNCHES[key] - before[key] for key in before if FA.LAUNCHES[key] != before[key]} == {
+        "flash_attention_bwd_dq_f32": 2, "flash_attention_bwd_dkv_f32": 2}
+    want = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, heads)
+    for gi, ai, wi in zip(got, again, want):
+        assert gi.dtype == torch.float32 and torch.equal(gi, ai)
+        assert (gi - wi).abs().max() <= 1e-5 * wi.abs().max()
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [(2, 300, 130, 2, 40), (2, 130, 300, 3, 80)])
+def test_fp32_forward_forms_of_k4_and_k6(gen, b, nq, nk, heads, dh):
+    """On fp32 operands K4 (flash_attention_stats) runs the tf32 kernel's STATS
+    form and K6 (flash_attention_fp32) its plain form, under their own keys:
+    the same output bit for bit (K4's P rounding is a no-op at fp32), within
+    1e-5 of the peak of K4's plain version; m and l within 1e-5 relative."""
+    q, k, v = _rand(gen, b, nq, heads * dh), *(_rand(gen, b, nk, heads * dh) for _ in "kv")
+    before = dict(FA.LAUNCHES)
+    out, m, l = FA.flash_attention_stats(q, k, v, heads)
+    o6 = FA.flash_attention_fp32(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert {key: FA.LAUNCHES[key] - before[key] for key in before if FA.LAUNCHES[key] != before[key]} == {
+        "flash_attention_stats_f32": 1, "flash_attention_fp32_f32": 1}
+    assert torch.equal(out, o6)
+    want, wm, wl = FA.flash_attention_stats_ref(q, k, v, heads)
+    assert (out - want).abs().max() <= 1e-5 * want.abs().max()
+    assert ((m - wm).abs() / wm.abs().clamp(min=1e-30)).max() <= 1e-5
+    assert ((l - wl).abs() / wl).max() <= 1e-5
+
+
+def _ff_args_f32(gen, m, c):
+    inner = 4 * c
+    return (_rand(gen, m, c), _rand(gen, 2 * inner, c) * c**-0.5, _rand(gen, 2 * inner) * 0.1,
+            _rand(gen, c, inner) * inner**-0.5, _rand(gen, c) * 0.1)
+
+
+# K2's widths (64, 320, 640) and K9's (1024, 1280) on fp32: ragged M, M below
+# one 128-row tile, the swap's ds1 site and the ds4 one at b = 12
+@pytest.mark.parametrize("m,c", [(4096 + 17, 320), (1000, 640), (300, 64), (17, 320), (49152, 320),
+                                 (17, 1280), (1000, 1024), (3072, 1280), (768 + 5, 1280)])
+def test_geglu_ff_f32_kernels(gen, m, c):
+    """K2 and K9 on fp32 operands (3xTF32 GEMMs) vs K2's plain version in fp32:
+    within 1e-5 of the output's peak (calibrated in tests/test_torch_kernels.py),
+    counted under their fp32 keys, two launches equal bit for bit."""
+    args = _ff_args_f32(gen, m, c)
+    wide = c in FF.WIDE_WIDTHS
+    fn = FF.geglu_ff_wide if wide else FF.geglu_ff
+    before = (FF.F32_LAUNCHES, FF.WIDE_F32_LAUNCHES, FF.LAUNCHES, FF.WIDE_LAUNCHES)
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    after = (FF.F32_LAUNCHES, FF.WIDE_F32_LAUNCHES, FF.LAUNCHES, FF.WIDE_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == ((0, 2, 0, 0) if wide else (2, 0, 0, 0))
+    want = FF.geglu_ff_ref(*args)
+    assert got.dtype == torch.float32 and torch.equal(got, again)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    with pytest.raises(ValueError, match="dtype"):  # the row-tile kernels (K13) are bf16 only
+        FF.geglu_ff_split(*_ff_args_f32(gen, 17, 320), 64)
+
+
+# the crops' VAE sites (short rows; whole-cluster rows), an unaligned row start
+# (130 * 70 elements), the HD frames' 921,600-element rows, fp16
+@pytest.mark.parametrize("shape,dtype", [((2, 128, 256, 256), torch.bfloat16), ((1, 3, 130, 70), torch.bfloat16),
+                                         ((2, 4, 720, 1280), torch.bfloat16), ((6, 512, 128, 128), torch.bfloat16),
+                                         ((2, 128, 256, 256), torch.float32), ((1, 3, 130, 70), torch.float32),
+                                         ((2, 4, 720, 1280), torch.float32), ((3, 5, 33, 7), torch.float16)])
+def test_gn_sums_kernel_dtypes_and_determinism(gen, shape, dtype):
+    """K3, one launch a call: relative 1e-5 of each row's sum of |x| (sums) and
+    of the sum of squares, against the plain version; two launches equal bit
+    for bit (a row's partial sums added in rank order, no atomics)."""
+    x = (torch.randn(shape, generator=gen, device="cuda") + 0.5).to(dtype)
+    before = GN.LAUNCHES
+    s1, s2 = GN.gn_sums(x)
+    a1, a2 = GN.gn_sums(x)
+    torch.cuda.synchronize()
+    assert GN.LAUNCHES == before + 2
+    assert torch.equal(s1, a1) and torch.equal(s2, a2)
+    r1, r2 = GN.gn_sums_ref(x)
+    absx = x.float().abs().sum(dim=(2, 3))
+    assert ((s1 - r1).abs() / absx).max() < 1e-5
+    assert ((s2 - r2).abs() / r2).max() < 1e-5

@@ -21,7 +21,7 @@ import torch
 from _torch_port import close, t
 from vface_tpu.models import layers as JL
 from vface_tpu.ops.pallas_attention import (
-    _flash_v2_impl, _flash_v2_stats, _flash_v5_stats, flash_attention_bwd, flash_attention_v5,
+    _flash_v2_impl, _flash_v2_stats, _flash_v5_stats, flash_attention_bwd, flash_attention_v2, flash_attention_v5,
 )
 from vface_tpu.ops.pallas_ff import geglu_ff as jax_geglu_ff
 from vface_torch.models import layers as TL
@@ -240,6 +240,44 @@ def test_autograd_matches_jax_grad_of_flash_v5_at_cross_attention(nq, nk):
     assert FA.LAUNCHES == before  # CPU tensors: plain versions, no launch
     for leaf, wi in zip(leaves, want):
         close(leaf.grad, np.asarray(wi, np.float32), atol=_ulps(wi, 2))
+
+
+# ------------------------------------------------------- fp32 gradients
+# (nq, nk, dh, JAX's blocks): the UNet's two head widths, and Nq != Nk ragged
+# against the port's 64-row tiles (200 and 100 rows; JAX's blocks must divide N)
+FP32_GRAD = [(256, 256, 40, (128, 64)), (256, 256, 80, (128, 64)), (200, 100, 40, (100, 100))]
+
+
+@pytest.mark.parametrize("nq,nk,dh,blocks", FP32_GRAD)
+@pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_v2"])
+def test_fp32_autograd_matches_jax_grad(entry, nq, nk, dh, blocks):
+    """The port's flash_attention (v5) and flash_attention_v2 with a gradient on
+    fp32 operands, on the CPU (plain K4 or K7 forward, plain K6 + K5 backward:
+    the functions the card's fp32 kernels are held to) vs jax.grad of
+    flash_attention_v5 / flash_attention_v2 in interpret mode (their custom
+    VJP: stats forward, fp32 recompute, the Pallas backward, which casts every
+    operand to fp32): 2e-5 abs, as test_bwd_ref_matches_pallas_bwd holds fp32.
+    The forward matches the JAX forward to 2e-6."""
+    h = 2
+    (qn, kn, vn, gn), (q, k, v, g) = _cross(nq, nk, h, dh, "float32", seed=19 + dh + nk)
+    jax_fn = {"flash_attention": flash_attention_v5, "flash_attention_v2": flash_attention_v2}[entry]
+
+    def loss(a, b, c):
+        return jnp.sum(jax_fn(a, b, c, h, block_q=blocks[0], block_k=blocks[1], interpret=True) * jnp.asarray(gn))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    want_out = jax_fn(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), h, block_q=blocks[0], block_k=blocks[1],
+                      interpret=True)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(FA.LAUNCHES)
+    out = getattr(FA, entry)(*leaves, h)
+    assert out.grad_fn is not None and out.dtype == torch.float32
+    close(out, want_out, atol=2e-6)
+    (out * g).sum().backward()
+    assert FA.LAUNCHES == before  # CPU tensors: plain versions, no launch
+    for leaf, wi in zip(leaves, want):
+        assert leaf.grad.dtype == torch.float32
+        close(leaf.grad, np.asarray(wi), atol=2e-5)
 
 
 def test_no_grad_call_writes_no_stats_and_builds_no_graph():

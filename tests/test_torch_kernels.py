@@ -238,3 +238,146 @@ def test_tf32_rounding_matches_its_definition():
     hi = tf32(r)
     assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
     assert bool(((r - hi).abs() <= r.abs() * 2**-11).all())
+
+
+def _tf32_product(name: str, a: torch.Tensor, b: torch.Tensor, terms: frozenset) -> torch.Tensor:
+    """a @ b (fp32 operands) as the tf32 terms of ``terms`` named ``name``_hh, _lh
+    and _hl (hi.hi, lo.hi, hi.lo of the hi + lo splits), each exact (float64)."""
+    (ah, al), (bh, bl) = ((tf32(x), tf32(x - tf32(x))) for x in (a, b))
+    pairs = {"hh": (ah, bh), "lh": (al, bh), "hl": (ah, bl)}
+    return sum(x.double() @ y.double() for term, (x, y) in pairs.items() if f"{name}_{term}" in terms)
+
+
+def _tf32_bwd(q, k, v, do, m, l, dd, heads: int, terms: frozenset):
+    """K5's fp32 kernels' arithmetic in plain form: S = Q.K^T and dP = dO.V^T,
+    then dQ = scale * dS.K, dK = scale * dS^T.Q and dV = P^T.dO, each product
+    as the tf32 terms in ``terms`` ("s", "dp", "dq", "dk", "dv"), exactly; P and
+    dS from those S and dP in float64, rounded to fp32 as the kernels hold them."""
+    b, nq, d = q.shape
+    dh = d // heads
+    scale = dh**-0.5
+    split = lambda x: x.reshape(b, -1, heads, dh).transpose(1, 2)
+    stat = lambda x: x.reshape(b, heads, nq, 1).double()
+    qh, kh, vh, doh = (split(x) for x in (q, k, v, do))
+    s = _tf32_product("s", qh, kh.transpose(-1, -2), terms)
+    dp = _tf32_product("dp", doh, vh.transpose(-1, -2), terms)
+    p = (torch.exp(s * scale - stat(m)) / stat(l)).float()
+    ds = (p.double() * (dp - stat(dd))).float()
+    merge = lambda x: x.float().transpose(1, 2).reshape(b, -1, d)
+    return (merge(_tf32_product("dq", ds, kh, terms) * scale),
+            merge(_tf32_product("dk", ds.transpose(-1, -2), qh, terms) * scale),
+            merge(_tf32_product("dv", p.transpose(-1, -2), doh, terms)))
+
+
+BWD_TERMS = frozenset(f"{p}_{t}" for p in ("s", "dp", "dq", "dk", "dv") for t in ("hh", "lh", "hl"))
+
+
+@pytest.mark.parametrize("terms,meets", [
+    (BWD_TERMS, True), (frozenset(f"{p}_hh" for p in ("s", "dp", "dq", "dk", "dv")), False),
+    (BWD_TERMS - {"s_lh"}, False), (BWD_TERMS - {"dp_lh"}, False), (BWD_TERMS - {"dq_lh"}, False),
+    (BWD_TERMS - {"dk_lh"}, False), (BWD_TERMS - {"dv_lh"}, False)])
+@pytest.mark.parametrize("nq,nk,heads,dh", [(300, 130, 2, 40), (130, 300, 3, 16), (257, 1000, 2, 80), (64, 200, 4, 32)])
+def test_tf32_terms_of_the_backward_against_the_card_limit(nq, nk, heads, dh, terms, meets):
+    """Calibration of the fp32 backward's card limit, each gradient within 1e-5
+    of its peak against K5's plain version (the same m, l and D), at the card
+    tests' fp32 shapes: the five products as three tf32 terms each (the
+    kernels' split) meet it; one term each (plain tf32), or three with any one
+    product's lo.hi term dropped, miss it. So the card tests tell a dropped lo
+    term from the kernels' own round-off."""
+    rng = np.random.default_rng(nq + nk + dh)
+    q, do = (torch.from_numpy(rng.normal(size=(2, nq, heads * dh)).astype(np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(2, nk, heads * dh)).astype(np.float32)) for _ in range(2))
+    _, m, l = FA.flash_attention_stats_ref(q, k, v, heads)
+    dd = FA.rowsum_do_o(do, FA.flash_attention_fp32_ref(q, k, v, heads), heads)
+    want = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, heads)
+    got = _tf32_bwd(q, k, v, do, m, l, dd, heads, terms)
+    err = max(float((gi - wi).abs().max() / wi.abs().max()) for gi, wi in zip(got, want))
+    assert (err <= 1e-5) == meets, err
+
+
+def _tf32_geglu(x, wp, bp, wo, bo, terms: frozenset) -> torch.Tensor:
+    """The fp32 GEGLU kernels' arithmetic in plain form: GEMM 1 (x against Wa
+    and Wg) and GEMM 2 (h against Wo) as the tf32 terms in ``terms`` ("p",
+    "o"), exactly; h = (a + ba) * gelu_erf(gate + bg) rounded to fp32, as GEMM
+    1 stores it."""
+    inner = wp.shape[0] // 2
+    a = _tf32_product("p", x, wp[:inner].t(), terms) + bp[:inner].double()
+    gate = _tf32_product("p", x, wp[inner:].t(), terms) + bp[inner:].double()
+    h = (a * FF.gelu_erf(gate)).float()
+    return (_tf32_product("o", h, wo.t(), terms) + bo.double()).float()
+
+
+FF_TERMS = frozenset(f"{p}_{t}" for p in ("p", "o") for t in ("hh", "lh", "hl"))
+
+
+@pytest.mark.parametrize("terms,meets", [
+    (FF_TERMS, True), (frozenset({"p_hh", "o_hh"}), False), (FF_TERMS - {"p_lh"}, False),
+    (FF_TERMS - {"o_lh"}, False), (FF_TERMS - {"p_hl"}, False)])
+@pytest.mark.parametrize("m,c", [(300, 64), (257, 320), (100, 640), (17, 1280)])
+def test_tf32_terms_of_the_feed_forward_against_the_card_limit(m, c, terms, meets):
+    """Calibration of the fp32 GEGLU's card limit, 1e-5 of the output's peak
+    against K2's plain version (fp32 products), at the card tests' widths:
+    both GEMMs as three tf32 terms each meet it; one term each, or three with
+    x_lo.Wp_hi, h_lo.Wo_hi or x_hi.Wp_lo dropped, miss it."""
+    rng = np.random.default_rng(m + c)
+    inner = 4 * c
+    args = [torch.from_numpy((rng.normal(size=s) * sc).astype(np.float32)) for s, sc in (
+        ((m, c), 1.0), ((2 * inner, c), c**-0.5), ((2 * inner,), 0.1), ((c, inner), inner**-0.5), ((c,), 0.1))]
+    want = FF.geglu_ff_ref(*args)
+    err = float((_tf32_geglu(*args, terms) - want).abs().max() / want.abs().max())
+    assert (err <= 1e-5) == meets, err
+
+
+def test_fp32_routes_reach_the_fp32_kernels(monkeypatch):
+    """The routing of an fp32 SD-v1-width UNet on the card, with the launches
+    mocked: meta tensors stand in for the card's (not the CPU's, so every
+    wrapper takes its kernel route). An fp32 FeedForward with use_fused (as
+    sd_v1_inpaint sets it) reaches the GEGLU launch in fp32 at C 320 (with a
+    gradient) and 640, and K9's at 1280 without a gradient; fp32 attention with
+    a gradient, through flash_attention and flash_attention_v2, reaches the
+    tf32 forward (STATS, then the recompute) and K5's fp32 split pass, dQ and
+    dK/dV kernels, and never a bf16-only launch. The GEGLU operand check takes
+    fp32 at every K2 and K9 width."""
+    from vface_torch.models.unet import FeedForward
+
+    calls = []
+
+    def ff_launch(name, widths, x, *weights, tm=None):
+        FF._check_operands(name, widths, x, *weights)
+        calls.append((name, x.dtype))
+        return torch.empty_like(x)
+
+    monkeypatch.setattr(FF, "_launch", ff_launch)
+    for name in ("F32_LAUNCHES", "WIDE_F32_LAUNCHES", "LAUNCHES", "WIDE_LAUNCHES"):
+        monkeypatch.setattr(FF, name, 0)
+    for c, grad in ((320, True), (640, False), (1280, False), (1280, True)):
+        ff = FeedForward(c, dtype=torch.float32, use_fused=True).to("meta")
+        x = torch.empty(2, 64, c, device="meta", requires_grad=grad)
+        with torch.set_grad_enabled(grad):
+            out = ff(x)
+        if grad:
+            out.sum().backward()
+    assert calls == [("geglu_ff", torch.float32), ("geglu_ff", torch.float32), ("geglu_ff_wide", torch.float32)]
+    assert (FF.F32_LAUNCHES, FF.WIDE_F32_LAUNCHES, FF.LAUNCHES, FF.WIDE_LAUNCHES) == (2, 1, 0, 0)
+
+    calls.clear()
+    bf16_only = lambda kernel, *a, **kw: calls.append(("bf16", kernel))
+    monkeypatch.setattr(FA, "_launch_fwd", bf16_only)
+    monkeypatch.setattr(FA, "_launch_bwd", bf16_only)
+    monkeypatch.setattr(FA, "_launch_f32", lambda kernel, stats, q, *a: calls.append((kernel, stats, q.dtype)))
+    monkeypatch.setattr(FA, "_bwd_f32_planes",
+                        lambda q, *a: calls.append(("split", q.dtype)) or torch.empty(1, device=q.device))
+    monkeypatch.setattr(FA, "_launch_bwd_f32", lambda kernel, planes, q, *a: calls.append((kernel, q.dtype)))
+    f32 = torch.float32
+    for entry, fwd in ((FA.flash_attention, "flash_attention_stats_f32"), (FA.flash_attention_v2, "flash_attention_v2_stats")):
+        calls.clear()
+        leaves = [torch.empty(1, 4096, 320, device="meta", requires_grad=True) for _ in range(3)]
+        entry(*leaves, 8).sum().backward()
+        assert calls == [(fwd, True, f32), ("flash_attention_fp32_f32", False, f32), ("split", f32),
+                         ("flash_attention_bwd_dq_f32", f32), ("flash_attention_bwd_dkv_f32", f32)]
+
+    for c in (*FF.WIDTHS, *FF.WIDE_WIDTHS):
+        args = [torch.zeros(s, dtype=f32) for s in ((8, c), (8 * c, c), (8 * c,), (c, 4 * c), (c,))]
+        assert FF._check_operands("geglu_ff", (*FF.WIDTHS, *FF.WIDE_WIDTHS), *args) == (c, 4 * c)
+    with pytest.raises(ValueError, match="dtype"):
+        FF._check_operands("geglu_ff", FF.WIDTHS, *[a.half() for a in args])

@@ -1,4 +1,4 @@
-// GEGLU feed-forward for Hopper (sm_90a), bf16: K2, K9 and K13.
+// GEGLU feed-forward for Hopper (sm_90a): K2, K9 and K13 on bf16, K2 and K9 on fp32.
 //
 // Replaces vface_tpu/ops/pallas_ff.py::geglu_ff (_ff_kernel via _pallas_impl,
 // K2), pallas_ff.py::_pallas_impl_wide (_ff_kernel_wide, K9) and
@@ -53,6 +53,24 @@
 // rounding. h is the bf16 value the fused kernels feed to their second
 // product, so the function is K2's to the summation order. The wrapper
 // allocates h (M x I bf16: 31 MB at ds4, b = 12); the kernels allocate nothing.
+//
+// fp32 (K2 at C 64/320/640, K9 at 1024/1280; JAX's kernels round at x's dtype,
+// which at fp32 rounds nothing): h = (x @ Wa^T + ba) * gelu_erf(x @ Wg^T + bg)
+// and out = h @ Wo^T + bo, all in fp32. fp32-accurate products on the tensor
+// cores are three tf32 terms of hi = tf32(v), lo = tf32(v - hi) splits,
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (3xTF32, as flash_attention_f32.cu): 6*M*C*I
+// FLOPs at a third of the tf32 peak, 165 TFLOP/s against the CUDA cores' 67.
+// The same two-kernel form on tf32 wgmma: a split pass writes the weights' hi
+// and lo planes once per call (bytes small beside M*C*I); each GEMM stage holds
+// a 128-row x 32-column block of A (x, then h) and the B planes' 64-row
+// blocks, all K-major in the 128-byte swizzle; each consumer reads its A
+// fragments from shared memory and splits them in registers, so A needs no
+// planes. GEMM 1 keeps the a and gate accumulators of 64 inner columns, GEMM 2
+// one of 64 output columns. Each 32-column block's three-term product goes to
+// a fresh accumulator that the CUDA cores add to the running sum (fp32, round
+// to nearest): the tensor cores' own fp32 sums do not round to nearest, and
+// GEMM 2 sums over up to 5,120 columns. h (M x I fp32) and the planes are
+// scratch tensors the wrapper allocates.
 //
 // Layouts: x, Wa/Wg and the GEMMs' operands land by TMA as 64-column boxes in
 // the 128-byte swizzle ([64-column block][row][64]); the fused kernels' Wo
@@ -430,6 +448,185 @@ geglu_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   }
 }
 
+// ---------------------------------------------------------------- fp32: 3xTF32 GEMMs
+
+constexpr int kTBlk = 32;  // fp32 columns per 128-byte swizzle row: a k32 block, 4 k8 steps
+constexpr int kTN = 64;    // output columns of each m64n64 accumulator
+
+// The split pass: n values of w (n a multiple of 4) as tf32 hi = tf32(w) and
+// lo = tf32(w - hi), written to hi[0, n) and lo[0, n)
+__global__ void __launch_bounds__(256)
+split_tf32_kernel(const float4* __restrict__ w, float4* __restrict__ hi, float4* __restrict__ lo, long long n4) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n4; i += (long long)gridDim.x * 256) {
+    const float4 x = w[i];
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]), __uint_as_float(h[3]));
+    lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+  }
+}
+
+// GEGLU: h (m, inner) = (a + ba) * gelu_erf(gate + bg) in fp32 from x (m, k = C)
+// and w_proj's planes (rows [0, inner) Wa, [inner, 2 inner) Wg).
+// !GEGLU: out (m, n) = a @ w^T + bias for a (m, k) and w's planes (n, k).
+template <bool GEGLU>
+struct GemmF32 {
+  static constexpr int kRows = 128;          // two consumer warpgroups of 64 rows
+  static constexpr int kNB = GEGLU ? 2 : 1;  // m64n64 accumulators: a and gate, or out
+  static constexpr int kBRows = kNB * kTN;
+  static constexpr int kStage = (kRows + 2 * kBRows) * kTBlk * 4;  // A, B_hi, B_lo
+  static constexpr int kStages = (kSmemMax - 2048) / kStage < 8 ? (kSmemMax - 2048) / kStage : 8;
+  struct Smem {
+    float a[kStages][kRows][kTBlk];
+    float bhi[kStages][kBRows][kTBlk];
+    float blo[kStages][kBRows][kTBlk];
+    uint64_t full[kStages], empty[kStages];
+  };
+  static constexpr int kSmemBytes = sizeof(Smem) + 1024;
+};
+
+// ta: A (m, k) fp32 in boxes of 32 columns x 128 rows; tbh, tbl: B's tf32 hi
+// and lo planes (rows, k) in boxes of 32 x 64; all in the 128-byte swizzle.
+// The tile at (blockIdx.x, blockIdx.y) is output (GEGLU: inner) columns 64*x
+// of rows 128*y; bias: GEGLU w_proj's (2*inner), else (n,).
+template <bool GEGLU>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+geglu_gemm_f32_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tbh,
+                      const __grid_constant__ CUtensorMap tbl, const float* __restrict__ bias,
+                      float* __restrict__ dst, int m, int n, int k) {
+  using G = GemmF32<GEGLU>;
+  constexpr int ST = G::kStages, NB = G::kNB;
+  extern __shared__ uint8_t smem_raw[];
+  typename G::Smem& sm =
+      *reinterpret_cast<typename G::Smem*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kTN, row0 = blockIdx.y * G::kRows;
+  const int kt_n = k / kTBlk;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 256) {
+      for (int kt = 0; kt < kt_n; ++kt) {
+        const int st = kt % ST;
+        mbar_wait(&sm.empty[st], ((kt / ST) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[st], sizeof(sm.a[0]) + sizeof(sm.bhi[0]) + sizeof(sm.blo[0]));
+        tma_load(&sm.a[st][0][0], &ta, &sm.full[st], kt * kTBlk, row0, 0);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {  // GEGLU: Wa's rows, then Wg's
+          const int r = nb * (GEGLU ? n : kTN) + n0;
+          tma_load(&sm.bhi[st][nb * kTN][0], &tbh, &sm.full[st], kt * kTBlk, r, 0);
+          tma_load(&sm.blo[st][nb * kTN][0], &tbl, &sm.full[st], kt * kTBlk, r, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  uint32_t one = 1, zero = 0;
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dbh0 = sdesc128(&sm.bhi[0][0][0]), dbl0 = sdesc128(&sm.blo[0][0][0]);
+  constexpr uint64_t kBStage = sizeof(sm.bhi[0]) >> 4, kBHalf = kTN * kTBlk * 4 >> 4;
+
+  // run: the output summed over the k32 blocks on the CUDA cores (fp32, round
+  // to nearest); acc: one block's product on the tensor cores, whose fp32
+  // sums do not round to nearest (summed over a whole row of keys in the fp32
+  // attention, flash_attention_f32.cu, they drifted past 1e-5 of its peak)
+  float run[NB][32], acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) run[nb][i] = 0.f;
+  uint32_t ahi[16], alo[16];
+  uint64_t dbh[NB * 4], dbl[NB * 4];
+
+  for (int kt = 0; kt < kt_n; ++kt) {
+    const int st = kt % ST;
+    mbar_wait(&sm.full[st], (kt / ST) & 1);
+    __syncwarp();
+    // A's hi and lo fragments of the block's 4 k8 steps, split in registers:
+    // rows g and g + 8 of the warp, columns 8ks + t4 and + 4, read through the
+    // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r & 7))
+    const float* at = &sm.a[st][wg * 64 + warp * 16][0];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e & 1), c = 8 * ks + t4 + 4 * (e >> 1);
+        split_tf32(at[r * kTBlk + (((c >> 2) ^ (r & 7)) << 2) + (c & 3)], ahi[4 * ks + e], alo[4 * ks + e]);
+      }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        dbh[nb * 4 + ks] = dbh0 + st * kBStage + nb * kBHalf + 2 * ks;
+        dbl[nb * 4 + ks] = dbl0 + st * kBStage + nb * kBHalf + 2 * ks;
+      }
+    pin(ahi);
+    pin(alo);
+    pin(dbh);
+    pin(dbl);
+    // acc = A_lo.B_hi + A_hi.B_lo + A_hi.B_hi, the small terms first
+    wgmma_fence();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        if (ks == 0) wgmma_tf32_n64_zero(acc[nb], &alo[0], dbh[nb * 4], zero);
+        else wgmma_tf32_n64(acc[nb], &alo[4 * ks], dbh[nb * 4 + ks], one);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_tf32_n64(acc[nb], &ahi[4 * ks], dbl[nb * 4 + ks], one);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_tf32_n64(acc[nb], &ahi[4 * ks], dbh[nb * 4 + ks], one);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) pin(acc[nb]);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) run[nb][i] += acc[nb][i];
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
+    float b[4] = {bias[col], bias[col + 1]};
+    if (GEGLU) b[2] = bias[n + col], b[3] = bias[n + col + 1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + wg * 64 + warp * 16 + g + 8 * r;
+      if (row >= m) continue;
+      const float* a = &run[0][4 * j + 2 * r];
+      float2 v;
+      if constexpr (GEGLU) {
+        const float* gt = &run[NB - 1][4 * j + 2 * r];
+        v = make_float2((a[0] + b[0]) * gelu_erf(gt[0] + b[2]), (a[1] + b[1]) * gelu_erf(gt[1] + b[3]));
+      } else {
+        v = make_float2(a[0] + b[0], a[1] + b[1]);
+      }
+      *reinterpret_cast<float2*>(dst + (long long)row * n + col) = v;
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host side
 
 template <class K>
@@ -480,7 +677,53 @@ int launch_two(const void* x, const void* wp, const void* bp, const void* wo, co
   return e != 0 ? e : launch_gemm<false>(h, wo, bo, out, m, c, inner, c, stream);
 }
 
+template <bool GEGLU>
+int launch_gemm_f32(const void* a, const float* whi, const float* wlo, const void* bias, void* dst, int m, int n, int k,
+                    int w_rows, cudaStream_t stream) {
+  using G = GemmF32<GEGLU>;
+  CUtensorMap ta, tbh, tbl;
+  const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!tensor_map(&ta, a, 1, m, k, G::kRows, kTBlk, CU_TENSOR_MAP_SWIZZLE_128B, f32) ||
+      !tensor_map(&tbh, whi, 1, w_rows, k, kTN, kTBlk, CU_TENSOR_MAP_SWIZZLE_128B, f32) ||
+      !tensor_map(&tbl, wlo, 1, w_rows, k, kTN, kTBlk, CU_TENSOR_MAP_SWIZZLE_128B, f32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const int attr = set_smem(geglu_gemm_f32_kernel<GEGLU>, G::kSmemBytes);
+  if (attr != 0) return attr;
+  const dim3 grid(n / kTN, (m + G::kRows - 1) / G::kRows);  // a row block's column tiles run together (L2)
+  geglu_gemm_f32_kernel<GEGLU><<<grid, kGemmThreads, G::kSmemBytes, stream>>>(
+      ta, tbh, tbl, static_cast<const float*>(bias), static_cast<float*>(dst), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32: the weights' split pass into `planes` (wp_hi, wp_lo, wo_hi, wo_lo:
+// 6 * c * inner values), GEMM 1 into h (m, inner), then GEMM 2
+int launch_two_f32(const void* x, const void* wp, const void* bp, const void* wo, const void* bo, void* out, void* h,
+                   void* planes, int m, int c, int inner, cudaStream_t stream) {
+  if (c % kTN != 0 || inner % kTN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (const cudaError_t err = bind_device(x); err != cudaSuccess) return static_cast<int>(err);
+  float* p = static_cast<float*>(planes);
+  const long long np = 2LL * inner * c, no = (long long)c * inner;  // values of w_proj, of w_out
+  float *wp_hi = p, *wp_lo = p + np, *wo_hi = p + 2 * np, *wo_lo = p + 2 * np + no;
+  split_tf32_kernel<<<264, 256, 0, stream>>>(static_cast<const float4*>(wp), reinterpret_cast<float4*>(wp_hi),
+                                             reinterpret_cast<float4*>(wp_lo), np / 4);
+  split_tf32_kernel<<<264, 256, 0, stream>>>(static_cast<const float4*>(wo), reinterpret_cast<float4*>(wo_hi),
+                                             reinterpret_cast<float4*>(wo_lo), no / 4);
+  if (const cudaError_t err = cudaGetLastError(); err != cudaSuccess) return static_cast<int>(err);
+  const int e = launch_gemm_f32<true>(x, wp_hi, wp_lo, bp, h, m, inner, c, 2 * inner, stream);
+  return e != 0 ? e : launch_gemm_f32<false>(h, wo_hi, wo_lo, bo, out, m, c, inner, c, stream);
+}
+
 }  // namespace
+
+// fp32 (K2 at c 64, 320 and 640; K9 at 1024 and 1280): the two-kernel form
+// with every product as three tf32 terms of hi + lo splits (3xTF32). x, wp,
+// bp, wo, bo, out as below but fp32; h: (m, inner) fp32 scratch, GEMM 1's
+// (a + ba) * gelu_erf(gate + bg); planes: 6 * c * inner fp32 scratch, the
+// weights' tf32 hi and lo planes; c and inner multiples of 64.
+extern "C" int vface_geglu_ff_two_f32(const void* x, const void* wp, const void* bp, const void* wo, const void* bo,
+                                      void* out, void* h, void* planes, int m, int c, int inner, void* stream) {
+  return launch_two_f32(x, wp, bp, wo, bo, out, h, planes, m, c, inner, static_cast<cudaStream_t>(stream));
+}
 
 // x: (m, c), wp: (2*inner, c), bp: (2*inner,), wo: (c, inner), bo: (c,), out: (m, c);
 // all bf16, contiguous, 16-byte aligned; inner a multiple of 128; m >= 1. Each

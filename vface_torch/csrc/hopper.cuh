@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels, shared by
 // flash_attention.cu (K1, K4, K6, K7, K12), flash_attention_bwd.cu (K5),
-// flash_attention_f32.cu (K7, K8, K10-K12 on fp32) and geglu_ff.cu (K2, K9,
-// K13): mbarriers, TMA loads, wgmma descriptors and instructions (bf16, and
+// flash_attention_f32.cu (K7, K8, K10-K12 on fp32), flash_attention_bwd_f32.cu
+// (K5 on fp32) and geglu_ff.cu (K2, K9, K13): mbarriers, TMA loads and 1-D bulk
+// copies, wgmma descriptors and instructions (bf16, and
 // tf32 for fp32 operands split into hi + lo), register pins, the bf16 and
 // tf32 splits of fp32 values, the attention forward's online softmax, and the
 // host's tensor maps. Every operand lands in shared memory as TMA's 32-byte
@@ -500,6 +501,75 @@ __device__ __forceinline__ void wgmma_tf32_n40_zero(float (&d)[20], const uint32
         "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
         "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(zero));
+}
+
+// d += A . B^T (ZERO: d = A . B^T, the accumulators' old values unread),
+// m64n64k8 tf32: A and B K-major in shared memory, 32-byte rows of 8 fp32
+// values, sdesc(p, 16, 256); `flag` holds 1 (0 for ZERO)
+template <bool ZERO>
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db, uint32_t flag) {
+  if constexpr (ZERO)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(da), "l"(db), "r"(flag));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(flag));
+}
+
+// d += A . B^T (ZERO: d = A . B^T), m64n32k8 tf32: A and B K-major in shared memory
+template <bool ZERO>
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db, uint32_t flag) {
+  if constexpr (ZERO)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+        : "l"(da), "l"(db), "r"(flag));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(flag));
+}
+
+// One contiguous block of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory, completed on `bar` as a TMA load is
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
 }
 
 // d += A . B^T (ZERO: d = A . B^T) over one k8 step, N output columns (16,

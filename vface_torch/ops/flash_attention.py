@@ -1,8 +1,9 @@
 """Flash attention, forward and backward: CUDA C++ for Hopper.
 
 Kernels (``csrc/flash_attention.cu``: K1, K4, K6, and K7 and K8 at bf16;
-``csrc/flash_attention_bwd.cu``: K5; ``csrc/flash_attention_f32.cu``: K8 and
-K7 at fp32), each replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py``:
+``csrc/flash_attention_bwd.cu``: K5; ``csrc/flash_attention_f32.cu``: K8, and
+K4, K6 and K7 at fp32; ``csrc/flash_attention_bwd_f32.cu``: K5 at fp32), each
+replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py``:
 
 * K1 ``flash_attention`` (``flash_attention_v5`` / ``_flash_kernel_v5``):
   multi-head attention of (B, Nq, H*dh) bf16 queries over (B, Nk, H*dh) keys
@@ -16,7 +17,10 @@ K7 at fp32), each replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py`
   which the backward uses to recompute O;
 * K5 ``flash_attention_bwd`` (``flash_attention_bwd``): dQ, dK and dV from
   (B, Nq, H*dh) q and dO, (B, Nk, H*dh) k and v, and m, l and D = rowsum(dO*O)
-  (B*H, Nq) in two kernels, one over query tiles and one over key tiles;
+  (B*H, Nq) in two kernels, one over query tiles and one over key tiles; on
+  fp32 operands the same two loops as 3xTF32 (every product three tf32
+  ``wgmma`` terms of hi + lo splits, from a split pass that writes each
+  operand's tf32 planes in the layouts its products contract over);
 * K7 ``flash_attention_v2_stats`` (``_flash_v2_stats``): K6 that also writes
   m and l, the forward of ``flash_attention_v2``'s VJP (bf16: K6's kernel with
   K4's epilogue; fp32: the tf32 kernel with the same epilogue);
@@ -46,8 +50,10 @@ reduction here, as in JAX), then K5. Where none is needed (inference mode,
 ``no_grad``, inputs that do not require grad) it is K1 and writes no
 statistics; fp32 operands go to K8's tf32 kernel, which computes v5's
 function at fp32 (P is not rounded when it already has the operands' type).
-K5 is bf16-only, so on the card fp32 operands with a gradient raise (ROADMAP
-§B).
+With a gradient, fp32 operands run every step on the tensor cores as 3xTF32:
+the forward K4 and K6 on the tf32 kernel (its ``STATS`` form is K7's at fp32;
+at fp32 K4's P rounding is a no-op), then K5's fp32 kernels. The fp32 forms
+count under their own ``LAUNCHES`` keys (``*_f32``).
 
 :func:`flash_attention_v1` and :func:`flash_attention_v2` are the JAX
 package's ``flash_attention`` and ``flash_attention_v2`` entry points with
@@ -58,7 +64,8 @@ not copied: K6 and K7 stream K/V tiles at any N.
 
 Each wrapper launches its kernel for a CUDA tensor and calls its plain
 version (``*_ref``) for a CPU tensor; on the card it raises for widths, dtypes
-or gradients its kernel does not take.
+or gradients its kernel does not take (bf16 kernels: dh padding to 16, 48 or
+80; fp32: dh 16, 32, 40, 80).
 """
 
 from __future__ import annotations
@@ -85,13 +92,18 @@ F32_DH = (16, 32, 40, 80)
 LAUNCHES = dict.fromkeys(
     ("flash_attention", "flash_attention_stats", "flash_attention_fp32",
      "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_v2_stats",
-     "flash_attention_v1", "flash_attention_v3", "flash_attention_v4", "flash_attention_v6"), 0)
+     "flash_attention_v1", "flash_attention_v3", "flash_attention_v4", "flash_attention_v6",
+     "flash_attention_stats_f32", "flash_attention_fp32_f32", "flash_attention_bwd_dq_f32",
+     "flash_attention_bwd_dkv_f32"), 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 4 + [_I] * 5 + [_F, _I, _P]
 _FWD_STATS_ARGS = [_P] * 6 + [_I] * 5 + [_F, _I, _P]
 _DQ_ARGS = [_P] * 8 + [_I] * 5 + [_F, _P]
 _DKV_ARGS = [_P] * 9 + [_I] * 5 + [_F, _P]
+_SPLIT_F32_ARGS = [_P] * 5 + [_I] * 5 + [_P]
+_DQ_F32_ARGS = [_P] * 5 + [_I] * 5 + [_F, _P]
+_DKV_F32_ARGS = [_P] * 6 + [_I] * 5 + [_F, _P]
 CONSUMERS = (2, 3)  # the forward kernel's consumer warpgroups per CTA: 128 or 192 query rows
 
 
@@ -321,35 +333,96 @@ def _flash_attention(q, k, v, num_heads: int) -> torch.Tensor:
 
 
 def flash_attention_stats(q, k, v, num_heads: int):
-    """K4: (out, m, l); the kernel on CUDA, the plain version on the CPU."""
+    """K4: (out, m, l); the kernel on CUDA (bf16; fp32 on the tf32 kernel's
+    STATS form, K7's at fp32), the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_stats_ref(q, k, v, num_heads)
     out = torch.empty_like(q)
     m, l = _stats(q.shape[0] * num_heads, q), _stats(q.shape[0] * num_heads, q)
-    _launch_fwd("flash_attention_stats", q, k, v, num_heads, (out, m, l))
+    if q.dtype == torch.float32:
+        _launch_f32("flash_attention_stats_f32", True, q, k, v, num_heads, (out, m, l))
+    else:
+        _launch_fwd("flash_attention_stats", q, k, v, num_heads, (out, m, l))
     return out, m, l
 
 
 def flash_attention_fp32(q, k, v, num_heads: int) -> torch.Tensor:
-    """K6: (B, Nq, D) over (B, Nk, D); the kernel on CUDA (bf16), the plain version on the CPU."""
+    """K6: (B, Nq, D) over (B, Nk, D); the kernel on CUDA (bf16; fp32 on the
+    tf32 kernel, which computes K6's function at fp32), the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_fp32_ref(q, k, v, num_heads)
     out = torch.empty_like(q)
-    _launch_fwd("flash_attention_fp32", q, k, v, num_heads, (out,), split=True)
+    if q.dtype == torch.float32:
+        _launch_f32("flash_attention_fp32_f32", False, q, k, v, num_heads, (out,))
+    else:
+        _launch_fwd("flash_attention_fp32", q, k, v, num_heads, (out,), split=True)
     return out
 
 
 def flash_attention_bwd(q, k, v, do, m, l, dd, num_heads: int):
     """K5: (dq, dk, dv) for (B, Nq, D) q and dO over (B, Nk, D) k and v, with m,
-    l and dd (B*H, Nq); two kernel launches on CUDA, the plain version on the CPU."""
+    l and dd (B*H, Nq); two kernel launches on CUDA (fp32: after the split
+    pass), the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, do, m, l, dd, num_heads)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.float32:
+        planes = _bwd_f32_planes(q, k, v, do, num_heads)
+        _launch_bwd_f32("flash_attention_bwd_dq_f32", planes, q, k, num_heads, (m, l, dd), (dq,))
+        _launch_bwd_f32("flash_attention_bwd_dkv_f32", planes, q, k, num_heads, (m, l, dd), (dk, dv))
+        return dq, dk, dv
     _launch_bwd("flash_attention_bwd_dq", "vface_flash_attention_bwd_dq_bf16", _DQ_ARGS, q, k, v, do, num_heads,
                 (m, l, dd), (dq,))
     _launch_bwd("flash_attention_bwd_dkv", "vface_flash_attention_bwd_dkv_bf16", _DKV_ARGS, q, k, v, do, num_heads,
                 (m, l, dd), (dk, dv))
     return dq, dk, dv
+
+
+def _check_f32_width(kernel: str, d: int, num_heads: int) -> int:
+    dh = d // num_heads
+    if d % num_heads or dh not in F32_DH:
+        raise ValueError(f"{kernel}: head width {d}/{num_heads} must be one of {F32_DH}")
+    return dh
+
+
+def _bwd_f32_planes(q, k, v, do, num_heads: int) -> torch.Tensor:
+    """K5 on fp32, its split pass (``csrc/flash_attention_bwd_f32.cu``): q, k,
+    v and dO (fp32) as tf32 hi and lo planes, plain and transposed, per
+    64-row block of each (batch, head), in a scratch tensor for the dQ and
+    dK/dV kernels (:func:`_launch_bwd_f32`)."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    f32 = torch.float32
+    _check("flash_attention_bwd_f32", q, {"q": (q, f32, (b, nq, d)), "k": (k, f32, (b, nk, d)),
+                                          "v": (v, f32, (b, nk, d)), "do": (do, f32, (b, nq, d))})
+    dh = _check_f32_width("flash_attention_bwd_f32", d, num_heads)
+    blocks = 2 * -(-nq // 64) + 2 * -(-nk // 64)  # 64-row blocks of q and dO, k and v
+    planes = torch.empty(4 * b * num_heads * dh * 64 * blocks, dtype=f32, device=q.device)
+    fn = _native.function("flash_attention_bwd_f32", "vface_flash_attention_bwd_split_f32", _SPLIT_F32_ARGS)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (q, k, v, do, planes)]
+    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, stream), "flash_attention_bwd_f32 split")
+    return planes
+
+
+def _launch_bwd_f32(kernel: str, planes, q, k, num_heads: int, stats, outs) -> None:
+    """Launch K5's fp32 dQ (``outs`` = (dq,)) or dK/dV kernel (``outs`` = (dk,
+    dv)) on the planes of :func:`_bwd_f32_planes`; ``stats`` = (m, l, dd),
+    each (B*H, Nq) fp32."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    f32 = torch.float32
+    ops = {f"out{i}": (t, f32, (b, nq if len(outs) == 1 else nk, d)) for i, t in enumerate(outs)}
+    ops.update({arg: (t, f32, (b * num_heads, nq)) for arg, t in zip(("m", "l", "dd"), stats)})
+    _check(kernel, q, ops)
+    dh = _check_f32_width(kernel, d, num_heads)
+    dkv = len(outs) == 2
+    symbol = "vface_flash_attention_bwd_" + ("dkv" if dkv else "dq") + "_f32"
+    fn = _native.function("flash_attention_bwd_f32", symbol, _DKV_F32_ARGS if dkv else _DQ_F32_ARGS)
+    ptrs = [t.data_ptr() for t in (planes, *stats, *outs)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
+    LAUNCHES[kernel] += 1
 
 
 def _launch_f32(kernel: str, stats: bool, q, k, v, num_heads: int, outs) -> None:
@@ -367,8 +440,7 @@ def _launch_f32(kernel: str, stats: bool, q, k, v, num_heads: int, outs) -> None
     for i, t in enumerate(outs):
         ops[f"out{i}"] = (t, f32, (b, nq, d) if i == 0 else (b * num_heads, nq))
     _check(kernel, q, ops)
-    if d % num_heads or dh not in F32_DH:
-        raise ValueError(f"{kernel}: head width {d}/{num_heads} must be one of {F32_DH}")
+    _check_f32_width(kernel, d, num_heads)
     # the split pass's planes; freed when this returns, which is safe: the caching
     # allocator hands the memory only to work queued after the kernels on this stream
     kv = torch.empty(b * num_heads * -(-nk // BLOCK_K) * 4 * BLOCK_K * dh, dtype=torch.float32, device=q.device)
@@ -421,8 +493,9 @@ def flash_attention_v2_stats(q, k, v, num_heads: int, block_k: int = 1024):
 class _FlashAttention(torch.autograd.Function):
     """The JAX package's VJP of ``flash_attention_v5`` and ``flash_attention_v2``
     (both ``_flash_v2_bwd``): the forward ``stats`` (K4 for v5, K7 for v2)
-    saves q, k, v, m, l; the backward runs K6, D = rowsum(dO*O6), K5. ``plain``
-    takes the plain versions on any device."""
+    saves q, k, v, m, l; the backward runs K6, D = rowsum(dO*O6), K5 (each in
+    its bf16 or fp32 form, by the operands' dtype). ``plain`` takes the plain
+    versions on any device."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int, plain: bool, stats):
@@ -442,18 +515,12 @@ class _FlashAttention(torch.autograd.Function):
         return (*bwd(q, k, v, do, m, l, dd, h), None, None, None)
 
 
-def _refuse_grad_off_bf16(name: str, q: torch.Tensor) -> None:
-    if q.device.type != "cpu" and q.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: a gradient through {q.dtype} operands needs K5, which takes bf16 only")
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Attention of (B, Nq, H*dh) queries over (B, Nk, H*dh) keys and values, the
     port of ``flash_attention_v5``; differentiable (K4 forward, K6 + K5
-    backward, bf16 on the card) where a gradient is needed, K1 where none is
-    (K8's tf32 kernel for fp32 operands)."""
+    backward; bf16, or fp32 as 3xTF32) where a gradient is needed, K1 where
+    none is (K8's tf32 kernel for fp32 operands)."""
     if needs_grad(q, k, v):
-        _refuse_grad_off_bf16("flash_attention", q)
         return _FlashAttention.apply(q, k, v, num_heads, False, flash_attention_stats)
     if q.dtype == torch.float32 and q.device.type != "cpu":
         return _flash_attention_v1(q, k, v, num_heads)
@@ -482,12 +549,11 @@ def flash_attention_v1(q, k, v, num_heads: int, block_q: int = 256, block_k: int
 def flash_attention_v2(q, k, v, num_heads: int, block_q: int = 1024, block_k: int = 1024) -> torch.Tensor:
     """The JAX package's ``flash_attention_v2``: attention with fp32 products and P
     (K6's function), output in q's dtype; differentiable with its VJP (K7
-    forward saving m and l; K6 recompute, D, K5 backward; bf16 only on the
-    card). Shapes the blocks do not divide go to :func:`multi_head_attention`."""
+    forward saving m and l; K6 recompute, D, K5 backward; bf16, or fp32 as
+    3xTF32). Shapes the blocks do not divide go to :func:`multi_head_attention`."""
     if not _tiles(q, k, block_q, block_k):
         return multi_head_attention(q, k, v, num_heads, dtype=q.dtype)
     if needs_grad(q, k, v):
-        _refuse_grad_off_bf16("flash_attention_v2", q)
         stats = lambda *a: flash_attention_v2_stats(*a, block_k=block_k)
         return _FlashAttention.apply(q, k, v, num_heads, False, stats)
     if q.device.type == "cpu":

@@ -1,4 +1,4 @@
-"""Fused GEGLU feed-forward (kernels K2 and K9): CUDA C++ for Hopper, ``csrc/geglu_ff.cu``.
+"""GEGLU feed-forward (kernels K2, K9 and K13): CUDA C++ for Hopper, ``csrc/geglu_ff.cu``.
 
 K2 replaces ``vface_tpu/ops/pallas_ff.py::geglu_ff`` (kernel ``_ff_kernel``):
 ``proj_out(a * gelu_erf(gate))`` with ``[a | gate] = proj(x)``, rounded to the
@@ -7,7 +7,8 @@ compute dtype at the same four points as the TPU kernel:
     gate = bf16(x @ Wg) + bg;  g = bf16(gelu_erf(f32(gate)))
     a    = bf16(x @ Wa) + ba;  out = bf16((a * g) @ Wo) + bo
 
-where the bias adds are adds in the compute dtype after the round. Weights are
+where the bias adds are adds in the compute dtype after the round (at fp32
+every round is a no-op: the JAX kernels round at x's dtype). Weights are
 in PyTorch's Linear layout: ``w_proj`` (2I, C) with rows [0, I) the A half and
 [I, 2I) the gate half, ``w_out`` (C, I).
 
@@ -22,7 +23,12 @@ scratch tensor, GEMM 2 computes ``h @ Wo.T + bo``; h is the value the fused
 kernel feeds to its second product, so the function does not change.
 
 :func:`geglu_ff` launches the kernel for a CUDA tensor and calls the plain
-version :func:`geglu_ff_ref` for a CPU tensor. Where a gradient is needed it
+version :func:`geglu_ff_ref` for a CPU tensor. fp32 operands (K2's and K9's
+widths) take the two-kernel form on the tensor cores as 3xTF32: every product
+three tf32 terms of hi + lo splits, with a split pass over the weights, h kept
+in fp32, and each 32-column block's product added to the running sum on the
+CUDA cores; they count under ``F32_LAUNCHES`` (K2) and ``WIDE_F32_LAUNCHES``
+(K9). Where a gradient is needed it
 is differentiable with the JAX package's VJP (``pallas_ff.py::_geglu_ff_bwd``):
 the forward is the kernel, the backward autograd through
 :func:`geglu_ff_unfused`, a copy of the unfused ``_ref_impl`` (one 2I-wide
@@ -43,7 +49,8 @@ K13 :func:`geglu_ff_split` replaces ``scripts/bench_ff_tile.py::_pallas_split``
 (kernel ``_ff_kernel_split``, ``_ff_kernel``'s body line for line), the TPU
 kernel of the row-tile sweep: K2's kernel at a row tile ``tm`` chosen by the
 caller among the ones built (``SPLIT_TILES``): the fused kernel at C = 320,
-the two-kernel form (128 rows) at C = 640. Its plain version is K2's.
+the two-kernel form (128 rows) at C = 640, bf16 only (its bench runs bf16).
+Its plain version is K2's.
 """
 
 from __future__ import annotations
@@ -69,9 +76,12 @@ SPLIT_TILES = {320: (64, 128), 640: (128,)}
 LAUNCHES = 0  # K2
 WIDE_LAUNCHES = 0  # K9
 SPLIT_LAUNCHES = 0  # K13
+F32_LAUNCHES = 0  # K2 on fp32 operands
+WIDE_F32_LAUNCHES = 0  # K9 on fp32 operands
 
 _FUSED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _TWO_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_TWO_F32_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def k2_tile(m: int, device: torch.device) -> int:
@@ -150,11 +160,13 @@ def geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     return _geglu_ff(x, w_proj, b_proj, w_out, b_out)
 
 
-def _launch(name: str, widths, x, w_proj, b_proj, w_out, b_out, tm=None) -> torch.Tensor:
-    """Check the operands; launch the fused kernel at row tile ``tm``, or with
-    ``tm`` None the two-kernel form."""
-    if not x.is_cuda:
-        raise ValueError(f"{name}: unsupported device {x.device}")
+def _check_operands(name: str, widths, x, w_proj, b_proj, w_out, b_out):
+    """Raise unless the operands are what a kernel takes: one dtype, bf16 or
+    fp32, on x's device, contiguous and 16-byte aligned, C in ``widths``, I a
+    multiple of ``INNER_CHUNK``; returns (C, I)."""
+    dtype = x.dtype
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: unsupported dtype {dtype}")
     c = x.shape[-1]
     inner = w_proj.shape[0] // 2
     shapes = {"w_proj": (2 * inner, c), "b_proj": (2 * inner,), "w_out": (c, inner), "b_out": (c,)}
@@ -162,17 +174,33 @@ def _launch(name: str, widths, x, w_proj, b_proj, w_out, b_out, tm=None) -> torc
         if tuple(t.shape) != shapes[arg]:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shapes[arg]}")
     for arg, t in (("x", x), ("w_proj", w_proj), ("b_proj", b_proj), ("w_out", w_out), ("b_out", b_out)):
-        if t.dtype != torch.bfloat16 or t.device != x.device:
-            raise ValueError(f"{name}: {arg} must be bf16 on {x.device}")
+        if t.dtype != dtype or t.device != x.device:
+            raise ValueError(f"{name}: {arg} must be {dtype} on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
     if c not in widths or inner % INNER_CHUNK:
         raise ValueError(f"{name}: C={c} must be one of {widths}, I={inner} a multiple of {INNER_CHUNK}")
+    return c, inner
+
+
+def _launch(name: str, widths, x, w_proj, b_proj, w_out, b_out, tm=None) -> torch.Tensor:
+    """Check the operands; launch the fused kernel at row tile ``tm``, or with
+    ``tm`` None the two-kernel form; fp32 operands take the two-kernel form's
+    3xTF32 GEMMs (``tm`` None)."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    c, inner = _check_operands(name, widths, x, w_proj, b_proj, w_out, b_out)
+    dtype = x.dtype
     x2 = x.reshape(-1, c)
     out = torch.empty_like(x2)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (x2.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr())
-    if tm is not None:
+    if dtype == torch.float32:
+        h = torch.empty((x2.shape[0], inner), dtype=dtype, device=x.device)  # GEMM 1's (a + ba) * gelu(gate + bg)
+        planes = torch.empty(6 * c * inner, dtype=dtype, device=x.device)  # the weights' tf32 hi and lo
+        fn = _native.function("geglu_ff", "vface_geglu_ff_two_f32", _TWO_F32_ARGTYPES)
+        err = fn(*ptrs, h.data_ptr(), planes.data_ptr(), x2.shape[0], c, inner, stream)
+    elif tm is not None:
         fn = _native.function("geglu_ff", "vface_geglu_ff_fused_bf16", _FUSED_ARGTYPES)
         err = fn(*ptrs, x2.shape[0], c, inner, tm, stream)
     else:
@@ -186,8 +214,12 @@ def _launch(name: str, widths, x, w_proj, b_proj, w_out, b_out, tm=None) -> torc
 def _geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     if x.device.type == "cpu":
         return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
-    global LAUNCHES
+    global LAUNCHES, F32_LAUNCHES
     c, m = x.shape[-1], x.numel() // max(x.shape[-1], 1)
+    if x.dtype == torch.float32:
+        out = _launch("geglu_ff", WIDTHS, x, w_proj, b_proj, w_out, b_out)
+        F32_LAUNCHES += 1
+        return out
     tm = (k2_tile(m, x.device) if c == 320 else 128) if c in FUSED_WIDTHS else None
     out = _launch("geglu_ff", WIDTHS, x, w_proj, b_proj, w_out, b_out, tm)
     LAUNCHES += 1
@@ -196,16 +228,19 @@ def _geglu_ff(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
 
 def geglu_ff_wide(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
     """K9: GEGLU FF over x (..., C) at C in ``WIDE_WIDTHS``; the kernel on CUDA
-    (no gradient). K9 computes K2's function, so its plain version, used on the
+    (no gradient; bf16, or fp32 on the 3xTF32 GEMMs). K9 computes K2's function, so its plain version, used on the
     CPU, is K2's: :func:`geglu_ff_ref`."""
     if x.device.type == "cpu":
         return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
     if needs_grad(x, w_proj, b_proj, w_out, b_out):
         raise ValueError("geglu_ff_wide: no gradient (the JAX package defines no VJP for "
                          "_pallas_impl_wide); use geglu_ff_unfused")
-    global WIDE_LAUNCHES
+    global WIDE_LAUNCHES, WIDE_F32_LAUNCHES
     out = _launch("geglu_ff_wide", WIDE_WIDTHS, x, w_proj, b_proj, w_out, b_out)
-    WIDE_LAUNCHES += 1
+    if x.dtype == torch.float32:
+        WIDE_F32_LAUNCHES += 1
+    else:
+        WIDE_LAUNCHES += 1
     return out
 
 
@@ -220,6 +255,8 @@ def geglu_ff_split(x, w_proj, b_proj, w_out, b_out, tm: int) -> torch.Tensor:
         return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
     if needs_grad(x, w_proj, b_proj, w_out, b_out):
         raise ValueError("geglu_ff_split: no gradient (the bench kernel has no VJP); use geglu_ff")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"geglu_ff_split: unsupported dtype {x.dtype} (the row-tile kernels are bf16)")
     global SPLIT_LAUNCHES
     out = _launch("geglu_ff_split", tuple(SPLIT_TILES), x, w_proj, b_proj, w_out, b_out,
                   tm if c in FUSED_WIDTHS else None)
