@@ -87,7 +87,19 @@ Phases, one line each:
  11. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
      sampling UNet eval (and the device time of its feed-forwards: K2's sites,
      the wide sites on K9, and the rest), of one train step;
- 12. the card line, the ``kernels`` JSON line, then the result line.
+ 12. cli: the video-swap CLI (``vface_torch.scripts.vface_video_swap.main``)
+     at its defaults (SD-v1 inpainting with its conditioner, seeded; 50 + 50
+     steps, window 6, scale 3.0, fps 10) on inputs written with the port's
+     writers to a temporary directory: pair A, a 12-frame 720x1280 Y4M with a
+     WAV beside it; pair B, 3 frames with precomputed parse maps. A 2 + 2-step
+     warm-up at ``--batch_windows 2`` holds every kernel call at the packed
+     shapes to its plain version; run A (both pairs; outputs checked: AVI
+     streams, Y4M, GIF, manifest, PNGs), run R (pair A's AVI deleted, its
+     second window dropped from the manifest: pair B skipped, one window
+     recomputed, within 1 uint8 level of run A) and run P (pair A packed
+     into one 12-frame call) print frames/s, the sink's seconds, peak
+     memory and launches;
+ 13. the card line, the ``kernels`` JSON line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (the port's float32 ops,
 the FSAI circulant and the warp, run in full float32), and so are cuBLAS's
@@ -107,6 +119,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1927,6 +1940,310 @@ def phase_profile_train(model, seed: int, path: str) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
 
 
+CLI_FRAMES, CLI_SHORT = 12, 3  # pair A: two windows (one pack of two); pair B: one short window
+_DONE = re.compile(r"\[done\] (\S+): (\d+) frames, swap ([\d.]+) s \(([\d.]+) frames/s\), sink ([\d.]+) s")
+
+
+def _u8(frames01):
+    """Frames in [0, 1] (a tensor) -> uint8 numpy, as the CLI quantizes them."""
+    import torch
+
+    return (frames01.clamp(0.0, 1.0) * 255).to(torch.uint8).cpu().numpy()
+
+
+def write_cli_inputs(root, seed: int) -> dict:
+    """The CLI phase's inputs, written with the port's writers: pair A, a
+    12-frame 720x1280 clip as Y4M with a 1.2 s mono 16-bit WAV beside it;
+    pair B, a 3-frame clip with a ``masks:`` directory of crop-space parse
+    maps (an ellipse of skin, hair above it); a source PNG; the configs in
+    ``scripts/generate_config.py``'s format (both pairs; pair A alone)."""
+    import wave
+
+    import numpy as np
+
+    from vface_torch.io.image import write_png
+    from vface_torch.io.video import write_y4m
+
+    os.makedirs(root, exist_ok=True)
+    write_y4m(os.path.join(root, "pair_a.y4m"), _u8(synthetic_clip(CLI_FRAMES, VIDEO_HW, seed)), fps=10)
+    t = np.arange(int(16000 * 1.2)) / 16000.0
+    with wave.open(os.path.join(root, "pair_a.wav"), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((np.sin(2 * np.pi * 440.0 * t) * 8000).astype(np.int16).tobytes())
+    write_y4m(os.path.join(root, "pair_b.y4m"), _u8(synthetic_clip(CLI_SHORT, VIDEO_HW, seed + 2)), fps=10)
+    write_png(os.path.join(root, "source.png"), _u8(synthetic_clip(1, VIDEO_HW, seed + 1))[0])
+    masks = os.path.join(root, "masks_b")
+    os.makedirs(masks, exist_ok=True)
+    s = 512
+    yy, xx = np.mgrid[:s, :s].astype(np.float32)
+    for i in range(CLI_SHORT):
+        face = ((yy - s * (0.55 + 0.005 * i)) / (s * 0.32)) ** 2 + ((xx - s * 0.5) / (s * 0.25)) ** 2 <= 1.0
+        hair = ((yy - s * 0.22) / (s * 0.16)) ** 2 + ((xx - s * 0.5) / (s * 0.3)) ** 2 <= 1.0
+        write_png(os.path.join(masks, f"{i}.png"), np.where(face, 1, np.where(hair, 17, 0)).astype(np.uint8))
+    pair_a = f"- video: {root}/pair_a.y4m\n  source: {root}/source.png\n"
+    pair_b = f"- video: {root}/pair_b.y4m\n  source: {root}/source.png\n  masks: {masks}\n"
+    with open(os.path.join(root, "both.yaml"), "w") as f:
+        f.write(pair_a + pair_b)
+    with open(os.path.join(root, "pair_a.yaml"), "w") as f:
+        f.write(pair_a)
+    return {"both": os.path.join(root, "both.yaml"), "a": os.path.join(root, "pair_a.yaml")}
+
+
+class _Tee:
+    """Writes to the real standard output and keeps a copy."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+@contextlib.contextmanager
+def stage_timings():
+    """Every ``swap_video_frames`` call made inside gets a ``timings`` dict
+    (its stages' seconds, the device synchronised at each stage boundary);
+    yields the list of those dicts, one per call."""
+    from unittest import mock
+
+    from vface_torch.pipelines.video_swap import VideoSwapPipeline
+
+    real = VideoSwapPipeline.swap_video_frames
+    calls = []
+
+    def timed(self, *args, **kw):
+        calls.append({})
+        return real(self, *args, **kw, timings=calls[-1])
+
+    with mock.patch.object(VideoSwapPipeline, "swap_video_frames", timed):
+        yield calls
+
+
+def run_cli(argv: list) -> dict:
+    """``vface_video_swap.main(argv)``, in process, under :func:`stage_timings`;
+    returns {"done": {name: (frames, swap_s, frames_per_s, sink_s)}, "skip":
+    [names], "wall_s", "stages": {name: {stage: s}}}. A ``[fail]`` line or a
+    non-zero return fails the script."""
+    import torch
+
+    from vface_torch.scripts import vface_video_swap
+
+    tee = _Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee), stage_timings() as stages:
+        rc = vface_video_swap.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = "".join(tee.parts)
+    if rc != 0 or "[fail]" in text:
+        raise SystemExit(f"chip_smoke: vface_video_swap {' '.join(argv)} failed (rc {rc})")
+    done = {m[1]: (int(m[2]), float(m[3]), float(m[4]), float(m[5])) for m in _DONE.finditer(text)}
+    skip = re.findall(r"\[skip\] (\S+):", text)
+    return {"done": done, "skip": skip, "wall_s": wall, "stages": dict(zip(done, stages))}
+
+
+def cli_flow_batches(seed: int) -> None:
+    """The flow stage's cost per frame pair (512^2 crops, RAFT 20 iterations,
+    seeded): RAFT itself on 5, 6 and 11 pairs in one batch, and
+    ``compute_flow`` (at most ``RAFT_MAX_PAIRS`` pairs a call) on a window's 6
+    frames and a pack's 12, timed in turns 6, 12, 12, 6."""
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
+    from vface_torch.utils.convert import init_aux_params
+
+    pipe = VideoSwapPipeline(VFaceModel(ModelConfig.tiny(), device="cuda"), SwapOptions(), device="cuda",
+                             aux_params=init_aux_params(torch.Generator(device="cuda").manual_seed(seed)))
+    crops = synthetic_clip(CLI_FRAMES, (512, 512), seed)
+
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    x = crops * 2 - 1
+    with torch.inference_mode():
+        raft = {p: ms(lambda: pipe.raft(x[1:p + 1], x[:p])) for p in (5, 6, 11)}
+    chunked = {6: [], 12: []}
+    for n in (6, 12, 12, 6):
+        chunked[n].append(ms(lambda: pipe.compute_flow(crops[:n])))
+    log("cli_flow_batch", raft_iters=20, crops="512^2",
+        raft_one_batch_ms_per_pair=",".join(f"{p}:{t / p:.1f}" for p, t in raft.items()),
+        compute_flow_ms=",".join(f"{n}:{'/'.join(f'{t:.1f}' for t in v)}" for n, v in chunked.items()),
+        compute_flow_ms_per_pair=",".join(f"{n}:{min(v) / (n - 1):.1f}" for n, v in chunked.items()))
+
+
+def stage_line(stages: dict) -> dict:
+    """A swap's stage seconds as log fields."""
+    return {f"{k}_s": f"{v:.3f}" for k, v in stages.items()}
+
+
+def _read_frames(frame_dir: str, n: int):
+    """The sink's PNG frames 0..n-1 as int16 (N, H, W, 3)."""
+    import numpy as np
+
+    from vface_torch.io.image import read_png
+
+    return np.stack([read_png(os.path.join(frame_dir, f"{i}.png")) for i in range(n)]).astype(np.int16)
+
+
+def check_cli_outputs(outdir: str, name: str, frames: int, windows: dict, audio: bool) -> dict:
+    """The AVI is RIFF/AVI with a video stream (and an audio stream where the
+    pair has a WAV), the Y4M reads back with the frames' count and size, the
+    GIF lasts as many frames at 10 fps, the manifest lists ``windows`` ({start: frames}),
+    and every frame PNG is there; returns the checks."""
+    from PIL import Image
+
+    from vface_torch.io.video import read_y4m
+
+    base = os.path.join(outdir, name)
+    with open(base + ".avi", "rb") as f:
+        avi = f.read()
+    at = avi.index(b"LIST", 12)
+    hdrl = avi[at:at + 8 + int.from_bytes(avi[at + 4:at + 8], "little")]
+    streams = [hdrl[i + 8:i + 12].decode() for i in range(len(hdrl)) if hdrl[i:i + 4] == b"strh"]
+    y4m, fps = read_y4m(base + ".y4m")
+    with Image.open(base + ".gif") as g:  # PIL merges equal consecutive frames, adding their durations
+        gif_frames = g.n_frames
+        gif_ms = 0
+        for i in range(gif_frames):
+            g.seek(i)
+            gif_ms += g.info["duration"]
+    with open(base + ".manifest.json") as f:
+        man = {int(k): v["frames"] for k, v in json.load(f)["windows"].items()}
+    pngs = sum(os.path.exists(os.path.join(base + "_frames", f"{i}.png")) for i in range(frames))
+    checks = {"avi_ok": avi[:4] == b"RIFF" and avi[8:12] == b"AVI ",
+              "streams_ok": streams == (["vids", "auds"] if audio else ["vids"]),
+              "y4m_ok": tuple(y4m.shape) == (frames, *VIDEO_HW, 3) and fps == 10,
+              "gif_ok": gif_ms == frames * 100, "manifest_ok": man == windows, "pngs_ok": pngs == frames}
+    log("cli_outputs", video=name, streams="+".join(streams), y4m_shape=tuple(y4m.shape), gif_frames=gif_frames,
+        gif_ms=gif_ms, manifest=",".join(f"{k}:{v}" for k, v in sorted(man.items())), pngs=pngs, **checks)
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: the CLI's outputs for {name} fail their checks: {checks}")
+    return checks
+
+
+def phase_cli(seed: int) -> None:
+    """The video-swap CLI (``python -m vface_torch.scripts.vface_video_swap``)
+    on the card, through ``main(argv)`` at its defaults (SD-v1 inpainting
+    with its conditioner, seeded; 50 + 50 steps, window 6, scale 3.0, fps 10,
+    parser 512): a 2 + 2-step warm-up at ``--batch_windows 2`` with every
+    kernel call held to its plain version (the packed shapes: K1 at b = 24,
+    K2 at M = 24 * 4096 and 24 * 1024, K9 at 24 * 256 and 24 * 64); run A
+    (both pairs, separate windows: outputs checked, frames/s, the sink's
+    seconds, peak memory, launches); run R (pair A's AVI deleted and its
+    second window dropped from the manifest: pair B is skipped, pair A
+    recomputes one window, within 1 uint8 level of run A); run P (pair A
+    with ``--batch_windows 2``: one 12-frame pack; frames/s, peak memory and
+    the difference from run A, printed, not gated); run A2 (pair A's
+    separate windows again, after the pack); then :func:`cli_flow_batches`."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="vface_cli_")
+    try:
+        cfg = write_cli_inputs(os.path.join(root, "in"), seed)
+        base = ["--seed", str(seed)]
+        out = lambda run: ["--outdir", os.path.join(root, run)]
+        t0 = time.perf_counter()
+        with checked_sites("cli"):
+            warm = run_cli(["--config", cfg["both"], *out("warmup"), *base, "--ddim_steps", "2",
+                            "--inversion_steps", "2", "--batch_windows", "2"])
+        log("cli_warmup", ddim_steps=2, inversion_steps=2, batch_windows=2, wall_s=f"{time.perf_counter() - t0:.3f}",
+            videos=",".join(sorted(warm["done"])))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run_a = run_cli(["--config", cfg["both"], *out("run_a"), *base])
+        launches_a = kernel_counts()
+        peak_a = torch.cuda.max_memory_allocated() / 2**30
+        for name, (n, swap_s, fps, sink_s) in sorted(run_a["done"].items()):
+            log("cli_run_a", video=name, frames=n, swap_s=f"{swap_s:.3f}", frames_per_s=f"{fps:.4f}",
+                sink_s=f"{sink_s:.3f}", **stage_line(run_a["stages"][name]))
+        log("cli_run_a_total", wall_s=f"{run_a['wall_s']:.3f}", peak_gib=f"{peak_a:.2f}", batch_windows=1,
+            **{k: v for k, v in launches_a.items() if v})
+        if sorted(run_a["done"]) != ["pair_a", "pair_b"]:
+            raise SystemExit(f"chip_smoke: run A finished {sorted(run_a['done'])}, not both pairs")
+        missing = [k for k in SWAP_KERNELS if launches_a[k] == 0]
+        stray = [k for k in launches_a if k not in SWAP_KERNELS and launches_a[k]]
+        if missing or stray:
+            raise SystemExit(f"chip_smoke: the CLI launched no {missing} / stray {stray} kernels")
+        dir_a = os.path.join(root, "run_a")
+        check_cli_outputs(dir_a, "pair_a", CLI_FRAMES, {0: 6, 6: 6}, audio=True)
+        check_cli_outputs(dir_a, "pair_b", CLI_SHORT, {0: CLI_SHORT}, audio=False)
+        frames_a = _read_frames(os.path.join(dir_a, "pair_a_frames"), CLI_FRAMES)
+
+        os.remove(os.path.join(dir_a, "pair_a.avi"))
+        path = os.path.join(dir_a, "pair_a.manifest.json")
+        with open(path) as f:
+            man = json.load(f)
+        del man["windows"]["6"]
+        with open(path, "w") as f:
+            json.dump(man, f)
+        reset_counts()
+        run_r = run_cli(["--config", cfg["both"], *out("run_a"), *base])
+        launches_r = kernel_counts()
+        frames_r = _read_frames(os.path.join(dir_a, "pair_a_frames"), CLI_FRAMES)
+        diff = np.abs(frames_r - frames_a)
+        per_window = launches_a["flash_attention"] / 3  # run A computed three windows
+        n, swap_s, fps, sink_s = run_r["done"].get("pair_a", (0, 0.0, 0.0, 0.0))
+        log("cli_run_r", skipped=",".join(run_r["skip"]), video="pair_a", frames=n,
+            resumed_window_swap_s=f"{swap_s:.3f}", sink_s=f"{sink_s:.3f}", wall_s=f"{run_r['wall_s']:.3f}",
+            **stage_line(run_r["stages"].get("pair_a", {})),
+            k1_launches=launches_r["flash_attention"], k1_per_window=f"{per_window:g}",
+            max_level_diff=int(diff.max()), bit_equal_share=f"{float((diff == 0).mean()):.5f}",
+            recomputed_bit_equal_share=f"{float((diff[6:] == 0).mean()):.5f}", tol="1 level")
+        check_cli_outputs(dir_a, "pair_a", CLI_FRAMES, {0: 6, 6: 6}, audio=True)
+        if not (run_r["skip"] == ["pair_b"] and sorted(run_r["done"]) == ["pair_a"]
+                and launches_r["flash_attention"] == per_window and diff.max() <= 1):
+            raise SystemExit("chip_smoke: the resumed run skipped, recomputed or differed where it should not")
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run_p = run_cli(["--config", cfg["a"], *out("run_p"), *base, "--batch_windows", "2"])
+        launches_p = kernel_counts()
+        peak_p = torch.cuda.max_memory_allocated() / 2**30
+        dir_p = os.path.join(root, "run_p")
+        check_cli_outputs(dir_p, "pair_a", CLI_FRAMES, {0: CLI_FRAMES}, audio=True)
+        frames_p = _read_frames(os.path.join(dir_p, "pair_a_frames"), CLI_FRAMES)
+        diff = np.abs(frames_p - frames_a).astype(np.float64)
+        n, swap_s, fps, sink_s = run_p["done"]["pair_a"]
+        log("cli_run_p", video="pair_a", frames=n, batch_windows=2, swap_s=f"{swap_s:.3f}",
+            frames_per_s=f"{fps:.4f}", run_a_frames_per_s=f"{run_a['done']['pair_a'][2]:.4f}",
+            sink_s=f"{sink_s:.3f}", **stage_line(run_p["stages"]["pair_a"]), peak_gib=f"{peak_p:.2f}",
+            mean_level_diff=f"{diff.mean():.4f}",
+            max_level_diff=int(diff.max()), **{k: v for k, v in launches_p.items() if v})
+        if launches_p["flash_attention"] != per_window:  # one pack: the evals of one window, at twice the batch
+            raise SystemExit(f"chip_smoke: run P launched K1 {launches_p['flash_attention']} times, "
+                             f"not one pack's {per_window:g}")
+        # pair A's separate windows once more after the pack, so that run P sits between two such runs
+        torch.cuda.empty_cache()
+        run_a2 = run_cli(["--config", cfg["a"], *out("run_a2"), *base])
+        n, swap_s, fps, sink_s = run_a2["done"]["pair_a"]
+        log("cli_run_a2", video="pair_a", frames=n, batch_windows=1, swap_s=f"{swap_s:.3f}",
+            frames_per_s=f"{fps:.4f}", sink_s=f"{sink_s:.3f}", **stage_line(run_a2["stages"]["pair_a"]))
+        cli_flow_batches(seed)
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    log("cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+
+
 def kernels_line(rows: dict, launches: dict) -> dict:
     """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
 
@@ -1989,6 +2306,9 @@ def main() -> int:
     phase_train_reference(model, SEED)
     if args.profile_train:
         phase_profile_train(model, SEED, args.profile_train)
+    del model  # the CLI builds its own model
+    torch.cuda.empty_cache()
+    phase_cli(SEED)
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     launches.update({k: ops_launches[k] for k in OPS_KERNELS})
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})

@@ -37,10 +37,22 @@ def close(got, want, atol: float, rtol: float = 0.0) -> None:
 
 def seeded_flax_params(module, *inputs, seed: int = 0):
     """A Flax module's param tree (its structure from ``jax.eval_shape``, so
-    nothing is compiled) filled with seeded numpy: conv kernels LeCun-normal,
+    nothing is compiled) filled by :func:`seeded_tree`."""
+    shapes = jax.eval_shape(lambda r: module.init(r, *inputs)["params"], jax.random.PRNGKey(0))
+    return seeded_tree(shapes, seed)
+
+
+def seeded_bundle_params(model, seed: int = 0):
+    """A JAX ``VFaceModel``'s ``{"unet", "vae", "cond"}`` params, the structure
+    from ``jax.eval_shape`` of its init (nothing is compiled), filled by
+    :func:`seeded_tree`: no convolution is zero, as the init's are."""
+    return seeded_tree(jax.eval_shape(model.init, jax.random.PRNGKey(0)), seed)
+
+
+def seeded_tree(shapes, seed: int = 0):
+    """A tree of shapes filled with seeded numpy: conv kernels LeCun-normal,
     biases N(0, 0.05^2), norm scales 1 + N(0, 0.05^2), frozen-BN means
     N(0, 0.05^2) and variances in [0.5, 1.5]."""
-    shapes = jax.eval_shape(lambda r: module.init(r, *inputs)["params"], jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
 
     def fill(path, s):

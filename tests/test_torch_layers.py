@@ -295,6 +295,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mods = [m.name for m in pkgutil.walk_packages(vface_torch.__path__, 'vface_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 20, mods\n"
+        "assert {'vface_torch.io.video', 'vface_torch.io.image', 'vface_torch.runtime.checkpoint',\n"
+        "        'vface_torch.data.datasets', 'vface_torch.utils.config',\n"
+        "        'vface_torch.scripts.vface_video_swap'} <= set(mods), mods\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'vface_tpu') and sys.modules[k] is not None\n"
         "               for k in list(sys.modules))\n"
         "print(len(mods))\n"

@@ -145,13 +145,10 @@ def test_swap_video_frames_matches_jax(run, mode):
     close(got, run["want"][mode], atol=1e-4)
 
 
-UNPORTED = {
+UNPORTED = {  # window packing and the manifest / window_sink mode run: tests/test_torch_pack.py
     "cross_window_carry": (dict(cross_window_carry=True), {}),
-    "batch_windows": (dict(batch_windows=2), {}),
     "super_pack": (dict(invert_packs=2, window=2), {}),
     "pipeline_packs": (dict(pipeline_packs=True), {}),
-    "manifest": ({}, dict(manifest=object())),
-    "window_sink": ({}, dict(window_sink=lambda s0, arr: [])),
     "eta": (dict(eta=0.5), {}),
     "encoder_interval": (dict(encoder_interval=2), {}),
 }

@@ -3,8 +3,8 @@
 Port of ``vface_tpu/pipelines/video_swap.py``'s sequential path:
 
 * :class:`SwapOptions`, the operating point (the fields the sequential path
-  reads; the packed, pipelined and streaming schedulers' fields are kept so
-  that asking for them raises instead of running something else);
+  reads; the pipelined and super-pack schedulers' fields are kept so that
+  asking for them raises instead of running something else);
 * :class:`VideoSwapPipeline`, the diffusion model with the aux nets (BiSeNet,
   RAFT, LandmarkNet) on one device, and its stages: ``detect_landmarks``,
   ``align_begin`` / ``align_finish`` (the host fallback for degenerate quads)
@@ -20,11 +20,17 @@ attn1 sites), 2-chunk unless ``keep_recon_chunk``; VAE decode and a clip to
 [0, 1]. The source is only encoded when ``co_invert_source`` asks for the
 literal co-inverted batch.
 
+The window loop packs ``batch_windows`` consecutive windows into one call
+(the FGATS blend masked at each window boundary, so the frames equal
+separate windows'), and with a ``manifest`` and a ``window_sink`` it is
+resumable: windows the manifest lists are read back from the sink's PNGs,
+and each computed window is handed to the sink and marked done in window
+order on a worker thread while the next window runs.
+
 Not ported yet, and raising ``NotImplementedError`` where the JAX package
-would take them (ROADMAP A4, A7, A9): the cross-window FGATS carry, window
-packing (``batch_windows > 1``), the super-pack, streaming and pipelined
-schedulers, the resumable ``manifest`` / ``window_sink`` mode, ``eta > 0``
-and ``encoder_interval > 1``. Where the JAX package's eligibility test for a
+would take them (ROADMAP A4, A7, A9): the cross-window FGATS carry, the
+super-pack, streaming and pipelined schedulers, ``eta > 0`` and
+``encoder_interval > 1``. Where the JAX package's eligibility test for a
 scheduler fails, it runs the sequential loop, and so does the port.
 """
 
@@ -32,11 +38,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
+from vface_torch.io.image import read_png
 from vface_torch.models.bisenet import BiSeNet, parse_faces
 from vface_torch.models.clip import clip_preprocess
 from vface_torch.models.ldm import VFaceModel
@@ -71,11 +79,14 @@ class SwapOptions:
     # literal 3-chunk sampling batch; the recon chunk is inert, so off by default
     keep_recon_chunk: bool = False
     encoder_interval: int = 1  # 1 only (encoder propagation is ROADMAP A7)
-    # the schedulers below are not ported (ROADMAP A4, A9): asking for one raises
-    cross_window_carry: bool = False
+    cross_window_carry: bool = False  # not ported (ROADMAP A4/A7): asking for it raises
+    # pack this many consecutive windows into one call, the FGATS blend masked
+    # at the window boundaries (the frames equal separate windows')
     batch_windows: int = 1
     # token count at which FGATS applies (4096 = the 64x64 grid at 512px)
     flow_tokens: int = 4096
+    # the pipelined-pack and super-pack schedulers are not ported (ROADMAP A9):
+    # where the JAX package would take one, the port raises
     pipeline_packs: bool = False
     invert_packs: int = 1
     raft_iters: int = 20  # RAFT GRU iterations (the reference pins 20)
@@ -85,6 +96,11 @@ class SwapOptions:
 
 
 _AUX = {"bisenet": "bisenet", "raft": "raft", "landmark": "landmark_net"}
+# At 6 or more pairs of 512^2 crops, cuDNN's heuristics give RAFT's update
+# block (64^2 maps) an FFT-tiled convolution launched tile by tile: 432.7 and
+# 343.6 ms a pair at 6 and 11 pairs against 45.1 at 5 (an H100 80GB HBM3;
+# chip_smoke.py's cli_flow_batch line, PERF.md §6)
+RAFT_MAX_PAIRS = 5
 
 
 class VideoSwapPipeline:
@@ -187,9 +203,14 @@ class VideoSwapPipeline:
     def compute_flow(self, crops01) -> torch.Tensor:
         """(F, S, S, 3) -> (F-1, S, S, 2): flow[i] = RAFT(x[i+1], x[i]), the backward
         flow on frame i+1's grid mapping to frame i (the argument order is
-        load-bearing: ``align_by_flow`` samples frame i at grid + flow[i])."""
+        load-bearing: ``align_by_flow`` samples frame i at grid + flow[i]).
+        RAFT runs on at most ``RAFT_MAX_PAIRS`` pairs at a time (the pairs are
+        independent)."""
         x = self._on(crops01) * 2.0 - 1.0
-        return self._net("raft")(x[1:], x[:-1])
+        raft = self._net("raft")
+        n = x.shape[0] - 1
+        return torch.cat([raft(x[i + 1:i + RAFT_MAX_PAIRS + 1], x[i:min(i + RAFT_MAX_PAIRS, n)])
+                          for i in range(0, n, RAFT_MAX_PAIRS)], dim=0)
 
     # ------------------------------------------------------- conditionings
     @torch.inference_mode()
@@ -223,13 +244,15 @@ class VideoSwapPipeline:
     @torch.inference_mode()
     def swap_window(self, crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop,
                     src_keep_mask, flow: Optional[torch.Tensor] = None,
-                    timings: Optional[dict] = None) -> torch.Tensor:
-        """One window -> swapped crops (F, S, S, 3) in [0, 1].
+                    timings: Optional[dict] = None, pair_mask=None) -> torch.Tensor:
+        """One window (or a pack of windows) -> swapped crops (F, S, S, 3) in [0, 1].
 
         crops (F, S, S, 3) in [-1, 1]; keep_mask (F, S, S, 1), 1 = background
         kept; cond / uncond / inverse_cond / cond_w_src (F, 1, D); src_crop
         (1, S, S, 3) in [-1, 1]; src_keep_mask (1, S, S, 1); flow (F-1, S, S, 2)
-        in pixels or None. With ``timings`` (a dict) the device is synchronised
+        in pixels or None; pair_mask (F-1,) or None, with a flow: 0 turns off
+        the FGATS blend of pair (i, i+1) (a window boundary inside a pack). With
+        ``timings`` (a dict) the device is synchronised
         at each stage boundary and the wall seconds of encode, invert, sample
         and decode are added to it.
         """
@@ -239,9 +262,9 @@ class VideoSwapPipeline:
         if opts.encoder_interval != 1:
             raise NotImplementedError("encoder_interval > 1 (encoder propagation) is ROADMAP A7")
         dev = self.device
-        args = [crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask, flow]
+        args = [crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask, flow, pair_mask]
         (crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask,
-         flow) = [None if a is None else self._on(a) for a in args]
+         flow, pair_mask) = [None if a is None else self._on(a) for a in args]
         f = crops.shape[0]
         hl = model.cfg.latent_size
         clock = _StageClock(timings, dev)
@@ -274,7 +297,8 @@ class VideoSwapPipeline:
         flow_q = None if flow is None else resize_flow(flow, hl, hl)
         z0, _ = vface_sample(model, start_code, cond, uncond, inverse_cond, inv_latents, z_inpaint,
                              mask_lat, self.injection, flow=flow_q, num_steps=opts.ddim_steps,
-                             cfg_scale=opts.cfg_scale, drop_recon_chunk=not opts.keep_recon_chunk)
+                             cfg_scale=opts.cfg_scale, drop_recon_chunk=not opts.keep_recon_chunk,
+                             flow_pair_mask=pair_mask)
         clock.mark("sample")
 
         out = model.decode_first_stage(z0)
@@ -304,7 +328,7 @@ class VideoSwapPipeline:
     @torch.inference_mode()
     def swap_window_pasted(self, frames01_w, inv_coeffs_w, crops, keep_mask, cond, uncond, inverse_cond,
                            cond_w_src, src_crop, src_keep_mask, flow=None,
-                           timings: Optional[dict] = None) -> torch.Tensor:
+                           timings: Optional[dict] = None, pair_mask=None) -> torch.Tensor:
         """:meth:`swap_window`, the background trick on the window's original
         frames (F, H, W, 3) in [0, 1], and the paste-back of the swapped crops
         through ``inv_coeffs_w`` (F, 8) with the face region (1 - keep_mask) as
@@ -312,7 +336,7 @@ class VideoSwapPipeline:
         "paste_back" to the window's stages."""
         keep_mask = self._on(keep_mask)
         swapped = self.swap_window(crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop,
-                                   src_keep_mask, flow, timings=timings)
+                                   src_keep_mask, flow, timings=timings, pair_mask=pair_mask)
         clock = _StageClock(timings, self.device)
         bg = self.decode_with_background(self._on(frames01_w) * 2.0 - 1.0)
         clock.mark("background")
@@ -335,21 +359,20 @@ class VideoSwapPipeline:
             raise ValueError(f"frame_keep has {keep.shape[0]} masks for {n} frames")
         return keep
 
-    def _refuse_unported_paths(self, n: int, manifest, window_sink) -> None:
-        """Raise where the JAX package would leave the sequential loop."""
+    def _refuse_unported_paths(self, n: int, manifest) -> None:
+        """Raise where the JAX package would leave the sequential loop: its
+        eligibility tests for the super-pack (and streaming) and pipelined
+        schedulers, on the packed window ``window * batch_windows``."""
         opts = self.opts
-        if manifest is not None or window_sink is not None:
-            raise NotImplementedError("the resumable manifest / window_sink mode is not ported (ROADMAP A9)")
         if opts.cross_window_carry:
             raise NotImplementedError("cross_window_carry (the FGATS carry across windows) is ROADMAP A4/A7")
-        if opts.batch_windows > 1:
-            raise NotImplementedError("batch_windows > 1 (window packing with FGATS pair masks) is ROADMAP A9")
-        w = opts.window
+        w = opts.window * max(1, opts.batch_windows)
         exact = not opts.keep_recon_chunk
-        if opts.invert_packs == 2 and exact and opts.inversion_steps >= 2 and n >= 2 * w:
+        fresh = manifest is None or not any(manifest.is_done(s0) for s0 in range(0, n, w))
+        if opts.invert_packs == 2 and exact and opts.inversion_steps >= 2 and n >= 2 * w and fresh:
             raise NotImplementedError("the super-pack and streaming schedulers (invert_packs=2) are ROADMAP A9")
         if (opts.pipeline_packs and exact and opts.encoder_interval == 1
-                and opts.inversion_steps <= opts.ddim_steps + 1 and n >= w + 1):
+                and opts.inversion_steps <= opts.ddim_steps + 1 and n >= w + 1 and fresh):
             raise NotImplementedError("the pipelined-pack scheduler (pipeline_packs) is ROADMAP A9")
 
     # ------------------------------------------------------------ full run
@@ -359,19 +382,31 @@ class VideoSwapPipeline:
                           timings: Optional[dict] = None) -> torch.Tensor:
         """Align, parse, then the window loop (flow, conditionings, window,
         background, paste-back): frames01 (N, H, W, 3) in [0, 1] and
-        source01 (H', W', 3) -> swapped frames (N, H, W, 3) in [0, 1], on the CPU.
+        source01 (H', W', 3) -> swapped frames (N, H, W, 3) float32 in [0, 1], on the CPU.
 
         ``frame_keep`` / ``source_keep``: precomputed keep masks (1 = background
         kept) in crop space, (N, S, S[, 1]) / (S, S[, 1]); the parse of that
         side is then skipped. ``frame_landmarks`` (N, 68, 2) replaces the
-        frames' landmark detection. With ``timings`` the device is
+        frames' landmark detection.
+
+        The loop steps over packs of ``window * batch_windows`` frames. With a
+        ``manifest`` (:class:`~vface_torch.runtime.checkpoint.VideoProgressManifest`),
+        a pack it lists as done is not recomputed: its frames are read back
+        from the PNG paths it records. With a ``window_sink`` too, each
+        computed pack goes to ``window_sink(start, frames (F, H, W, 3) float32
+        numpy) -> paths`` and then to ``manifest.mark_done``, in pack order on
+        one worker thread, while the next pack runs; a sink that raises stops
+        the marks there, and the error is raised. Every pack is marked before
+        the call returns. With ``timings`` the device is
         synchronised at each stage boundary and each stage's wall seconds
         (align, parse, flow, conditionings, encode, invert, sample, decode,
-        background, paste_back) are added to it.
+        background, paste_back; resumed: reading done windows back; with a
+        sink, sink_wait: the wait for the last windows' sink after the loop)
+        are added to it.
         """
         opts = self.opts
         n = int(frames01.shape[0])
-        self._refuse_unported_paths(n, manifest, window_sink)
+        self._refuse_unported_paths(n, manifest)
         if self.model.conditioner is None:
             raise ValueError("VideoSwapPipeline: the video path needs a model built with conditioner=True")
         remove_classes = remove_classes or TRAIN_REMOVE
@@ -397,19 +432,100 @@ class VideoSwapPipeline:
         src_lm = landmarks_to_vector(self.detect_landmarks(src_crop01))
         clock.mark("conditionings")
 
+        w = opts.window * max(1, opts.batch_windows)
+        persist = _WindowPersist(manifest, window_sink) if manifest is not None and window_sink is not None else None
         out_frames = []
-        for s0 in range(0, n, opts.window):
-            sl = slice(s0, min(s0 + opts.window, n))
-            c, km = crops01[sl] * 2 - 1, keep_mask[sl]
-            flow = self.compute_flow(crops01[sl]) if sl.stop - s0 > 1 else None
-            clock.mark("flow")
-            cond, uncond, inv_c, c_src = self.window_conditionings(c, km, src_clip, src_crop01, src_lm)
-            clock.mark("conditionings")
-            pasted = self.swap_window_pasted(frames01[sl], inv_coeffs[sl], c, km, cond, uncond, inv_c, c_src,
-                                             src_crop01 * 2 - 1, src_keep, flow, timings=timings)
-            out_frames.append(pasted.cpu())
-            clock.reset()
+        try:
+            for s0 in range(0, n, w):
+                if persist is not None:
+                    persist.raise_error()
+                if manifest is not None and manifest.is_done(s0):
+                    paths = manifest.data["windows"][str(s0)]["outputs"]
+                    out_frames.append(torch.from_numpy(np.stack([_load_png01(p) for p in paths])))
+                    clock.mark("resumed")
+                    continue
+                sl = slice(s0, min(s0 + w, n))
+                c, km = crops01[sl] * 2 - 1, keep_mask[sl]
+                nf = sl.stop - s0
+                flow = self.compute_flow(crops01[sl]) if nf > 1 else None
+                clock.mark("flow")
+                pair_mask = pack_pair_mask(nf, opts.window) if flow is not None and opts.batch_windows > 1 else None
+                cond, uncond, inv_c, c_src = self.window_conditionings(c, km, src_clip, src_crop01, src_lm)
+                clock.mark("conditionings")
+                pasted = self.swap_window_pasted(frames01[sl], inv_coeffs[sl], c, km, cond, uncond, inv_c, c_src,
+                                                 src_crop01 * 2 - 1, src_keep, flow, timings=timings,
+                                                 pair_mask=pair_mask)
+                pasted = pasted.float()
+                out_frames.append(pasted.cpu() if persist is None else persist.submit(s0, pasted))
+                clock.reset()
+        finally:
+            if persist is not None:
+                persist.shutdown()
+                clock.mark("sink_wait")  # the sink's work not hidden behind the windows
+        if persist is not None:
+            persist.raise_error()
         return torch.cat(out_frames, dim=0)
+
+
+def pack_pair_mask(nf: int, window: int) -> Optional[np.ndarray]:
+    """The FGATS blend mask (nf-1,) of a pack of consecutive windows of
+    ``window`` frames: 0 at each pair that crosses a window boundary, 1
+    elsewhere; None when the pack holds one window."""
+    m = np.ones((nf - 1,), np.float32)
+    for b0 in range(window, nf, window):
+        m[b0 - 1] = 0.0
+    return m if (m == 0).any() else None
+
+
+def _load_png01(path: str) -> np.ndarray:
+    """A PNG frame as float32 RGB (H, W, 3) in [0, 1]."""
+    return read_png(path, mode="RGB").astype(np.float32) / 255.0
+
+
+class _WindowPersist:
+    """Hands computed windows to a sink and marks them done, in window order,
+    on one worker thread. A window on the card is copied without blocking
+    into pinned host memory; the worker waits for that copy, calls
+    ``sink(start, frames)`` and ``manifest.mark_done``. After a sink error
+    the later windows are neither sunk nor marked; :meth:`raise_error`
+    raises it in the caller's thread."""
+
+    def __init__(self, manifest, sink):
+        self.manifest, self.sink = manifest, sink
+        self.pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="vface-window-sink")
+        self.error: Optional[Exception] = None
+
+    def submit(self, s0: int, pasted: torch.Tensor) -> torch.Tensor:
+        """Queue one window; returns its frames on the CPU (valid once :meth:`shutdown` returns)."""
+        ready = None
+        host = pasted
+        if pasted.device.type == "cuda":
+            host = torch.empty(pasted.shape, dtype=pasted.dtype, pin_memory=True)
+            host.copy_(pasted, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        self.pool.submit(self._persist, s0, host, ready)
+        return host
+
+    def _persist(self, s0: int, host: torch.Tensor, ready) -> None:
+        if self.error is not None:
+            return
+        try:
+            if ready is not None:
+                ready.synchronize()
+            frames = host.numpy()
+            paths = self.sink(s0, frames)
+            self.manifest.mark_done(s0, frames.shape[0], paths)
+        except Exception as e:  # reported in the caller's thread by raise_error
+            self.error = e
+
+    def raise_error(self) -> None:
+        if self.error is not None:
+            raise self.error
+
+    def shutdown(self) -> None:
+        """Wait for every queued window."""
+        self.pool.shutdown(wait=True)
 
 
 class _StageClock:

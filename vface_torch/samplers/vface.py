@@ -1,8 +1,9 @@
 """The VFace hooked sampler: CFG with FSAI/FGATS at the input-block attn1 sites.
 
-Port of ``vface_tpu/samplers/vface.py::vface_sample`` for ``eta = 0``,
-``encoder_interval = 1`` and a bare flow array. Per step the UNet sees the
-batch [uncond, cond(swap), recon] (``drop_recon_chunk=False``), or
+Port of ``vface_tpu/samplers/vface.py::vface_sample`` for ``eta = 0`` and
+``encoder_interval = 1``, with the window-packing pair mask
+(``flow_pair_mask``) but without the cross-window FGATS carry. Per step the
+UNet sees the batch [uncond, cond(swap), recon] (``drop_recon_chunk=False``), or
 [uncond, cond] with the 3-chunk fusion semantics kept on the 2-chunk batch
 (``drop_recon_chunk=True``: the recon chunk only receives fusion and its
 output is discarded, so dropping it leaves chunks 0 and 1 unchanged).
@@ -16,18 +17,23 @@ from typing import Optional
 import torch
 
 from vface_torch.models.unet import InjectionSpec
+from vface_torch.ops.attention import FlowPack
 from vface_torch.samplers.ddim import ddim_step
 from vface_torch.utils.schedule import DDIMSchedule
 
 
 def vface_sample(model, x_T, cond, uncond, target_cond, inv_latents, inpaint_latent, mask_latent,
                  injection: InjectionSpec, flow: Optional[torch.Tensor] = None,
-                 num_steps: int = 50, cfg_scale: float = 3.0, drop_recon_chunk: bool = False):
+                 num_steps: int = 50, cfg_scale: float = 3.0, drop_recon_chunk: bool = False,
+                 flow_pair_mask: Optional[torch.Tensor] = None):
     """Run the hooked sampling loop from x_T (F, h, w, 4); returns (z_0, pred_x0 trajectory).
 
     ``inv_latents`` (S, F, h, w, 4) feed the recon chunk (unused when
     ``drop_recon_chunk``); ``flow`` (F-1, Hq, Wq, 2) is the FGATS flow at the
-    ds1 token grid, or None.
+    ds1 token grid, or None. ``flow_pair_mask`` (F-1,), with a flow: 0 turns
+    off the FGATS blend of pair (i, i+1), as window packing does at a
+    window boundary; the flow then reaches the UNet as a
+    ``FlowPack(flow, pair_mask)``.
     """
     sch = DDIMSchedule.create(model.schedule, num_steps)
     n = sch.num_steps
@@ -43,6 +49,8 @@ def vface_sample(model, x_T, cond, uncond, target_cond, inv_latents, inpaint_lat
     else:
         c_in = torch.cat([uncond, cond, target_cond], dim=0)
     chunks = 2 if drop_recon_chunk else 3
+    if flow_pair_mask is not None:
+        flow = FlowPack(flow=flow, pair_mask=flow_pair_mask)
 
     x = x_T.to(torch.float32)
     traj = []

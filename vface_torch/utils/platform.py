@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -17,3 +19,14 @@ def resolve_device(device="cuda") -> torch.device:
             "vface_torch: CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def device_from_env() -> torch.device:
+    """The device a command-line entry point runs on: the CPU when the
+    environment sets ``VFACE_PLATFORM=cpu`` (the JAX package's CLIs read the
+    same variable to pick their platform), else CUDA, which raises without a
+    card. Any other value of the variable raises."""
+    plat = os.environ.get("VFACE_PLATFORM", "").strip().lower()
+    if plat not in ("", "cpu", "cuda", "gpu"):
+        raise ValueError(f"VFACE_PLATFORM={plat!r}: the port runs on 'cpu' or 'cuda'")
+    return resolve_device("cpu" if plat == "cpu" else "cuda")
