@@ -72,8 +72,9 @@ Phases, one line each:
   8. video: ``VideoSwapPipeline.swap_video_frames`` at full width with the
      conditioner (CLIP ViT-L/14, IR-50) and the aux nets (BiSeNet and RAFT
      seeded, the landmark net from its shipped weights) on a seeded 8-frame
-     720x1280 clip at the reference operating point (50 + 50 steps, window 6,
-     RAFT 20 iterations, parser 512): seconds per stage, frames/s, peak
+     720x1280 clip at the reference operating point but for the depth (10 +
+     10 steps; window 6, RAFT 20 iterations, parser 512; phase sched runs
+     50 + 50 on 12 frames): seconds per stage, frames/s, peak
      memory, launches, degenerate-quad fallbacks, the output's checks;
   9. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
      at full width, batch 1 at 512^2, the reference operating point (4-step
@@ -87,6 +88,21 @@ Phases, one line each:
  11. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
      sampling UNet eval (and the device time of its feed-forwards: K2's sites,
      the wide sites on K9, and the rest), of one train step;
+ 11b. sched (the window schedules of the video path; ``phase_sched_kernels``
+     adds K1, K2 and K9 rows at b = 18 and 24 to the kernels phase): (b) on
+     the video phase's model, a seeded 12-frame 720x1280 clip at the
+     reference operating point through the sequential loop, pipelined packs,
+     the super-pack, its streaming form (numpy frames), merged sampling and
+     the cross-window carry (after a 2 + 2-step warm-up of the new batches
+     under the kernel-site checks): per run seconds, frames/s, stages, peak
+     memory, launches, the uint8 difference from the sequential run, the
+     carry run's first window within 1 level of it; (c) one sampling UNet
+     eval at b = 12, 18, 24, 36, 48: ms, ms per row, peak memory; then,
+     after training, (a) the exactness gate: the SD-v1 model at fp32 with its
+     conditioner, 10 frames of 512 x 512 at window 3, 4 + 4 steps, every
+     scheduler and ``batch_windows=2`` within 1e-3 of the sequential loop,
+     and the packed run with its boundary masks forced to ones at least 10x
+     past that limit;
  12. cli: the video-swap CLI (``vface_torch.scripts.vface_video_swap.main``)
      at its defaults (SD-v1 inpainting with its conditioner, seeded; 50 + 50
      steps, window 6, scale 3.0, fps 10) on inputs written with the port's
@@ -464,27 +480,14 @@ def checked_sites(phase: str):
         raise SystemExit(f"chip_smoke: the {phase} path called no {missing} kernel")
 
 
-def phase_kernels(batch: int, vae_batch: int) -> dict:
-    """Each kernel against its plain version at the swap path's shapes; returns the rows.
-
-    K1 and K2 at the sampling batch (2 chunks x the window), K3 at the VAE's
-    (the window). :func:`checked_sites` holds them at every other shape the
-    swap and video paths give them.
-    """
-    import torch
+def k1_rows(batch: int, randn) -> list:
+    """K1 at the two self-attention sites it serves, ds1 (dh 40) and ds2 (dh 80),
+    at ``batch``: its rows (the library column is SDPA)."""
     import torch.nn.functional as F
 
     from vface_torch.ops import flash_attention as FA
-    from vface_torch.ops import geglu_ff as FF
-    from vface_torch.ops import gn_sums as GN
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(torch.bfloat16)
-    rows = {}
-
-    # K1 at the two self-attention sites it serves: ds1 (dh 40) and ds2 (dh 80)
-    fa_rows = []
+    out = []
     for n, c in ((4096, 320), (1024, 640)):
         h = 8
         dh = c // h
@@ -495,28 +498,61 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
         split = lambda t: t.view(batch, n, h, dh).transpose(1, 2)
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)))
         bnd = bound(4.0 * batch * h * n * n * dh, 4 * q.numel() * 2)
-        fa_rows.append(_row("flash_attention", "cuda", "vface_torch/csrc/flash_attention.cu",
-                            "vface_tpu/ops/pallas_attention.py:547", errs, tol, ms, plain_ms,
-                            lib_ms, bnd, f"({batch},{n},{c})h{h}", exp_floor(batch * h * n * n)))
-    rows["flash_attention"] = fa_rows
+        out.append(_row("flash_attention", "cuda", "vface_torch/csrc/flash_attention.cu",
+                        "vface_tpu/ops/pallas_attention.py:547", errs, tol, ms, plain_ms,
+                        lib_ms, bnd, f"({batch},{n},{c})h{h}", exp_floor(batch * h * n * n)))
+        del q, k, v
+    return out
 
-    # K2 at the ds1 and ds2 transformer feed-forwards; the library column is
-    # the unfused route (two cuBLAS bf16 products)
-    ff_rows = []
-    for n, c in ((4096, 320), (1024, 640)):
+
+def ff_rows(name: str, batch: int, randn) -> list:
+    """K2 (``geglu_ff``) at the ds1 and ds2 transformer feed-forwards, or K9
+    (``geglu_ff_wide``) at ds4 and the middle block (C 1280, 16^2 and 8^2
+    tokens), at ``batch``: their rows (the library column is the unfused route,
+    two cuBLAS bf16 products). K9's log lines also say which of the two the
+    UNet's wide sites should take."""
+    from vface_torch.ops import geglu_ff as FF
+
+    kernel, sites, replaces = {
+        "geglu_ff": (FF.geglu_ff, ((4096, 320), (1024, 640)), "vface_tpu/ops/pallas_ff.py:70"),
+        "geglu_ff_wide": (FF.geglu_ff_wide, ((256, 1280), (64, 1280)), "vface_tpu/ops/pallas_ff.py:120")}[name]
+    out = []
+    for n, c in sites:
         inner = 4 * c
-        x = randn(batch * n, c)
-        wp, bp = randn(2 * inner, c, scale=c**-0.5), randn(2 * inner, scale=0.1)
-        wo, bo = randn(c, inner, scale=inner**-0.5), randn(c, scale=0.1)
-        errs, tol = kernel_errs("geglu_ff", (x, wp, bp, wo, bo), FF.geglu_ff(x, wp, bp, wo, bo))
-        ms = cuda_ms(lambda: FF.geglu_ff(x, wp, bp, wo, bo))
-        plain_ms = cuda_ms(lambda: FF.geglu_ff_ref(x, wp, bp, wo, bo), reps=3, warmup=1)
-        unfused_ms = cuda_ms(lambda: FF.geglu_ff_unfused(x, wp, bp, wo, bo))
         m = batch * n
-        ff_rows.append(_row("geglu_ff", "cuda", "vface_torch/csrc/geglu_ff.cu",
-                            "vface_tpu/ops/pallas_ff.py:70", errs, tol, ms, plain_ms, unfused_ms,
-                            _ff_bound(m, c, inner), f"({m},{c})I{inner}"))
-    rows["geglu_ff"] = ff_rows
+        args = (randn(m, c), randn(2 * inner, c, scale=c**-0.5), randn(2 * inner, scale=0.1),
+                randn(c, inner, scale=inner**-0.5), randn(c, scale=0.1))
+        errs, tol = kernel_errs(name, args, kernel(*args))
+        ms = cuda_ms(lambda: kernel(*args))
+        unfused_ms = cuda_ms(lambda: FF.geglu_ff_unfused(*args))
+        out.append(_row(name, "cuda", "vface_torch/csrc/geglu_ff.cu", replaces, errs, tol, ms,
+                        cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=3, warmup=1), unfused_ms,
+                        _ff_bound(m, c, inner), f"({m},{c})I{inner}"))
+        if name == "geglu_ff_wide":
+            log("ff_route", site=f"({m},{c})I{inner}", k9_ms=f"{ms:.4f}", unfused_ms=f"{unfused_ms:.4f}",
+                faster="k9" if ms < unfused_ms else "unfused",
+                note="the UNet takes K9 at its wide sites without a gradient, the unfused route with one")
+        del args
+    return out
+
+
+def phase_kernels(batch: int, vae_batch: int) -> dict:
+    """Each kernel against its plain version at the swap path's shapes; returns the rows.
+
+    K1 and K2 at the sampling batch (2 chunks x the window), K3 at the VAE's
+    (the window). :func:`checked_sites` holds them at every other shape the
+    swap and video paths give them.
+    """
+    import torch
+
+    from vface_torch.ops import geglu_ff as FF
+    from vface_torch.ops import gn_sums as GN
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    rows = {"flash_attention": k1_rows(batch, randn), "geglu_ff": ff_rows("geglu_ff", batch, randn)}
+
     # K2's row tile at C = 320 (FF.k2_tile) at every M the main paths give it:
     # batches 1 (train step), 2 and 4 (the 2-frame window), 6 (inversion) and
     # 12 (sampling) at ds1; both tiles through K13, which launches K2's kernel
@@ -1139,7 +1175,6 @@ def phase_ops_kernels() -> dict:
 
     import vface_torch.ops as O
     from vface_torch.ops import flash_attention as FA
-    from vface_torch.ops import geglu_ff as FF
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -1227,25 +1262,7 @@ def phase_ops_kernels() -> dict:
             ffma=ffma_ms(flops) if f32 else None))
         del q, k, v, qf, kf, vf, got, want
 
-    c = 1280  # ds4 at the sampling batch (2 chunks x 6 frames x 16^2 tokens) and the middle block (8^2)
-    inner = 4 * c
-    for m in (12 * 256, 12 * 64):
-        args = (randn(m, c), randn(2 * inner, c, scale=c**-0.5), randn(2 * inner, scale=0.1),
-                randn(c, inner, scale=inner**-0.5), randn(c, scale=0.1))
-        got = O.geglu_ff_wide(*args)
-        want = FF.geglu_ff_ref(*args)
-        torch.cuda.synchronize()
-        ms = cuda_ms(lambda: O.geglu_ff_wide(*args))
-        unfused_ms = cuda_ms(lambda: FF.geglu_ff_unfused(*args))
-        rows["geglu_ff_wide"].append(_row(
-            "geglu_ff_wide", "cuda", "vface_torch/csrc/geglu_ff.cu", "vface_tpu/ops/pallas_ff.py:120",
-            _errs(got, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())), ms,
-            cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=3, warmup=1), unfused_ms,
-            _ff_bound(m, c, inner), f"({m},{c})I{inner}"))
-        log("ff_route", site=f"({m},{c})I{inner}", k9_ms=f"{ms:.4f}", unfused_ms=f"{unfused_ms:.4f}",
-            faster="k9" if ms < unfused_ms else "unfused",
-            note="the UNet takes K9 at its wide sites without a gradient, the unfused route with one")
-        del args, got, want
+    rows["geglu_ff_wide"] = ff_rows("geglu_ff_wide", 2 * FRAMES, randn)  # ds4 and the middle block, sampling
     return rows
 
 
@@ -1369,6 +1386,9 @@ def phase_bench(reps: int) -> dict:
 
 
 VIDEO_FRAMES, VIDEO_HW = 8, (720, 1280)  # an HD clip: a 6-frame window and a 2-frame window
+# the video phase's depth: cut from the reference's 50 + 50 steps for time,
+# since phase sched runs the reference operating point on a 12-frame clip
+VIDEO_STEPS = 10
 
 
 def synthetic_clip(frames: int, hw, seed: int, device="cuda"):
@@ -1406,8 +1426,9 @@ def synthetic_clip(frames: int, hw, seed: int, device="cuda"):
 
 def phase_video(model, seed: int) -> dict:
     """The slice at full width: ``swap_video_frames`` on a seeded 8-frame
-    720x1280 clip at the reference operating point (50 + 50 steps, window 6,
-    RAFT 20 iterations, parser 512), after a 2 + 2-step warm-up that holds
+    720x1280 clip at the reference operating point but for the depth
+    (``VIDEO_STEPS`` + ``VIDEO_STEPS`` steps; window 6, RAFT 20 iterations,
+    parser 512), after a 2 + 2-step warm-up that holds
     every kernel call site to its plain version at the measured call's shapes
     (both windows' batches; the background trick's and the landmark net's
     GroupNorms); returns the kernels' launches over the measured call."""
@@ -1416,7 +1437,7 @@ def phase_video(model, seed: int) -> dict:
     from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
     from vface_torch.utils.convert import init_aux_params
 
-    opts = SwapOptions(ddim_steps=DDIM_STEPS, inversion_steps=INVERSION_STEPS, window=FRAMES,
+    opts = SwapOptions(ddim_steps=VIDEO_STEPS, inversion_steps=VIDEO_STEPS, window=FRAMES,
                        image_size=model.cfg.image_size, parser_size=512, raft_iters=20)
     aux = init_aux_params(torch.Generator(device="cuda").manual_seed(seed))
     pipe = VideoSwapPipeline(model, opts, device="cuda", aux_params=aux)
@@ -1441,7 +1462,7 @@ def phase_video(model, seed: int) -> dict:
     launches = kernel_counts()
     windows = sum(timings.get(k, 0.0) for k in ("encode", "invert", "sample", "decode"))
     log("video", frames=VIDEO_FRAMES, frame_hw=f"{VIDEO_HW[0]}x{VIDEO_HW[1]}", window=FRAMES,
-        ddim_steps=DDIM_STEPS, inversion_steps=INVERSION_STEPS, raft_iters=opts.raft_iters,
+        ddim_steps=VIDEO_STEPS, inversion_steps=VIDEO_STEPS, raft_iters=opts.raft_iters,
         parser=opts.parser_size, wall_s=f"{wall:.3f}", frames_per_s=f"{VIDEO_FRAMES / wall:.4f}",
         windows_s=f"{windows:.3f}", **{f"{k}_s": f"{v:.3f}" for k, v in timings.items()},
         peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", fallback_frames=pipe.fallback_frames)
@@ -1514,6 +1535,315 @@ def phase_small_video_reference(seed: int) -> None:
         frames_own_landmarks_max_abs_err=f"{err['out_own_landmarks']:.3e}")
     if not (err["landmarks"] <= 1e-3 and err["flow"] <= 1e-3 and seg_eq >= 0.999 and err["out"] <= 1e-4):
         raise SystemExit("chip_smoke: the card's tiny video swap disagrees with the CPU's")
+
+
+# Phase sched: every window schedule of the video path. Each run: its
+# SwapOptions fields, and whether its frames are a numpy array (the
+# super-pack then streams) or a tensor on the card.
+SCHED_RUNS = {
+    "sequential": ({}, False),
+    "pipeline_packs": (dict(pipeline_packs=True), False),
+    "super_pack": (dict(invert_packs=2), False),
+    "streaming": (dict(invert_packs=2), True),
+    "super_pack_merged": (dict(invert_packs=2, merge_sampling=True), False),
+    "cross_window_carry": (dict(cross_window_carry=True), False),
+}
+# the pipeline's methods a run must call (and how often) to show that its schedule ran
+SCHED_PROGRAMS = ("_pipelined_step", "_final_pack", "_superpack", "_swap_frames_superpacked_streaming")
+SCHED_FRAMES = 12  # (b): two 6-frame windows of 720x1280
+GATE_FRAMES, GATE_WINDOW, GATE_STEPS, GATE_HW = 10, 3, 4, (512, 512)  # (a): three packs and a remainder
+GATE_TOL = 1e-3  # (a): max abs on frames in [0, 1], fp32
+LANDSCAPE = (12, 18, 24, 36, 48)  # (c): sampling eval batches (2 chunks x frames)
+
+
+def _programs(pipe) -> dict:
+    """Count the calls of the schedulers' programs on ``pipe``; returns {name: calls}."""
+    calls = dict.fromkeys(SCHED_PROGRAMS, 0)
+    for name in SCHED_PROGRAMS:
+        real = getattr(pipe, name)
+
+        def counted(*a, _name=name, _real=real, **kw):
+            calls[_name] += 1
+            return _real(*a, **kw)
+        setattr(pipe, name, counted)
+    return calls
+
+
+def _expected_programs(name: str, n: int, w: int) -> dict:
+    """The program calls a run of ``name`` makes on n frames in packs of w."""
+    want = dict.fromkeys(SCHED_PROGRAMS, 0)
+    full = n // w
+    if name == "pipeline_packs":
+        want.update(_pipelined_step=full - 1, _final_pack=1)
+    elif name in ("super_pack", "super_pack_merged", "streaming"):
+        want["_superpack"] = full // 2
+        want["_swap_frames_superpacked_streaming"] = int(name == "streaming")
+    return want
+
+
+def sched_pipe(model, opts, aux, name: str):
+    from vface_torch.pipelines.video_swap import VideoSwapPipeline
+
+    return VideoSwapPipeline(model, dataclasses.replace(opts, **SCHED_RUNS[name][0]), device="cuda", aux_params=aux)
+
+
+def phase_sched_gate(seed: int) -> None:
+    """Phase sched (a), the exactness gate at fp32: the SD-v1 inpainting model
+    at fp32 with its conditioner (seeded), 10 frames of 512 x 512 at window
+    3 (three packs and a 1-frame remainder), 4 + 4 steps, FGATS at 4096
+    tokens, RAFT 20 iterations, parser 512. The sequential loop against each
+    scheduler (pipelined packs, the super-pack with and without merged
+    sampling, its streaming form) and against ``batch_windows=2`` (packs of
+    two windows against separate windows): each within ``GATE_TOL`` max abs.
+    The streaming form runs the landmark net and the parser per group, and
+    the card's convolutions round by batch, which can flip a parse class and
+    with it a keep-mask pixel: it is held to the loop with those two nets run
+    in the same batches, and its distance from the plain loop is logged with
+    what the batches alone move (landmarks, class maps).
+    A copy of the packed run with the boundary masks forced to ones must
+    miss that limit by 10x or more: the gate tells a boundary fault from
+    round-off."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.pipelines import video_swap as VS
+    from vface_torch.pipelines.video_swap import SwapOptions
+    from vface_torch.utils.convert import init_aux_params, init_params
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.sd_v1_inpaint(dtype=torch.float32)
+    model = VFaceModel(cfg, device="cuda", conditioner=True)
+    model.load_params(init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), conditioner=True))
+    aux = init_aux_params(torch.Generator(device="cuda").manual_seed(seed + 1))
+    opts = SwapOptions(ddim_steps=GATE_STEPS, inversion_steps=GATE_STEPS, window=GATE_WINDOW,
+                       image_size=cfg.image_size, parser_size=512, raft_iters=20)
+    frames = synthetic_clip(GATE_FRAMES, GATE_HW, seed + 30)
+    source = synthetic_clip(1, GATE_HW, seed + 31)[0]
+    out, wall, launched = {}, {}, {}
+    runs = [*SCHED_RUNS, "sequential_grouped", "batch_windows_2", "batch_windows_2_unmasked"]
+    runs.remove("cross_window_carry")  # not output-exact by design
+    # the streaming form runs the landmark net and the parser per group of two
+    # packs and per remaining pack; "sequential_grouped" runs them in the same
+    # batches on the whole clip, the rest of its loop unchanged
+    w = opts.window
+    groups = [(0, 2 * w)] + [(s0, min(s0 + w, GATE_FRAMES)) for s0 in range(2 * w, GATE_FRAMES, w)]
+    grouped = lambda fn: lambda x: (torch.cat([fn(x[a:b]) for a, b in groups]) if x.shape[0] == GATE_FRAMES
+                                    else fn(x))
+    for name in runs:
+        fields = dict(batch_windows=2) if name.startswith("batch_windows") else SCHED_RUNS.get(name, ({},))[0]
+        pipe = VS.VideoSwapPipeline(model, dataclasses.replace(opts, **fields), device="cuda", aux_params=aux)
+        host = name == "streaming"
+        if name == "sequential_grouped":
+            pipe.detect_landmarks, pipe.parse_masks = grouped(pipe.detect_landmarks), grouped(pipe.parse_masks)
+        calls = _programs(pipe)
+        ones = lambda nf, window: np.ones((nf - 1,), np.float32)
+        reset_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(VS, "pack_pair_mask", ones) if name.endswith("unmasked") else contextlib.nullcontext():
+            out[name] = pipe.swap_video_frames(frames.cpu().numpy() if host else frames, source)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        launched[name] = kernel_counts()
+        want = _expected_programs(name, GATE_FRAMES, opts.window * pipe.opts.batch_windows)
+        missing = [k for k in (*F32_EVAL_KERNELS, "gn_sums") if launched[name][k] == 0]
+        if calls != want or missing:
+            raise SystemExit(f"chip_smoke: sched gate run {name} called {calls}, not {want}, or launched no {missing}")
+    seq = out["sequential"]
+    err = {name: float((o - seq).abs().max()) for name, o in out.items() if not name.startswith("sequential")}
+    broken = err.pop("batch_windows_2_unmasked")
+    # streaming is held to the loop with its aux-net batches; beside it, what
+    # those batches alone move: the landmarks, the class maps, the frames
+    ungrouped = err.pop("streaming")
+    err["streaming"] = float((out["streaming"] - out["sequential_grouped"]).abs().max())
+    with torch.inference_mode():
+        pipe = VS.VideoSwapPipeline(model, opts, device="cuda", aux_params=aux)
+        lm = pipe.detect_landmarks(frames)
+        lm_grouped = grouped(pipe.detect_landmarks)(frames)
+        crops = pipe.align_crops(frames, landmarks=lm)[0]
+        seg_equal = float((pipe.parse_masks(crops) == grouped(pipe.parse_masks)(crops)).float().mean())
+    log("sched_gate_aux_batches", groups=",".join(f"{a}:{b}" for a, b in groups),
+        landmarks_max_px=f"{float((lm - lm_grouped).abs().max()):.3e}", class_map_equal=f"{seg_equal:.6f}",
+        sequential_grouped_vs_sequential_max_abs=f"{float((out['sequential_grouped'] - seq).abs().max()):.3e}",
+        streaming_vs_sequential_max_abs=f"{ungrouped:.3e}")
+    log("sched_gate", config="sd_v1_inpaint fp32 + conditioner", frames=GATE_FRAMES,
+        frame_hw=f"{GATE_HW[0]}x{GATE_HW[1]}", window=GATE_WINDOW, ddim_steps=GATE_STEPS,
+        inversion_steps=GATE_STEPS, flow_tokens=opts.flow_tokens, tol=GATE_TOL,
+        **{f"{k}_max_abs": f"{v:.3e}" for k, v in err.items()}, unmasked_max_abs=f"{broken:.3e}",
+        unmasked_over_tol=f"{broken / GATE_TOL:.1f}", **{f"{k}_s": f"{v:.3f}" for k, v in wall.items()},
+        finite=all(bool(torch.isfinite(o).all()) for o in out.values()))
+    log("sched_gate_launches", run="sequential", **{k: v for k, v in launched["sequential"].items() if v})
+    del model, out, seq
+    torch.cuda.empty_cache()
+    log("sched_gate_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    failed = [k for k, v in err.items() if not v <= GATE_TOL]
+    if failed:
+        raise SystemExit(f"chip_smoke: at fp32 {failed} differ from the sequential loop by more than {GATE_TOL}")
+    if not broken >= 10 * GATE_TOL:
+        raise SystemExit(f"chip_smoke: the unmasked pack is within {broken:.3e} of the sequential loop: the gate "
+                         "cannot tell a boundary fault from round-off")
+
+
+def phase_sched(model, seed: int) -> None:
+    """Phase sched (b) and (c) on the ``video`` phase's model (bf16, with the
+    conditioner). (b): every schedule of ``swap_video_frames`` on a seeded
+    12-frame 720x1280 clip at the reference operating point (50 + 50 steps,
+    window 6, RAFT 20, parser 512): the sequential loop, pipelined packs,
+    the super-pack (tensor frames), its streaming form (numpy frames), the
+    super-pack with merged sampling, and the cross-window carry; a 2 + 2-step
+    warm-up of the schedulers with new batches (pipelined: b = 18, merged:
+    b = 24) holds every kernel call at its new signatures to its plain
+    version. Per run: wall seconds, frames/s, stage seconds, peak memory,
+    launches per kernel, the calls of the schedule's programs and the uint8
+    difference from the sequential run (mean and max, not gated); gated:
+    shape, finite values in [0, 1], every kernel of the path launched, the
+    programs called, and the carry run's first window within 1 uint8 level
+    of the sequential run's. (c): :func:`sched_landscape`."""
+    import numpy as np
+    import torch
+
+    from vface_torch.pipelines.video_swap import SwapOptions
+    from vface_torch.utils.convert import init_aux_params
+
+    t_phase = time.perf_counter()
+    opts = SwapOptions(ddim_steps=DDIM_STEPS, inversion_steps=INVERSION_STEPS, window=FRAMES,
+                       image_size=model.cfg.image_size, parser_size=512, raft_iters=20)
+    aux = init_aux_params(torch.Generator(device="cuda").manual_seed(seed))
+    frames = synthetic_clip(SCHED_FRAMES, VIDEO_HW, seed + 20)
+    frames_np = frames.cpu().numpy()
+    source = synthetic_clip(1, VIDEO_HW, seed + 21)[0]
+    short = dataclasses.replace(opts, ddim_steps=2, inversion_steps=2)
+    t0 = time.perf_counter()
+    with checked_sites("sched"):
+        for name in ("pipeline_packs", "super_pack_merged"):
+            sched_pipe(model, short, aux, name).swap_video_frames(frames, source)
+    torch.cuda.synchronize()
+    log("sched_warmup", runs="pipeline_packs,super_pack_merged", ddim_steps=2, inversion_steps=2,
+        wall_s=f"{time.perf_counter() - t0:.3f}")
+    u8_seq = None
+    for name, (_, host) in SCHED_RUNS.items():
+        pipe = sched_pipe(model, opts, aux, name)
+        calls = _programs(pipe)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        out = pipe.swap_video_frames(frames_np if host else frames, source, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        u8 = _u8(out).astype(np.int16)
+        u8_seq = u8 if u8_seq is None else u8_seq
+        diff = np.abs(u8 - u8_seq).astype(np.float64)
+        w0 = int(np.abs(u8[:FRAMES] - u8_seq[:FRAMES]).max())
+        finite = bool(torch.isfinite(out).all())
+        log("sched_run", run=name, frames=SCHED_FRAMES, frame_hw=f"{VIDEO_HW[0]}x{VIDEO_HW[1]}", window=FRAMES,
+            wall_s=f"{wall:.3f}", frames_per_s=f"{SCHED_FRAMES / wall:.4f}", **stage_line(timings),
+            peak_gib=f"{peak:.2f}", mean_level_diff=f"{diff.mean():.4f}", max_level_diff=int(diff.max()),
+            window0_max_level_diff=w0, **{k: v for k, v in calls.items() if v},
+            **{k: v for k, v in launches.items() if v})
+        want = _expected_programs(name, SCHED_FRAMES, opts.window)
+        if not (tuple(out.shape) == (SCHED_FRAMES, *VIDEO_HW, 3) and finite
+                and float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
+            raise SystemExit(f"chip_smoke: sched run {name}'s output has the wrong shape, is not finite or "
+                             "leaves [0, 1]")
+        missing = [k for k in SWAP_KERNELS if launches[k] == 0]
+        stray = [k for k in launches if k not in SWAP_KERNELS and launches[k]]
+        if missing or stray or calls != want:
+            raise SystemExit(f"chip_smoke: sched run {name} launched no {missing} / stray {stray} kernels, or "
+                             f"called {calls}, not {want}")
+        if name == "cross_window_carry" and w0 > 1:
+            raise SystemExit(f"chip_smoke: the carry run's first window is {w0} levels from the sequential run's")
+        del out
+    sched_landscape(model, seed)
+    log("sched_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+
+
+def sched_landscape(model, seed: int) -> None:
+    """Phase sched (c): one hooked sampling UNet eval (2 chunks of b/2 frames,
+    FSAI + FGATS on a seeded flow, 64^2 latents) at each batch b of
+    ``LANDSCAPE``, one warm-up and three timed calls each (host clock,
+    synchronised): ms, ms per row and peak memory; the device is the card's
+    whatever the batch, so a jump in ms per row shows a convolution or
+    kernel choice that a batch triggers."""
+    import torch
+
+    from vface_torch.models.unet import InjectionSpec
+    from vface_torch.ops.attention import FusionConfig
+
+    cfg = model.cfg
+    hl, d = cfg.latent_size, cfg.unet.context_dim
+    inj = InjectionSpec(input_blocks=FusionConfig("flow_fix", two_chunk_replace=False), chunks=2)
+    g = torch.Generator(device="cuda").manual_seed(seed + 40)
+    for b in LANDSCAPE:
+        f = b // 2
+        x9 = torch.randn((b, hl, hl, 9), generator=g, device="cuda")
+        ts = torch.full((b,), 500, device="cuda")
+        ctx = torch.randn((b, 1, d), generator=g, device="cuda")
+        flow = torch.randn((f - 1, hl, hl, 2), generator=g, device="cuda")
+        with torch.inference_mode():
+            model.apply_model(x9, ts, ctx, flow=flow, injection=inj)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                model.apply_model(x9, ts, ctx, flow=flow, injection=inj)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        log("sched_landscape", batch=b, ms="/".join(f"{t:.2f}" for t in times),
+            ms_per_row=f"{min(times) / b:.3f}", peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        if b == 2 * FRAMES:
+            silu_forms(model, x9, ts, ctx, flow, inj)
+        del x9, ctx, flow
+
+
+def silu_forms(model, x9, ts, ctx, flow, inj) -> None:
+    """One sampling eval with the UNet's SiLU rounded as JAX's is at bf16 (four
+    more elementwise launches per SiLU) and with ``F.silu`` (one), in turns,
+    five rounds of three evals each: what the rounding costs. Prints each
+    form's evals (ms) and their median."""
+    from unittest import mock
+
+    import torch
+
+    from vface_torch.models import unet
+
+    times = {"jax_rounding": [], "fused": []}
+    for form in ("jax_rounding", "fused", "fused", "jax_rounding") * 2 + ("jax_rounding", "fused"):
+        patch = mock.patch.object(unet, "nonlinearity", torch.nn.functional.silu)
+        with torch.inference_mode(), patch if form == "fused" else contextlib.nullcontext():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.apply_model(x9, ts, ctx, flow=flow, injection=inj)
+                torch.cuda.synchronize()
+                times[form].append((time.perf_counter() - t0) * 1e3)
+    median = lambda v: sorted(v)[len(v) // 2]
+    log("silu_forms", batch=x9.shape[0], **{f"{k}_median_ms": f"{median(v):.2f}" for k, v in times.items()},
+        **{f"{k}_ms": "/".join(f"{t:.1f}" for t in v) for k, v in times.items()})
+
+
+def phase_sched_kernels() -> dict:
+    """K1, K2 and K9 at the schedulers' new batches, against their plain
+    versions, timed: b = 18 (pipelined packs: 12 sampling rows and 6
+    inversion rows) and b = 24 (merged sampling); returns the rows, which
+    join each kernel's row list."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    rows = {"flash_attention": [], "geglu_ff": [], "geglu_ff_wide": []}
+    for b in (3 * FRAMES, 4 * FRAMES):
+        rows["flash_attention"] += k1_rows(b, randn)
+        rows["geglu_ff"] += ff_rows("geglu_ff", b, randn)
+        rows["geglu_ff_wide"] += ff_rows("geglu_ff_wide", b, randn)
+    return rows
 
 
 FUSION_MODES = ("replace", "temporal", "adain", "mix", "fft_vfixed")
@@ -2287,6 +2617,8 @@ def main() -> int:
     phase_k1_tiles()
     rows.update(phase_ops_kernels())
     rows.update(phase_bench_kernels())
+    for name, more in phase_sched_kernels().items():  # K1, K2, K9 at the schedulers' batches
+        rows[name] += more
     bench_launches = phase_bench(args.bench_reps)
     model = build_model(SEED)
     launches = phase_swap(model, FRAMES, DDIM_STEPS, INVERSION_STEPS, SEED)
@@ -2302,12 +2634,15 @@ def main() -> int:
     model = build_model(SEED, conditioner=True)
     phase_video(model, SEED)
     torch.cuda.empty_cache()
+    phase_sched(model, SEED)
+    torch.cuda.empty_cache()
     train_launches = phase_train(model, SEED)
     phase_train_reference(model, SEED)
     if args.profile_train:
         phase_profile_train(model, SEED, args.profile_train)
-    del model  # the CLI builds its own model
+    del model  # the fp32 gate and the CLI build their own models
     torch.cuda.empty_cache()
+    phase_sched_gate(SEED)
     phase_cli(SEED)
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     launches.update({k: ops_launches[k] for k in OPS_KERNELS})

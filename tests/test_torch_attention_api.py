@@ -163,12 +163,31 @@ def test_frame_sharded_form_is_refused():
 
 
 def test_cross_window_carry_is_refused_by_the_unet():
-    """FlowPack carries prev/flow0 now; the UNet does not thread them yet and says so."""
+    """The carry is no longer refused: an attn1 site hands ``FlowPack.prev[site]``
+    and ``flow0`` to ``fuse_qkv`` (another site's entry is ignored), and writes
+    the carry it returns under its site into ``carry_out``."""
     attn = unet_mod.CrossAttention(32, heads=2)
-    x = torch.zeros(2 * F, 64, 32)
-    pack = O.FlowPack(flow=torch.zeros(F - 1, 8, 8, 2), prev={"q": x[:1]}, flow0=torch.zeros(1, 8, 8, 2))
-    with pytest.raises(ValueError, match="carry"):
-        attn(x, fusion=O.FusionConfig("flow_fix", flow_tokens=64), chunks=2, flow=pack)
+    x = t(_rand(2 * F, 64, 32, seed=41))
+    prev = {"q": t(_rand(1, 64, 32, seed=42)), "k": t(_rand(1, 64, 32, seed=43))}
+    flow, flow0 = (t(_rand(F - 1, 8, 8, 2, seed=44)), t(_rand(1, 8, 8, 2, seed=45)))
+    pack = O.FlowPack(flow=flow, prev={"in_0_0_attn": prev, "in_0_1_attn": None}, flow0=flow0)
+    fusion = O.FusionConfig("flow_fix", flow_tokens=64, two_chunk_replace=False)
+    calls = []
+    real = unet_mod.fuse_qkv
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return real(*args, **kw)
+
+    carry_out = {}
+    with mock.patch.object(unet_mod, "fuse_qkv", spy):
+        attn(x, fusion=fusion, chunks=2, flow=pack, site="in_0_0_attn", carry_out=carry_out)
+    assert calls[0]["prev_qk"] is prev and calls[0]["flow0"] is flow0 and calls[0]["flow"] is flow
+    q, k = attn.to_q(x), attn.to_k(x)
+    want = O.fuse_qkv(q, k, attn.to_v(x), fusion, chunks=2, flow=flow, prev_qk=prev, flow0=flow0)[3]
+    assert list(carry_out) == ["in_0_0_attn"]
+    for name in ("q", "k"):
+        close(carry_out["in_0_0_attn"][name], want[name].detach(), atol=0)
 
 
 # -------------------------------------------------------------- repair 0a

@@ -182,7 +182,7 @@ def test_finished_videos_are_skipped(runs, capsys):
     assert "[skip] a: output exists" in out and "[skip] b: output exists" in out
 
 
-@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_frames", "2"], ["--cross_window_carry"]])
+@pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_frames", "2"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_cli.main(["--config", str(tmp_path / "none.yaml"), "--tiny", *flag])

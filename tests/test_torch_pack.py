@@ -20,54 +20,20 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, np_tree, seeded_bundle_params, seeded_flax_params
+from _torch_port import close, tiny_video_bundle
 from vface_torch.io.image import write_png
-from vface_torch.models.ldm import ModelConfig, VFaceModel
 from vface_torch.pipelines import video_swap as TVS
 from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
 from vface_torch.runtime.checkpoint import VideoProgressManifest
-from vface_torch.utils.convert import from_flax_aux, from_flax_params
 
 S, H, W = 32, 48, 64
 OPTS = dict(ddim_steps=2, inversion_steps=2, window=3, image_size=S, parser_size=64, raft_iters=2,
             flow_tokens=16 * 16)
 
 
-def _smooth(shape, seed):
-    """Seeded smooth images in [0, 1] (low-frequency noise, upsampled)."""
-    n, h, w, _ = shape
-    base = torch.from_numpy(np.random.default_rng(seed).normal(size=(n, 3, h // 8, w // 8)).astype(np.float32))
-    up = torch.nn.functional.interpolate(base, size=(h, w), mode="bilinear", align_corners=False)
-    return torch.sigmoid(up).permute(0, 2, 3, 1).numpy().copy()
-
-
-def _keep(n):
-    yy, xx = np.mgrid[:S, :S]
-    face = ((yy - S * 0.55) / (S * 0.3)) ** 2 + ((xx - S * 0.5) / (S * 0.24)) ** 2 <= 1.0
-    return np.broadcast_to((~face).astype(np.float32)[None, :, :, None], (n, S, S, 1)).copy()
-
-
 @pytest.fixture(scope="module")
 def bundle():
-    import jax.numpy as jnp
-
-    from vface_tpu.models import ModelConfig as JConfig
-    from vface_tpu.models import VFaceModel as JModel
-    from vface_tpu.models.bisenet import BiSeNet
-    from vface_tpu.models.raft import RAFT, RAFTConfig
-    from vface_tpu.preprocess.landmarks import load_default_landmark_params
-
-    jm = JModel(JConfig.tiny(image_size=S))
-    params = seeded_bundle_params(jm, seed=11)
-    x = jnp.zeros((1, S, S, 3))
-    aux = {"bisenet": seeded_flax_params(BiSeNet(), jnp.zeros((1, 64, 64, 3)), seed=12),
-           "raft": seeded_flax_params(RAFT(RAFTConfig(iters=2)), x, x, seed=13),
-           "landmark": load_default_landmark_params()}
-    model = VFaceModel(ModelConfig.tiny(image_size=S), device="cpu", conditioner=True)
-    model.load_params(from_flax_params(np_tree(params)))
-    frames = _smooth((8, H, W, 3), seed=14)
-    return dict(jm=jm, params=params, jaux=aux, model=model, aux=from_flax_aux(np_tree(aux)), frames=frames,
-                source=_smooth((1, H, W, 3), seed=15)[0], keep=_keep(8))
+    return tiny_video_bundle(8, seed=11, s=S, hw=(H, W))
 
 
 def _pipe(bundle, **fields):
@@ -150,24 +116,30 @@ def test_pack_pair_mask():
 def test_scheduler_eligibility_uses_the_packed_width(bundle, tmp_path, resumed):
     """``invert_packs=2`` with ``batch_windows=2`` at window 2: on 6 frames
     (fewer than two packs of 4) JAX's super-pack test fails and both run the
-    sequential loop; on 8 frames it passes and the port raises, unless the
-    manifest lists a pack as done (a resumed run takes the sequential loop)."""
+    sequential loop; on 8 frames it passes and the super-pack runs, within
+    2e-5 of the sequential loop, unless the manifest lists a pack as done (a
+    resumed run takes the sequential loop)."""
     pipe = _pipe(bundle, window=2, batch_windows=2, invert_packs=2)
-    ref = _swap(bundle, 6, _pipe(bundle, window=2, batch_windows=2))
-    close(_swap(bundle, 6, pipe), ref, atol=0)
+    superpacks = []
+    real = pipe._superpack
+    pipe._superpack = lambda *a, **kw: superpacks.append(a[2].shape[0]) or real(*a, **kw)
+    seq = _pipe(bundle, window=2, batch_windows=2)
+    close(_swap(bundle, 6, pipe), _swap(bundle, 6, seq), atol=0)
+    assert superpacks == []
     manifest = None
     if resumed:
         manifest = VideoProgressManifest(str(tmp_path / "m.json"))
+        ref = _swap(bundle, 6, seq)
         paths = []
         for i, fr in enumerate(ref[:4].numpy()):
             paths.append(str(tmp_path / f"{i}.png"))
             write_png(paths[-1], (np.clip(fr, 0, 1) * 255).astype(np.uint8))
         manifest.mark_done(0, 4, paths)
-        out = _swap(bundle, 8, pipe, manifest=manifest)
-        assert tuple(out.shape) == (8, H, W, 3)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            _swap(bundle, 8, pipe)
+    out = _swap(bundle, 8, pipe, manifest=manifest)
+    assert tuple(out.shape) == (8, H, W, 3)
+    assert superpacks == ([] if resumed else [8])
+    if not resumed:
+        close(out, _swap(bundle, 8, seq), atol=2e-5)
 
 
 # ------------------------------------------------------------------ resume

@@ -145,10 +145,7 @@ def test_swap_video_frames_matches_jax(run, mode):
     close(got, run["want"][mode], atol=1e-4)
 
 
-UNPORTED = {  # window packing and the manifest / window_sink mode run: tests/test_torch_pack.py
-    "cross_window_carry": (dict(cross_window_carry=True), {}),
-    "super_pack": (dict(invert_packs=2, window=2), {}),
-    "pipeline_packs": (dict(pipeline_packs=True), {}),
+UNPORTED = {  # the packing, the schedulers and the carry run: tests/test_torch_{pack,sched,carry}.py
     "eta": (dict(eta=0.5), {}),
     "encoder_interval": (dict(encoder_interval=2), {}),
 }
@@ -156,13 +153,12 @@ UNPORTED = {  # window packing and the manifest / window_sink mode run: tests/te
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_paths_raise(run, case):
-    """Where the JAX package would leave the sequential loop (or sample with
-    eta > 0 or encoder propagation), the port raises rather than running the
-    loop in its place."""
+    """Where the JAX package would sample with eta > 0 or encoder propagation,
+    the port raises rather than running the loop without them."""
     fields, kw = UNPORTED[case]
     pipe = VideoSwapPipeline(run["tpipe"].model, SwapOptions(**{**OPTS, **fields}), device="cpu",
                              aux_params=run["aux"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         pipe.swap_video_frames(run["frames"], run["source"], frame_keep=run["keep"], source_keep=run["keep"][0],
                                **kw)
 

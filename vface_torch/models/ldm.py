@@ -109,9 +109,13 @@ class VFaceModel(nn.Module):
         """concat([z, z_inpaint, mask]) -> 9 channels."""
         return torch.cat([z, z_inpaint, mask_latent], dim=-1)
 
-    def apply_model(self, x9, t, context, flow=None, injection: Optional[InjectionSpec] = None):
-        """epsilon prediction; x9 (B, h, w, 9), t (B,) int, context (B, 1, D)."""
-        return self.unet(x9, t, context, flow=flow, injection=injection)
+    def apply_model(self, x9, t, context, flow=None, injection: Optional[InjectionSpec] = None,
+                    return_fgats_carry: bool = False):
+        """epsilon prediction; x9 (B, h, w, 9), t (B,) int, context (B, 1, D).
+
+        ``return_fgats_carry`` returns (epsilon, {site: {"q", "k"}}): each flow
+        site's last frame's post-FSAI q/k, the cross-window FGATS carry."""
+        return self.unet(x9, t, context, flow=flow, injection=injection, return_fgats_carry=return_fgats_carry)
 
     # ----------------------------------------------------------- schedule
     def _table(self, name: str, t: torch.Tensor) -> torch.Tensor:

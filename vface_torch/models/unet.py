@@ -22,9 +22,15 @@ activations are recomputed in the backward, so each attention site runs its
 forward twice per backward pass. It acts only where a gradient is being
 recorded.
 
+The cross-window FGATS carry: with a :class:`FlowPack` ``flow``, each attn1
+site takes ``FlowPack.prev[site]`` and ``FlowPack.flow0`` into
+:func:`fuse_qkv`; ``return_fgats_carry=True`` also returns the carry each
+flow site produces, ``{site: {"q", "k"}}``, keyed by the site's
+SpatialTransformer name (``in_0_0_attn``: the Flax path the JAX package's
+``_collect_fgats`` flattens).
+
 Not ported yet: the encoder cache, ``return_features``, the TSG conv
-injection, the dual 2x768 context, ``EncoderUNetModel``, and the cross-window
-FGATS carry through the sites (``FlowPack.prev``/``flow0`` raise).
+injection, the dual 2x768 context and ``EncoderUNetModel``.
 """
 
 from __future__ import annotations
@@ -104,7 +110,10 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(kv_dim, query_dim, bias=False, dtype=dtype)
         self.to_out = Dense(query_dim, query_dim, dtype=dtype)
 
-    def forward(self, x, context=None, fusion: FusionConfig = NONE, chunks: int = 3, flow=None):
+    def forward(self, x, context=None, fusion: FusionConfig = NONE, chunks: int = 3, flow=None,
+                site: str = "attn", carry_out: Optional[dict] = None):
+        """``site`` keys this layer's entry of ``FlowPack.prev`` and of
+        ``carry_out``, which receives the FGATS carry where one is produced."""
         ctx = x if context is None else context
         if context is not None and ctx.shape[1] == 1 and not fusion.active:
             # single-token context: the softmax over one key is exactly 1, so
@@ -114,13 +123,14 @@ class CrossAttention(nn.Module):
         q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
         if fusion.active:
             if isinstance(flow, FlowPack):
-                if flow.prev is not None or flow.flow0 is not None:
-                    raise ValueError("the cross-window FGATS carry (FlowPack.prev/flow0) is not "
-                                     "threaded through the port's UNet yet")
-                flow_arr, pair_mask = flow.flow, flow.pair_mask
+                prev_qk = None if flow.prev is None else flow.prev.get(site)
+                flow_arr, flow0, pair_mask = flow.flow, flow.flow0, flow.pair_mask
             else:
-                flow_arr, pair_mask = flow, None
-            q, k, v, _ = fuse_qkv(q, k, v, fusion, chunks=chunks, flow=flow_arr, pair_mask=pair_mask)
+                prev_qk, flow_arr, flow0, pair_mask = None, flow, None, None
+            q, k, v, carry = fuse_qkv(q, k, v, fusion, chunks=chunks, flow=flow_arr, prev_qk=prev_qk,
+                                      flow0=flow0, pair_mask=pair_mask)
+            if carry is not None and carry_out is not None:
+                carry_out[site] = carry
             q, k, v = q.to(self.dtype), k.to(self.dtype), v.to(self.dtype)
         if self.use_flash and context is None and x.shape[1] >= FLASH_MIN_TOKENS:
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), self.heads)
@@ -175,8 +185,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNormF32(dim)
         self.ff = FeedForward(dim, dtype=dtype, use_fused=use_fused_ff)
 
-    def forward(self, x, context, fusion: FusionConfig, chunks: int, flow):
-        x = x + self.attn1(self.norm1(x), None, fusion=fusion, chunks=chunks, flow=flow)
+    def forward(self, x, context, fusion: FusionConfig, chunks: int, flow, site: str = "attn",
+                carry_out: Optional[dict] = None):
+        x = x + self.attn1(self.norm1(x), None, fusion=fusion, chunks=chunks, flow=flow, site=site,
+                           carry_out=carry_out)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -196,13 +208,14 @@ class SpatialTransformer(nn.Module):
         self.depth = depth
         self.proj_out = Conv(channels, channels, kernel=1, zero_init=True, dtype=dtype)
 
-    def forward(self, x, context, fusion: FusionConfig, chunks: int, flow):
+    def forward(self, x, context, fusion: FusionConfig, chunks: int, flow, site: str = "attn",
+                carry_out: Optional[dict] = None):
         b, c, h, w = x.shape
         res = x
         x = self.proj_in(self.norm(x))
         x = x.reshape(b, c, h * w).transpose(1, 2)
         for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, context, fusion, chunks, flow)
+            x = getattr(self, f"block_{i}")(x, context, fusion, chunks, flow, site, carry_out)
         x = x.transpose(1, 2).reshape(b, c, h, w)
         return self.proj_out(x) + res
 
@@ -252,6 +265,8 @@ class UNetModel(nn.Module):
 
     ``injection`` selects the fusion per site class; ``flow`` is the FGATS
     pixel flow (F-1, Hq, Wq, 2) at the ds1 token grid, or a :class:`FlowPack`.
+    ``return_fgats_carry`` returns (epsilon, {site: {"q", "k"}}), the carry of
+    every flow site.
     """
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
@@ -298,8 +313,10 @@ class UNetModel(nn.Module):
         self.out_norm = GroupNorm32(ch)
         self.out_conv = Conv(ch, cfg.out_channels, zero_init=True, dtype=dt)
 
-    def forward(self, x, timesteps, context, flow=None, injection: Optional[InjectionSpec] = None):
+    def forward(self, x, timesteps, context, flow=None, injection: Optional[InjectionSpec] = None,
+                return_fgats_carry: bool = False):
         cfg = self.cfg
+        carry = {} if return_fgats_carry else None
         inj = injection or InjectionSpec()
         dt = cfg.dtype
         m = lambda name: getattr(self, name)
@@ -316,7 +333,7 @@ class UNetModel(nn.Module):
             return m(name)(*args)
 
         def attn(h, site, name):
-            return block(name, h, context, inj.for_site(site), inj.chunks, flow)
+            return block(name, h, context, inj.for_site(site), inj.chunks, flow, name, carry)
 
         hs = []
         h = self.conv_in(x)
@@ -344,5 +361,5 @@ class UNetModel(nn.Module):
                     h = m(f"out_{level}_up")(h)
                     ds //= 2
         h = nonlinearity(self.out_norm(h))
-        out = self.out_conv(h).to(torch.float32)
-        return out.permute(0, 2, 3, 1)
+        out = self.out_conv(h).to(torch.float32).permute(0, 2, 3, 1)
+        return (out, carry) if return_fgats_carry else out

@@ -1,17 +1,16 @@
 """The VFace video face swap: align, parse, flow, conditionings, windows, paste-back.
 
-Port of ``vface_tpu/pipelines/video_swap.py``'s sequential path:
+Port of ``vface_tpu/pipelines/video_swap.py``'s single-device paths:
 
-* :class:`SwapOptions`, the operating point (the fields the sequential path
-  reads; the pipelined and super-pack schedulers' fields are kept so that
-  asking for them raises instead of running something else);
+* :class:`SwapOptions`, the operating point;
 * :class:`VideoSwapPipeline`, the diffusion model with the aux nets (BiSeNet,
   RAFT, LandmarkNet) on one device, and its stages: ``detect_landmarks``,
   ``align_begin`` / ``align_finish`` (the host fallback for degenerate quads)
-  / ``align_crops``, ``parse_masks``, ``compute_flow``,
-  ``window_conditionings``, ``swap_window`` (the window core:
-  ``_swap_window_impl``'s semantics), ``swap_window_pasted`` with
-  ``decode_with_background``, and ``swap_video_frames``, the window loop.
+  / ``align_crops``, ``parse_masks``, ``compute_flow`` /
+  ``compute_flow_superpack``, ``window_conditionings``, ``swap_window`` (the
+  window core: ``_swap_window_impl``'s semantics), ``swap_window_pasted``
+  with ``decode_with_background``, and ``swap_video_frames``, the window loop
+  with its schedulers.
 
 The window core: VAE encode of the target crops and of the masked inpaint
 image; DDIM inversion (``skip_last=1`` in the recon-free mode: only the t=961
@@ -20,18 +19,27 @@ attn1 sites), 2-chunk unless ``keep_recon_chunk``; VAE decode and a clip to
 [0, 1]. The source is only encoded when ``co_invert_source`` asks for the
 literal co-inverted batch.
 
-The window loop packs ``batch_windows`` consecutive windows into one call
-(the FGATS blend masked at each window boundary, so the frames equal
-separate windows'), and with a ``manifest`` and a ``window_sink`` it is
-resumable: windows the manifest lists are read back from the sink's PNGs,
-and each computed window is handed to the sink and marked done in window
-order on a worker thread while the next window runs.
+The window loop steps over packs of ``window * batch_windows`` frames (the
+FGATS blend masked at each window boundary inside a pack, so the frames equal
+separate windows'). With ``cross_window_carry`` each window's first frame
+blends with the previous window's last frame's attention state. Where the
+JAX package's eligibility tests pass, a scheduler replaces the loop, each
+giving the loop's frames:
 
-Not ported yet, and raising ``NotImplementedError`` where the JAX package
-would take them (ROADMAP A4, A7, A9): the cross-window FGATS carry, the
-super-pack, streaming and pipelined schedulers, ``eta > 0`` and
-``encoder_interval > 1``. Where the JAX package's eligibility test for a
-scheduler fails, it runs the sequential loop, and so does the port.
+* ``pipeline_packs``: pack i+1's inversion rides pack i's sampling evals as
+  bystander rows (b = 2F + G), after a prologue inversion of pack 0 and
+  before a sampling-only epilogue;
+* ``invert_packs=2`` (the super-pack): two packs' inversions in one b = 2F
+  scan, their samplings at b = 2F each, or as one b = 4F scan with
+  ``merge_sampling`` (the pack boundary pair-masked), the VAE stages per pack;
+  on numpy frames the streaming form prepares group i+1 (upload through
+  pinned memory, alignment, parse, conditionings, flow) before super-pack i.
+
+With a ``manifest`` and a ``window_sink`` a run is resumable: packs the
+manifest lists are read back from the sink's PNGs, and each computed pack is
+handed to the sink and marked done in pack order on a worker thread while the
+next one runs. ``eta > 0`` and ``encoder_interval > 1`` are not ported and
+raise ``NotImplementedError`` (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from vface_torch.preprocess.align import compute_quad, paste_back, perspective_c
 from vface_torch.preprocess.landmarks import LandmarkNet, landmarks_to_vector
 from vface_torch.preprocess.masks import TRAIN_REMOVE, inpaint_inputs
 from vface_torch.samplers.inversion import ddim_invert
-from vface_torch.samplers.vface import vface_sample
+from vface_torch.samplers.vface import vface_sample, vface_sample_pipelined
 from vface_torch.utils.platform import resolve_device
 
 
@@ -79,16 +87,22 @@ class SwapOptions:
     # literal 3-chunk sampling batch; the recon chunk is inert, so off by default
     keep_recon_chunk: bool = False
     encoder_interval: int = 1  # 1 only (encoder propagation is ROADMAP A7)
-    cross_window_carry: bool = False  # not ported (ROADMAP A4/A7): asking for it raises
+    # the FGATS carry across windows: each window's frame 0 blends with the
+    # previous window's last frame (sequential loop only; experimental in the
+    # JAX package, whose benefit needs trained weights to show)
+    cross_window_carry: bool = False
     # pack this many consecutive windows into one call, the FGATS blend masked
     # at the window boundaries (the frames equal separate windows')
     batch_windows: int = 1
     # token count at which FGATS applies (4096 = the 64x64 grid at 512px)
     flow_tokens: int = 4096
-    # the pipelined-pack and super-pack schedulers are not ported (ROADMAP A9):
-    # where the JAX package would take one, the port raises
+    # the schedulers (each gives the sequential loop's frames): pack i+1's
+    # inversion on pack i's sampling evals (b = 2F + G)
     pipeline_packs: bool = False
+    # 2: two packs' inversions in one b = 2F scan (the super-pack)
     invert_packs: int = 1
+    # with invert_packs=2: both packs' sampling as one b = 4F scan
+    merge_sampling: bool = False
     raft_iters: int = 20  # RAFT GRU iterations (the reference pins 20)
     # background-trick resolution: 0 = full resolution (exact); r > 0 runs
     # the VAE round trip at r^2 and upsamples (only background pixels change)
@@ -212,6 +226,15 @@ class VideoSwapPipeline:
         return torch.cat([raft(x[i + 1:i + RAFT_MAX_PAIRS + 1], x[i:min(i + RAFT_MAX_PAIRS, n)])
                           for i in range(0, n, RAFT_MAX_PAIRS)], dim=0)
 
+    def compute_flow_superpack(self, crops01) -> Optional[torch.Tensor]:
+        """The flow of a super-pack's 2F frames, per pack: (2F-1, S, S, 2) with
+        the pack boundary's slot zero (no pack reads it); None for 1-frame packs."""
+        f = crops01.shape[0] // 2
+        if f < 2:
+            return None
+        fa, fb = self.compute_flow(crops01[:f]), self.compute_flow(crops01[f:])
+        return torch.cat([fa, torch.zeros_like(fa[:1]), fb], dim=0)
+
     # ------------------------------------------------------- conditionings
     @torch.inference_mode()
     def window_conditionings(self, crops, keep_mask, src_clip, src_crop01, src_landmarks):
@@ -241,37 +264,59 @@ class VideoSwapPipeline:
         return cond, model.uncond(f), inverse_cond, bcast(cond_w_src)
 
     # ------------------------------------------------------------- window
+    def _check_supported(self) -> None:
+        opts = self.opts
+        if opts.eta != 0.0:
+            raise NotImplementedError("eta > 0 needs the sampler's seeded noise source (ROADMAP A7)")
+        if opts.encoder_interval != 1:
+            raise NotImplementedError("encoder_interval > 1 (encoder propagation) is ROADMAP A7")
+
+    def _encode_pack(self, crops, keep_mask):
+        """(z_tar, z_inpaint, mask_lat) of one pack: crops (F, S, S, 3) in [-1, 1], keep_mask (F, S, S, 1)."""
+        hl = self.model.cfg.latent_size
+        z_inpaint = self.model.encode_first_stage(crops * keep_mask)
+        mask_lat = resize_bilinear(keep_mask, hl, hl)
+        z_tar = self.model.encode_first_stage(crops)
+        return z_tar, z_inpaint, mask_lat
+
+    def _latent_flow(self, flow):
+        """A pixel flow resized to the ds1 token grid, or None."""
+        hl = self.model.cfg.latent_size
+        return None if flow is None else resize_flow(self._on(flow), hl, hl)
+
+    def _decode01(self, z) -> torch.Tensor:
+        return torch.clamp((self.model.decode_first_stage(z) + 1.0) * 0.5, 0.0, 1.0)
+
     @torch.inference_mode()
     def swap_window(self, crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop,
                     src_keep_mask, flow: Optional[torch.Tensor] = None,
-                    timings: Optional[dict] = None, pair_mask=None) -> torch.Tensor:
+                    timings: Optional[dict] = None, pair_mask=None, fgats_prev: Optional[dict] = None,
+                    fgats_flow0: Optional[torch.Tensor] = None, return_fgats: bool = False):
         """One window (or a pack of windows) -> swapped crops (F, S, S, 3) in [0, 1].
 
         crops (F, S, S, 3) in [-1, 1]; keep_mask (F, S, S, 1), 1 = background
         kept; cond / uncond / inverse_cond / cond_w_src (F, 1, D); src_crop
         (1, S, S, 3) in [-1, 1]; src_keep_mask (1, S, S, 1); flow (F-1, S, S, 2)
         in pixels or None; pair_mask (F-1,) or None, with a flow: 0 turns off
-        the FGATS blend of pair (i, i+1) (a window boundary inside a pack). With
-        ``timings`` (a dict) the device is synchronised
-        at each stage boundary and the wall seconds of encode, invert, sample
-        and decode are added to it.
+        the FGATS blend of pair (i, i+1) (a window boundary inside a pack).
+        The cross-window carry: ``fgats_prev``, the previous window's per-step
+        carry stack, and ``fgats_flow0`` (1, S, S, 2), the pixel flow from
+        this window's frame 0 back to the previous window's last frame;
+        ``return_fgats`` returns (crops, this window's carry stack). With
+        ``timings`` (a dict) the device is synchronised at each stage boundary
+        and the wall seconds of encode, invert, sample and decode are added
+        to it.
         """
         opts, model = self.opts, self.model
-        if opts.eta != 0.0:
-            raise NotImplementedError("eta > 0 needs the sampler's seeded noise source (ROADMAP A7)")
-        if opts.encoder_interval != 1:
-            raise NotImplementedError("encoder_interval > 1 (encoder propagation) is ROADMAP A7")
-        dev = self.device
-        args = [crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask, flow, pair_mask]
+        self._check_supported()
+        args = [crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask, pair_mask]
         (crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask,
-         flow, pair_mask) = [None if a is None else self._on(a) for a in args]
+         pair_mask) = [None if a is None else self._on(a) for a in args]
         f = crops.shape[0]
         hl = model.cfg.latent_size
-        clock = _StageClock(timings, dev)
+        clock = _StageClock(timings, self.device)
 
-        z_inpaint = model.encode_first_stage(crops * keep_mask)
-        mask_lat = resize_bilinear(keep_mask, hl, hl)
-        z_tar = model.encode_first_stage(crops)
+        z_tar, z_inpaint, mask_lat = self._encode_pack(crops, keep_mask)
         if opts.co_invert_source:
             bcast = lambda t: t.expand((f,) + t.shape[1:])
             z_src = model.encode_first_stage(bcast(src_crop))
@@ -294,17 +339,16 @@ class VideoSwapPipeline:
             start_code = inv_latents[-2]  # t = 961 for S = 50 (timesteps end at 981)
         clock.mark("invert")
 
-        flow_q = None if flow is None else resize_flow(flow, hl, hl)
-        z0, _ = vface_sample(model, start_code, cond, uncond, inverse_cond, inv_latents, z_inpaint,
-                             mask_lat, self.injection, flow=flow_q, num_steps=opts.ddim_steps,
-                             cfg_scale=opts.cfg_scale, drop_recon_chunk=not opts.keep_recon_chunk,
-                             flow_pair_mask=pair_mask)
+        res = vface_sample(model, start_code, cond, uncond, inverse_cond, inv_latents, z_inpaint, mask_lat,
+                           self.injection, flow=self._latent_flow(flow), num_steps=opts.ddim_steps,
+                           cfg_scale=opts.cfg_scale, drop_recon_chunk=not opts.keep_recon_chunk,
+                           fgats_prev=fgats_prev, fgats_flow0=self._latent_flow(fgats_flow0),
+                           return_fgats_carry=return_fgats, flow_pair_mask=pair_mask)
         clock.mark("sample")
 
-        out = model.decode_first_stage(z0)
-        out01 = torch.clamp((out + 1.0) * 0.5, 0.0, 1.0)
+        out01 = self._decode01(res[0])
         clock.mark("decode")
-        return out01
+        return (out01, res[2]) if return_fgats else out01
 
     @torch.inference_mode()
     def decode_with_background(self, frames) -> torch.Tensor:
@@ -325,22 +369,124 @@ class VideoSwapPipeline:
             out = self.model.decode_first_stage(self.model.encode_first_stage(frames))
         return torch.clamp((out + 1.0) * 0.5, 0.0, 1.0)
 
-    @torch.inference_mode()
-    def swap_window_pasted(self, frames01_w, inv_coeffs_w, crops, keep_mask, cond, uncond, inverse_cond,
-                           cond_w_src, src_crop, src_keep_mask, flow=None,
-                           timings: Optional[dict] = None, pair_mask=None) -> torch.Tensor:
-        """:meth:`swap_window`, the background trick on the window's original
-        frames (F, H, W, 3) in [0, 1], and the paste-back of the swapped crops
-        through ``inv_coeffs_w`` (F, 8) with the face region (1 - keep_mask) as
-        the mask -> (F, H, W, 3) in [0, 1]; ``timings`` adds "background" and
-        "paste_back" to the window's stages."""
-        keep_mask = self._on(keep_mask)
-        swapped = self.swap_window(crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop,
-                                   src_keep_mask, flow, timings=timings, pair_mask=pair_mask)
-        clock = _StageClock(timings, self.device)
+    def _paste(self, frames01_w, inv_coeffs_w, keep_mask, swapped, clock) -> torch.Tensor:
+        """The background trick on the original frames and the paste-back of the swapped crops."""
         bg = self.decode_with_background(self._on(frames01_w) * 2.0 - 1.0)
         clock.mark("background")
         pasted = paste_back(bg, swapped, self._on(inv_coeffs_w), 1.0 - keep_mask)
+        clock.mark("paste_back")
+        return pasted
+
+    @torch.inference_mode()
+    def swap_window_pasted(self, frames01_w, inv_coeffs_w, crops, keep_mask, cond, uncond, inverse_cond,
+                           cond_w_src, src_crop, src_keep_mask, flow=None,
+                           timings: Optional[dict] = None, pair_mask=None, fgats_prev: Optional[dict] = None,
+                           fgats_flow0=None, return_fgats: bool = False):
+        """:meth:`swap_window`, the background trick on the window's original
+        frames (F, H, W, 3) in [0, 1], and the paste-back of the swapped crops
+        through ``inv_coeffs_w`` (F, 8) with the face region (1 - keep_mask) as
+        the mask -> (F, H, W, 3) in [0, 1] (and the carry stack with
+        ``return_fgats``); ``timings`` adds "background" and "paste_back" to
+        the window's stages."""
+        keep_mask = self._on(keep_mask)
+        res = self.swap_window(crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop,
+                               src_keep_mask, flow, timings=timings, pair_mask=pair_mask, fgats_prev=fgats_prev,
+                               fgats_flow0=fgats_flow0, return_fgats=return_fgats)
+        swapped = res[0] if return_fgats else res
+        pasted = self._paste(frames01_w, inv_coeffs_w, keep_mask, swapped, _StageClock(timings, self.device))
+        return (pasted, res[1]) if return_fgats else pasted
+
+    # ---------------------------------------------------- pipelined packs
+    def _invert_pack(self, crops, keep_mask, inverse_cond, timings=None):
+        """The pipelined packs' prologue: encode and invert pack 0 -> (start
+        code, z_inpaint, mask_lat); recon-free, so ``skip_last=1``."""
+        clock = _StageClock(timings, self.device)
+        z_tar, z_inpaint, mask_lat = self._encode_pack(crops, keep_mask)
+        clock.mark("encode")
+        x_T, _ = ddim_invert(self.model, z_tar, inverse_cond, z_inpaint, mask_lat,
+                             num_steps=self.opts.inversion_steps, keep=1, skip_last=1)
+        clock.mark("invert")
+        return x_T, z_inpaint, mask_lat
+
+    def _pipelined_step(self, frames01_i, inv_coeffs_i, keep_i, start_i, z_inpaint_i, mask_lat_i, cond_i,
+                        uncond_i, flow_i, pair_mask_i, crops_next, keep_next, inv_cond_next, timings=None):
+        """The steady state: sample pack i while pack i+1's inversion rides
+        the same UNet evals as bystander rows, then decode, the background
+        trick and the paste-back of pack i -> (pasted, pack i+1's start code,
+        z_inpaint, mask_lat)."""
+        opts = self.opts
+        clock = _StageClock(timings, self.device)
+        z_tar_n, z_inp_n, ml_n = self._encode_pack(crops_next, keep_next)
+        clock.mark("encode")
+        z0, _, start_next = vface_sample_pipelined(
+            self.model, start_i, cond_i, uncond_i, z_inpaint_i, mask_lat_i, self.injection, next_z0=z_tar_n,
+            next_cond=inv_cond_next, next_inpaint=z_inp_n, next_mask=ml_n, inversion_steps=opts.inversion_steps,
+            skip_last=1, flow=self._latent_flow(flow_i), num_steps=opts.ddim_steps, cfg_scale=opts.cfg_scale,
+            flow_pair_mask=None if pair_mask_i is None else self._on(pair_mask_i))
+        clock.mark("pipelined")
+        out01 = self._decode01(z0)
+        clock.mark("decode")
+        return self._paste(frames01_i, inv_coeffs_i, keep_i, out01, clock), start_next, z_inp_n, ml_n
+
+    def _final_pack(self, frames01_i, inv_coeffs_i, keep_i, start_i, z_inpaint_i, mask_lat_i, cond_i, uncond_i,
+                    flow_i, pair_mask_i, timings=None):
+        """The epilogue: sampling only for the last pack (no inversion rides it)."""
+        opts = self.opts
+        clock = _StageClock(timings, self.device)
+        z0, _ = vface_sample(self.model, start_i, cond_i, uncond_i, cond_i, None, z_inpaint_i, mask_lat_i,
+                             self.injection, flow=self._latent_flow(flow_i), num_steps=opts.ddim_steps,
+                             cfg_scale=opts.cfg_scale, drop_recon_chunk=True,
+                             flow_pair_mask=None if pair_mask_i is None else self._on(pair_mask_i))
+        clock.mark("sample")
+        out01 = self._decode01(z0)
+        clock.mark("decode")
+        return self._paste(frames01_i, inv_coeffs_i, keep_i, out01, clock)
+
+    # --------------------------------------------------------- super-pack
+    def _superpack(self, frames01_2, inv_coeffs_2, crops_2, keep_2, cond_2, uncond_2, inv_cond_2, flow_2,
+                   timings=None) -> torch.Tensor:
+        """Two packs (2F frames) at once: one b = 2F inversion scan, then each
+        pack's 2-chunk sampling at b = 2F, or both as one b = 4F scan with
+        ``merge_sampling`` (the FGATS blend masked at the pack boundary, whose
+        flow slot ``compute_flow_superpack`` leaves zero, as at a window
+        boundary). The VAE stages run per pack, at b = F, which keeps the 512^2
+        VAE's peak at one pack's. The packs' frames equal two separate packs':
+        batch rows are independent and each pack blends only its own pairs."""
+        opts, model = self.opts, self.model
+        f = crops_2.shape[0] // 2
+        clock = _StageClock(timings, self.device)
+
+        def per_half(fn, *xs):
+            outs = [fn(*(x[h * f:(h + 1) * f] for x in xs)) for h in (0, 1)]
+            if isinstance(outs[0], tuple):
+                return tuple(torch.cat(parts) for parts in zip(*outs))
+            return torch.cat(outs)
+
+        z_tar, z_inpaint, mask_lat = per_half(self._encode_pack, crops_2, keep_2)
+        clock.mark("encode")
+        x_T, _ = ddim_invert(model, z_tar, inv_cond_2, z_inpaint, mask_lat, num_steps=opts.inversion_steps, keep=1,
+                             skip_last=1)
+        clock.mark("invert")
+        flow_q = self._latent_flow(flow_2)
+
+        def sample(sl, flow, pair_mask):
+            pm = None if pair_mask is None or flow is None else self._on(pair_mask)
+            return vface_sample(model, x_T[sl], cond_2[sl], uncond_2[sl], cond_2[sl], None, z_inpaint[sl],
+                                mask_lat[sl], self.injection, flow=flow, num_steps=opts.ddim_steps,
+                                cfg_scale=opts.cfg_scale, drop_recon_chunk=True, flow_pair_mask=pm)[0]
+
+        if opts.merge_sampling:
+            z0 = sample(slice(None), flow_q, pack_pair_mask(2 * f, opts.window))
+        else:
+            pm = pack_pair_mask(f, opts.window)
+            halves = (None, None) if flow_q is None else (flow_q[:f - 1], flow_q[f:])
+            z0 = torch.cat([sample(slice(0, f), halves[0], pm), sample(slice(f, 2 * f), halves[1], pm)])
+        clock.mark("sample")
+        out01 = per_half(self._decode01, z0)
+        clock.mark("decode")
+        bg = per_half(lambda fr: self.decode_with_background(fr * 2.0 - 1.0), self._on(frames01_2))
+        clock.mark("background")
+        pasted = paste_back(bg, out01, self._on(inv_coeffs_2), 1.0 - keep_2)
         clock.mark("paste_back")
         return pasted
 
@@ -359,105 +505,126 @@ class VideoSwapPipeline:
             raise ValueError(f"frame_keep has {keep.shape[0]} masks for {n} frames")
         return keep
 
-    def _refuse_unported_paths(self, n: int, manifest) -> None:
-        """Raise where the JAX package would leave the sequential loop: its
-        eligibility tests for the super-pack (and streaming) and pipelined
-        schedulers, on the packed window ``window * batch_windows``."""
-        opts = self.opts
-        if opts.cross_window_carry:
-            raise NotImplementedError("cross_window_carry (the FGATS carry across windows) is ROADMAP A4/A7")
-        w = opts.window * max(1, opts.batch_windows)
-        exact = not opts.keep_recon_chunk
-        fresh = manifest is None or not any(manifest.is_done(s0) for s0 in range(0, n, w))
-        if opts.invert_packs == 2 and exact and opts.inversion_steps >= 2 and n >= 2 * w and fresh:
-            raise NotImplementedError("the super-pack and streaming schedulers (invert_packs=2) are ROADMAP A9")
-        if (opts.pipeline_packs and exact and opts.encoder_interval == 1
-                and opts.inversion_steps <= opts.ddim_steps + 1 and n >= w + 1 and fresh):
-            raise NotImplementedError("the pipelined-pack scheduler (pipeline_packs) is ROADMAP A9")
-
     # ------------------------------------------------------------ full run
+    def _source_inputs(self, source01, source_keep, remove_classes, clock) -> dict:
+        """The aligned source (crop01 (1, S, S, 3)), its keep-mask, the masked,
+        CLIP-normalised reference (clip) and its landmarks (lm)."""
+        src_crop01, _ = self.align_crops(self._on(source01)[None])
+        clock.mark("align")
+        if source_keep is not None:
+            src_keep = self._coerce_keep(source_keep[None], src_crop01.shape).to(self.device)
+        else:
+            _, src_keep = inpaint_inputs(src_crop01 * 2 - 1, self.parse_masks(src_crop01), remove_classes)
+        clock.mark("parse")
+        src_clip = clip_preprocess(src_crop01 * (1.0 - src_keep), self.model.cfg.cond.clip.image_size)
+        src_lm = landmarks_to_vector(self.detect_landmarks(src_crop01))
+        clock.mark("conditionings")
+        return dict(crop01=src_crop01, keep=src_keep, clip=src_clip, lm=src_lm)
+
+    def _pack_inputs(self, crops01, keep_mask, src: dict, clock, flow_fn=None) -> dict:
+        """One pack's crops in [-1, 1] (c), keep-masks (km), flow, pair mask (pm,
+        at the window boundaries inside a pack) and conditionings; ``flow_fn``
+        replaces :meth:`compute_flow`."""
+        nf = crops01.shape[0]
+        c = crops01 * 2 - 1
+        flow = (flow_fn or self.compute_flow)(crops01) if nf > 1 else None
+        clock.mark("flow")
+        pm = None
+        if flow is not None and self.opts.batch_windows > 1 and not self.opts.cross_window_carry:
+            pm = pack_pair_mask(nf, self.opts.window)
+        cond, uncond, inv_c, c_src = self.window_conditionings(c, keep_mask, src["clip"], src["crop01"], src["lm"])
+        clock.mark("conditionings")
+        return dict(c=c, km=keep_mask, flow=flow, pm=pm, cond=cond, uncond=uncond, inv_c=inv_c, c_src=c_src)
+
+    def _swap_pack(self, frames01_w, inv_coeffs_w, p: dict, src: dict, timings, **carry):
+        """One pack through :meth:`swap_window_pasted`."""
+        return self.swap_window_pasted(frames01_w, inv_coeffs_w, p["c"], p["km"], p["cond"], p["uncond"], p["inv_c"],
+                                       p["c_src"], src["crop01"] * 2 - 1, src["keep"], p["flow"], timings=timings,
+                                       pair_mask=p["pm"], **carry)
+
     @torch.inference_mode()
     def swap_video_frames(self, frames01, source01, remove_classes=None, manifest=None, window_sink=None,
                           frame_landmarks=None, frame_keep=None, source_keep=None,
                           timings: Optional[dict] = None) -> torch.Tensor:
         """Align, parse, then the window loop (flow, conditionings, window,
-        background, paste-back): frames01 (N, H, W, 3) in [0, 1] and
-        source01 (H', W', 3) -> swapped frames (N, H, W, 3) float32 in [0, 1], on the CPU.
+        background, paste-back) or a scheduler: frames01 (N, H, W, 3) in [0, 1]
+        and source01 (H', W', 3) -> swapped frames (N, H, W, 3) float32 in
+        [0, 1], on the CPU.
 
         ``frame_keep`` / ``source_keep``: precomputed keep masks (1 = background
         kept) in crop space, (N, S, S[, 1]) / (S, S[, 1]); the parse of that
         side is then skipped. ``frame_landmarks`` (N, 68, 2) replaces the
         frames' landmark detection.
 
-        The loop steps over packs of ``window * batch_windows`` frames. With a
-        ``manifest`` (:class:`~vface_torch.runtime.checkpoint.VideoProgressManifest`),
-        a pack it lists as done is not recomputed: its frames are read back
-        from the PNG paths it records. With a ``window_sink`` too, each
-        computed pack goes to ``window_sink(start, frames (F, H, W, 3) float32
-        numpy) -> paths`` and then to ``manifest.mark_done``, in pack order on
-        one worker thread, while the next pack runs; a sink that raises stops
-        the marks there, and the error is raised. Every pack is marked before
-        the call returns. With ``timings`` the device is
-        synchronised at each stage boundary and each stage's wall seconds
-        (align, parse, flow, conditionings, encode, invert, sample, decode,
-        background, paste_back; resumed: reading done windows back; with a
-        sink, sink_wait: the wait for the last windows' sink after the loop)
-        are added to it.
+        The loop steps over packs of ``window * batch_windows`` frames. The
+        schedulers take over where the JAX package's eligibility tests pass
+        (checked in its order, on the pack width w): the super-pack with
+        ``invert_packs=2`` on at least 2w frames, streamed for numpy frames
+        without ``frame_landmarks`` / ``frame_keep``; else the pipelined packs
+        with ``pipeline_packs`` on at least w + 1 frames and
+        ``inversion_steps <= ddim_steps + 1``. Each needs the recon-free
+        operating point, no ``cross_window_carry`` and a fresh run (no pack
+        listed in the manifest); otherwise the loop runs.
+
+        With a ``manifest``
+        (:class:`~vface_torch.runtime.checkpoint.VideoProgressManifest`), a pack
+        it lists as done is not recomputed: its frames are read back from the
+        PNG paths it records. With a ``window_sink`` too, each computed pack
+        goes to ``window_sink(start, frames (F, H, W, 3) float32 numpy) ->
+        paths`` and then to ``manifest.mark_done``, in pack order on one
+        worker thread, while the next pack runs; a sink that raises stops the
+        marks there, and the error is raised. Every pack is marked before the
+        call returns. With ``timings`` the device is synchronised at each
+        stage boundary and each stage's wall seconds (align, parse, flow,
+        conditionings, encode, invert, sample, decode, background,
+        paste_back; pipelined: the fused sampling + next inversion evals;
+        resumed: reading done windows back; with a sink, sink_wait: the wait
+        for the last windows' sink after the loop) are added to it.
         """
         opts = self.opts
-        n = int(frames01.shape[0])
-        self._refuse_unported_paths(n, manifest)
+        self._check_supported()
         if self.model.conditioner is None:
             raise ValueError("VideoSwapPipeline: the video path needs a model built with conditioner=True")
-        remove_classes = remove_classes or TRAIN_REMOVE
-        clip_size = self.model.cfg.cond.clip.image_size
-        clock = _StageClock(timings, self.device)
-        frames01 = self._on(frames01)
-        src = self._on(source01)[None]
-
-        src_crop01, _ = self.align_crops(src)
-        crops01, inv_coeffs = self.align_crops(frames01, landmarks=frame_landmarks)  # sets fallback_frames
-        clock.mark("align")
-        if frame_keep is not None:
-            keep_mask = self._coerce_keep(frame_keep, crops01.shape).to(self.device)
-        else:
-            _, keep_mask = inpaint_inputs(crops01 * 2 - 1, self.parse_masks(crops01), remove_classes)
-        if source_keep is not None:
-            src_keep = self._coerce_keep(source_keep[None], src_crop01.shape).to(self.device)
-        else:
-            _, src_keep = inpaint_inputs(src_crop01 * 2 - 1, self.parse_masks(src_crop01), remove_classes)
-        clock.mark("parse")
-        # the masked, CLIP-normalised source reference and the source's landmarks
-        src_clip = clip_preprocess(src_crop01 * (1.0 - src_keep), clip_size)
-        src_lm = landmarks_to_vector(self.detect_landmarks(src_crop01))
-        clock.mark("conditionings")
-
+        n = int(frames01.shape[0])
         w = opts.window * max(1, opts.batch_windows)
+        fresh = manifest is None or not any(manifest.is_done(s0) for s0 in range(0, n, w))
+        exact = not opts.cross_window_carry and not opts.keep_recon_chunk
+        can_superpack = opts.invert_packs == 2 and exact and opts.inversion_steps >= 2 and n >= 2 * w and fresh
+        can_stream = (can_superpack and frame_landmarks is None and frame_keep is None
+                      and isinstance(frames01, np.ndarray))
+        can_pipeline = (opts.pipeline_packs and exact and opts.encoder_interval == 1
+                        and opts.inversion_steps <= opts.ddim_steps + 1 and n >= w + 1 and fresh)
+        remove_classes = remove_classes or TRAIN_REMOVE
+        clock = _StageClock(timings, self.device)
+        src = self._source_inputs(source01, source_keep, remove_classes, clock)
+
         persist = _WindowPersist(manifest, window_sink) if manifest is not None and window_sink is not None else None
         out_frames = []
+
+        def emit(s0, pasted, resumed=False):
+            """A computed pack goes to the output (through the sink, with one); a resumed one is only kept."""
+            pasted = pasted.float()
+            out_frames.append(pasted.cpu() if persist is None or resumed else persist.submit(s0, pasted))
+
         try:
-            for s0 in range(0, n, w):
-                if persist is not None:
-                    persist.raise_error()
-                if manifest is not None and manifest.is_done(s0):
-                    paths = manifest.data["windows"][str(s0)]["outputs"]
-                    out_frames.append(torch.from_numpy(np.stack([_load_png01(p) for p in paths])))
-                    clock.mark("resumed")
-                    continue
-                sl = slice(s0, min(s0 + w, n))
-                c, km = crops01[sl] * 2 - 1, keep_mask[sl]
-                nf = sl.stop - s0
-                flow = self.compute_flow(crops01[sl]) if nf > 1 else None
-                clock.mark("flow")
-                pair_mask = pack_pair_mask(nf, opts.window) if flow is not None and opts.batch_windows > 1 else None
-                cond, uncond, inv_c, c_src = self.window_conditionings(c, km, src_clip, src_crop01, src_lm)
-                clock.mark("conditionings")
-                pasted = self.swap_window_pasted(frames01[sl], inv_coeffs[sl], c, km, cond, uncond, inv_c, c_src,
-                                                 src_crop01 * 2 - 1, src_keep, flow, timings=timings,
-                                                 pair_mask=pair_mask)
-                pasted = pasted.float()
-                out_frames.append(pasted.cpu() if persist is None else persist.submit(s0, pasted))
-                clock.reset()
+            if can_stream:
+                self._swap_frames_superpacked_streaming(frames01, src, remove_classes, emit, clock, timings)
+            else:
+                frames01 = self._on(frames01)
+                crops01, inv_coeffs = self.align_crops(frames01, landmarks=frame_landmarks)  # sets fallback_frames
+                clock.mark("align")
+                if frame_keep is not None:
+                    keep_mask = self._coerce_keep(frame_keep, crops01.shape).to(self.device)
+                else:
+                    _, keep_mask = inpaint_inputs(crops01 * 2 - 1, self.parse_masks(crops01), remove_classes)
+                clock.mark("parse")
+                clip = (frames01, crops01, inv_coeffs, keep_mask)
+                if can_superpack:
+                    self._swap_frames_superpacked(*clip, src, emit, clock, timings)
+                elif can_pipeline:
+                    self._swap_frames_pipelined(*clip, src, emit, clock, timings)
+                else:
+                    self._swap_frames_sequential(*clip, src, emit, clock, timings, manifest, persist)
         finally:
             if persist is not None:
                 persist.shutdown()
@@ -465,6 +632,142 @@ class VideoSwapPipeline:
         if persist is not None:
             persist.raise_error()
         return torch.cat(out_frames, dim=0)
+
+    def _swap_frames_sequential(self, frames01, crops01, inv_coeffs, keep_mask, src, emit, clock, timings,
+                                manifest, persist) -> None:
+        """The window loop, one pack at a time, with the cross-window carry:
+        the carry is reset after a pack read back from the manifest, and no
+        pair mask applies inside a pack while it is on."""
+        opts = self.opts
+        n = crops01.shape[0]
+        w = opts.window * max(1, opts.batch_windows)
+        carry = None
+        for s0 in range(0, n, w):
+            if persist is not None:
+                persist.raise_error()
+            if manifest is not None and manifest.is_done(s0):
+                paths = manifest.data["windows"][str(s0)]["outputs"]
+                emit(s0, torch.from_numpy(np.stack([_load_png01(p) for p in paths])), resumed=True)
+                clock.mark("resumed")
+                carry = None  # a window read back has no carry state
+                continue
+            sl = slice(s0, min(s0 + w, n))
+            want_carry = opts.cross_window_carry and sl.stop - s0 > 1
+            # the boundary flow: this window's frame 0 back to the previous window's last frame
+            flow0 = self.compute_flow(crops01[s0 - 1:s0 + 1]) if want_carry and carry is not None else None
+            p = self._pack_inputs(crops01[sl], keep_mask[sl], src, clock)
+            res = self._swap_pack(frames01[sl], inv_coeffs[sl], p, src, timings,
+                                  fgats_prev=carry if flow0 is not None else None, fgats_flow0=flow0,
+                                  return_fgats=want_carry)
+            pasted, carry = res if want_carry else (res, None)
+            emit(s0, pasted)
+            clock.reset()
+
+    def _swap_frames_pipelined(self, frames01, crops01, inv_coeffs, keep_mask, src, emit, clock, timings) -> None:
+        """The pipelined packs: a prologue inversion of pack 0, then per pack i
+        one fused program (pack i's sampling with pack i+1's inversion), a
+        sampling-only epilogue for the last full pack, and the trailing short
+        window through :meth:`swap_window_pasted`."""
+        opts = self.opts
+        n = crops01.shape[0]
+        w = opts.window * max(1, opts.batch_windows)
+        n_full = n // w
+        prep = lambda s0, stop: self._pack_inputs(crops01[s0:stop], keep_mask[s0:stop], src, clock)
+        cur = prep(0, w)
+        start, zi, ml = self._invert_pack(cur["c"], cur["km"], cur["inv_c"], timings=timings)
+        clock.reset()  # the prologue's stages are on its own clock
+        for i in range(n_full):
+            sl = slice(i * w, (i + 1) * w)
+            pack = (frames01[sl], inv_coeffs[sl], cur["km"], start, zi, ml, cur["cond"], cur["uncond"], cur["flow"],
+                    cur["pm"])
+            if i + 1 < n_full:
+                nxt = prep(sl.stop, sl.stop + w)
+                pasted, start, zi, ml = self._pipelined_step(*pack, nxt["c"], nxt["km"], nxt["inv_c"], timings=timings)
+                cur = nxt
+            else:
+                pasted = self._final_pack(*pack, timings=timings)
+            emit(sl.start, pasted)
+            clock.reset()
+        if n > n_full * w:
+            s0 = n_full * w
+            p = prep(s0, n)
+            emit(s0, self._swap_pack(frames01[s0:], inv_coeffs[s0:], p, src, timings))
+
+    def _swap_frames_superpacked(self, frames01, crops01, inv_coeffs, keep_mask, src, emit, clock, timings) -> None:
+        """The super-pack loop: packs in pairs through :meth:`_superpack`, an
+        odd trailing pack and the short remainder through
+        :meth:`swap_window_pasted`. Each pack is emitted on its own."""
+        w = self.opts.window * max(1, self.opts.batch_windows)
+        n = crops01.shape[0]
+        i = 0
+        while (i + 2) * w <= n:
+            sl = slice(i * w, (i + 2) * w)
+            p = self._pack_inputs(crops01[sl], keep_mask[sl], src, clock, flow_fn=self.compute_flow_superpack)
+            pasted = self._superpack(frames01[sl], inv_coeffs[sl], p["c"], p["km"], p["cond"], p["uncond"],
+                                     p["inv_c"], p["flow"], timings=timings)
+            emit(sl.start, pasted[:w])
+            emit(sl.start + w, pasted[w:])
+            clock.reset()
+            i += 2
+        for s0 in range(i * w, n, w):
+            sl = slice(s0, min(s0 + w, n))
+            p = self._pack_inputs(crops01[sl], keep_mask[sl], src, clock)
+            emit(s0, self._swap_pack(frames01[sl], inv_coeffs[sl], p, src, timings))
+            clock.reset()
+
+    def _swap_frames_superpacked_streaming(self, frames01_np: np.ndarray, src, remove_classes, emit, clock,
+                                           timings) -> None:
+        """The super-pack loop on host frames, in groups of two packs: group
+        i+1's whole preparation (the upload through pinned memory, landmarks
+        and quads, the quad fetch and ``align_finish`` with the fallback quad
+        carried across groups, parse, conditionings and flow) runs before
+        super-pack i, so that its host work is done when the card takes the
+        super-pack. The packs after the last group are aligned per pack and go
+        through :meth:`swap_window_pasted`. The frames equal the super-pack
+        loop's on the whole clip where the landmark net and the parser give
+        the same results on a group as on the clip (on the card their
+        convolutions round by batch)."""
+        opts = self.opts
+        n = int(frames01_np.shape[0])
+        w = opts.window * max(1, opts.batch_windows)
+        g = 2 * w
+        n_groups = n // g
+
+        def upload_and_begin(s0, stop):
+            host = torch.from_numpy(np.ascontiguousarray(frames01_np[s0:stop], dtype=np.float32))
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            fr = host.to(self.device, non_blocking=True)
+            quad, qsize = self.align_begin(fr)
+            return dict(s0=s0, fr=fr, quad=quad, qsize=qsize)
+
+        def finish_prep(st, prev_quad, flow_fn=None):
+            crops01, coeffs, prev_quad = self.align_finish(st["fr"], st["quad"], st["qsize"], prev_quad)
+            clock.mark("align")
+            _, keep = inpaint_inputs(crops01 * 2 - 1, self.parse_masks(crops01), remove_classes)
+            clock.mark("parse")
+            st.update(coeffs=coeffs, p=self._pack_inputs(crops01, keep, src, clock, flow_fn=flow_fn))
+            return st, prev_quad
+
+        superpack_prep = lambda st, prev_quad: finish_prep(st, prev_quad, self.compute_flow_superpack)
+        cur, prev_quad = superpack_prep(upload_and_begin(0, g), None) if n_groups else (None, None)
+        nxt_st = upload_and_begin(g, 2 * g) if n_groups > 1 else None
+        for i in range(n_groups):
+            nxt = None
+            if nxt_st is not None:
+                nxt, prev_quad = superpack_prep(nxt_st, prev_quad)
+            p = cur["p"]
+            pasted = self._superpack(cur["fr"], cur["coeffs"], p["c"], p["km"], p["cond"], p["uncond"], p["inv_c"],
+                                     p["flow"], timings=timings)
+            nxt_st = upload_and_begin((i + 2) * g, (i + 3) * g) if i + 2 < n_groups else None
+            emit(cur["s0"], pasted[:w])
+            emit(cur["s0"] + w, pasted[w:])
+            clock.reset()
+            cur = nxt
+        for s0 in range(n_groups * g, n, w):
+            st, prev_quad = finish_prep(upload_and_begin(s0, min(s0 + w, n)), prev_quad)
+            emit(s0, self._swap_pack(st["fr"], st["coeffs"], st["p"], src, timings))
+            clock.reset()
 
 
 def pack_pair_mask(nf: int, window: int) -> Optional[np.ndarray]:

@@ -39,8 +39,13 @@ def ddim_invert(model, z0, cond, inpaint_latent, mask_latent, num_steps: int = 5
     for i in range(n):
         t = torch.full((b,), int(sch.timesteps[i]), dtype=torch.int64, device=dev)
         e_t = model.apply_model(torch.cat([x, extra], dim=-1), t, cond)
-        an = torch.tensor(sch.inv_alpha_next[i], device=dev)
-        ac = torch.tensor(sch.inv_alpha_cur[i], device=dev)
-        x = (x - torch.sqrt(1.0 - ac) * e_t) * torch.sqrt(an / ac) + torch.sqrt(1.0 - an) * e_t
+        x = invert_step(x, e_t, sch, i)
         latents.append(x[:keep])
     return x, torch.stack(latents)
+
+
+def invert_step(x: torch.Tensor, e_t: torch.Tensor, sch: DDIMSchedule, i: int) -> torch.Tensor:
+    """One ascending step with the alpha pair of ``sch``'s step ``i``."""
+    an = torch.tensor(sch.inv_alpha_next[i], device=x.device)
+    ac = torch.tensor(sch.inv_alpha_cur[i], device=x.device)
+    return (x - torch.sqrt(1.0 - ac) * e_t) * torch.sqrt(an / ac) + torch.sqrt(1.0 - an) * e_t

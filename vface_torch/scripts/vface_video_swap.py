@@ -18,10 +18,10 @@ replaces the frames' BiSeNet parse.
 
 Runs on CUDA, and raises without a card, unless ``VFACE_PLATFORM=cpu``. The
 flags are the JAX CLI's; ``--mesh_data`` / ``--mesh_frames`` other than 0
-(multi-GPU, ROADMAP A13) and ``--cross_window_carry`` (ROADMAP A4/A7) raise
-``NotImplementedError``. Without ``--params`` / ``--aux_params`` the weights
-are the port's seeded init (``--seed``), which is not the JAX package's; the
-npz files the JAX package's ``save_params_npz`` writes load as they are.
+(multi-GPU, ROADMAP A13) raise ``NotImplementedError``. Without ``--params`` /
+``--aux_params`` the weights are the port's seeded init (``--seed``), which is
+not the JAX package's; the npz files the JAX package's ``save_params_npz``
+writes load as they are.
 Each video prints ``[done]`` (frames, the swap's seconds and frames/s, the
 sink's seconds), ``[skip]`` or ``[fail]``; the exit code is 1 if any failed.
 """
@@ -75,7 +75,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="pack N consecutive windows into one call (equal to separate windows through "
                          "boundary-masked FGATS; larger UNet batches)")
     ap.add_argument("--cross_window_carry", action="store_true",
-                    help="FGATS carry across window boundaries (not ported: ROADMAP A4/A7)")
+                    help="experimental: FGATS carry across window boundaries (beyond the reference; the "
+                         "sequential loop only; its benefit needs trained weights to show)")
     args = ap.parse_args(argv)
     if args.mesh_data and args.mesh_frames:
         ap.error("--mesh_data and --mesh_frames are mutually exclusive")
@@ -86,8 +87,6 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.mesh_data or args.mesh_frames:
         raise NotImplementedError("--mesh_data / --mesh_frames (multi-GPU windows and frames) are ROADMAP A13")
-    if args.cross_window_carry:
-        raise NotImplementedError("--cross_window_carry (the FGATS carry across windows) is ROADMAP A4/A7")
 
     import torch
 
@@ -116,7 +115,7 @@ def main(argv=None) -> int:
 
     opts = SwapOptions(ddim_steps=args.ddim_steps, inversion_steps=args.inversion_steps, cfg_scale=args.scale,
                        window=args.n_frames, image_size=cfg.image_size, parser_size=64 if args.tiny else 512,
-                       batch_windows=args.batch_windows)
+                       cross_window_carry=args.cross_window_carry, batch_windows=args.batch_windows)
     pipe = VideoSwapPipeline(model, opts, device=device, aux_params=aux)
 
     pairs = load_yaml(args.config)
