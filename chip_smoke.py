@@ -103,6 +103,22 @@ Phases, one line each:
      scheduler and ``batch_windows=2`` within 1e-3 of the sequential loop,
      and the packed run with its boundary masks forced to ones at least 10x
      past that limit;
+ 11c. opts (after sched (b) and (c), on the video phase's model and sched's
+     clip, against its exact sequential run): a warm-up holds one cached
+     sampling eval and one CFG inversion eval (b = 12) to the plain kernels;
+     the sequential loop at ``encoder_interval`` 2 and 3, the super-pack with
+     merged sampling at 2 and the loop at eta = 0.5 (50 + 50 steps): seconds,
+     frames/s, invert and sample seconds, K1/K2/K9 launches (the cached runs
+     gated to fewer K1s than the exact run), peak memory, the uint8 difference
+     (reported); then the tiny fp32 samplers with the cache, eta (an explicit
+     noise stack), ``src_start`` and inversion CFG on the card against the CPU
+     within 1e-4;
+ 11d. multiface: a seeded 720^2 two-face ``render_scene`` rolled over 12
+     frames; the face detector (shipped weights) on the card against the CPU
+     (boxes 0.5 px, scores 1e-4, every face found in every frame), then
+     ``swap_video_frames_multiface`` at the reference operating point but for
+     the depth (20 + 20 steps): seconds (per face), frames/s, peak memory,
+     launches;
  12. cli: the video-swap CLI (``vface_torch.scripts.vface_video_swap.main``)
      at its defaults (SD-v1 inpainting with its conditioner, seeded; 50 + 50
      steps, window 6, scale 3.0, fps 10) on inputs written with the port's
@@ -438,12 +454,13 @@ def kernel_errs(name: str, args: tuple, got):
 
 
 @contextlib.contextmanager
-def checked_sites(phase: str):
+def checked_sites(phase: str, expect=None):
     """Hold the models' K1, K2, K3 and K9 call sites to their plain versions on
     their own inputs, at every input signature the run gives them: the first
     call at each (kernel, shapes, dtype, heads) is compared by
     :func:`kernel_errs`, one ``kernel_site`` line each, and a disagreement
-    fails. Yields {kernel: signatures checked}."""
+    fails, as does a kernel of ``expect`` (default: all four) that was never
+    called. Yields {kernel: signatures checked}."""
     from unittest import mock
 
     import torch
@@ -475,7 +492,7 @@ def checked_sites(phase: str):
             mock.patch.object(layers, "gn_sums", spy("gn_sums", layers.gn_sums)):
         yield seen
     log("kernel_sites", path=phase, **{name: len(sigs) for name, sigs in seen.items()})
-    missing = [name for name, sigs in seen.items() if not sigs]
+    missing = [name for name in (expect or SWAP_KERNELS) if not seen[name]]
     if missing:
         raise SystemExit(f"chip_smoke: the {phase} path called no {missing} kernel")
 
@@ -1686,7 +1703,7 @@ def phase_sched_gate(seed: int) -> None:
                          "cannot tell a boundary fault from round-off")
 
 
-def phase_sched(model, seed: int) -> None:
+def phase_sched(model, seed: int) -> dict:
     """Phase sched (b) and (c) on the ``video`` phase's model (bf16, with the
     conditioner). (b): every schedule of ``swap_video_frames`` on a seeded
     12-frame 720x1280 clip at the reference operating point (50 + 50 steps,
@@ -1700,7 +1717,9 @@ def phase_sched(model, seed: int) -> None:
     difference from the sequential run (mean and max, not gated); gated:
     shape, finite values in [0, 1], every kernel of the path launched, the
     programs called, and the carry run's first window within 1 uint8 level
-    of the sequential run's. (c): :func:`sched_landscape`."""
+    of the sequential run's. (c): :func:`sched_landscape`. Returns the
+    sequential run's uint8 frames and launches, its clip and its options, for
+    phase opts."""
     import numpy as np
     import torch
 
@@ -1737,7 +1756,8 @@ def phase_sched(model, seed: int) -> None:
         launches = kernel_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         u8 = _u8(out).astype(np.int16)
-        u8_seq = u8 if u8_seq is None else u8_seq
+        if u8_seq is None:
+            u8_seq, seq_launches = u8, launches
         diff = np.abs(u8 - u8_seq).astype(np.float64)
         w0 = int(np.abs(u8[:FRAMES] - u8_seq[:FRAMES]).max())
         finite = bool(torch.isfinite(out).all())
@@ -1761,6 +1781,7 @@ def phase_sched(model, seed: int) -> None:
         del out
     sched_landscape(model, seed)
     log("sched_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    return dict(u8=u8_seq, launches=seq_launches, frames=frames, source=source, aux=aux, opts=opts)
 
 
 def sched_landscape(model, seed: int) -> None:
@@ -1826,6 +1847,242 @@ def silu_forms(model, x9, ts, ctx, flow, inj) -> None:
     median = lambda v: sorted(v)[len(v) // 2]
     log("silu_forms", batch=x9.shape[0], **{f"{k}_median_ms": f"{median(v):.2f}" for k, v in times.items()},
         **{f"{k}_ms": "/".join(f"{t:.1f}" for t in v) for k, v in times.items()})
+
+
+# Phase opts: the sampler options on the video phase's model, on phase sched's
+# 12-frame 720p clip at the reference operating point. Each run: its
+# SwapOptions fields.
+OPTS_RUNS = {
+    "sequential_interval2": dict(encoder_interval=2),
+    "sequential_interval3": dict(encoder_interval=3),
+    "super_pack_merged_interval2": dict(encoder_interval=2, invert_packs=2, merge_sampling=True),
+    "sequential_eta": dict(eta=0.5),
+}
+OPTS_KERNELS = ("flash_attention", "geglu_ff", "geglu_ff_wide")  # K1, K2, K9: the UNet's
+# fp32 throughout, TF32 off: summation order only, amplified by the random
+# weights over the steps (the latents reach ~10): max abs over each output's
+# peak (at least 1)
+OPTS_GATE_TOL = 1e-4
+
+
+def phase_opts(model, seed: int, base: dict) -> None:
+    """Phase opts on the ``video`` phase's model (bf16, with the conditioner):
+    encoder propagation and eta > 0 through ``swap_video_frames`` on phase
+    sched's 12-frame 720x1280 clip at the reference operating point (50 + 50
+    steps, window 6, RAFT 20, parser 512): the sequential loop at
+    ``encoder_interval`` 2 and 3, the super-pack with merged sampling at 2, and
+    the sequential loop at eta = 0.5, after a warm-up that holds every kernel
+    call of one cached sampling eval and one CFG inversion eval (b = 12) to its
+    plain version. Per run: wall seconds, frames/s, invert and sample seconds,
+    K1/K2/K9 launches, peak memory and the uint8 difference from phase sched's
+    exact sequential run (reported, not gated: encoder propagation
+    approximates, and eta changes the result); gated: finite frames of the
+    clip's shape in [0, 1], and fewer K1 launches than the exact run where
+    the cache is on. Then :func:`phase_opts_gate`."""
+    import numpy as np
+    import torch
+
+    from vface_torch.samplers.inversion import ddim_invert
+    from vface_torch.pipelines.video_swap import VideoSwapPipeline
+
+    t_phase = time.perf_counter()
+    opts, frames, source, aux = base["opts"], base["frames"], base["source"], base["aux"]
+    pipe = VideoSwapPipeline(model, opts, device="cuda", aux_params=aux)
+    w = window_inputs(model, FRAMES, seed + 40)
+    hl = model.cfg.latent_size
+    g = torch.Generator(device="cuda").manual_seed(seed + 41)
+    z = torch.randn((FRAMES, hl, hl, 4), generator=g, device="cuda")
+    inpaint = torch.randn((FRAMES, hl, hl, 4), generator=g, device="cuda")
+    mask = torch.ones((FRAMES, hl, hl, 1), device="cuda")
+    x9 = torch.cat([z, inpaint, mask], dim=-1).repeat(2, 1, 1, 1)
+    ctx = torch.cat([w["uncond"], w["cond"]])
+    inj = dataclasses.replace(pipe.injection, chunks=2,
+                              input_blocks=dataclasses.replace(pipe.injection.input_blocks, two_chunk_replace=False))
+    flow = pipe._latent_flow(w["flow"])
+    t0 = time.perf_counter()
+    with checked_sites("opts", expect=OPTS_KERNELS), torch.inference_mode():
+        ts = lambda v: torch.full((2 * FRAMES,), v, dtype=torch.int64, device="cuda")
+        _, cache = model.apply_model(x9, ts(981), ctx, flow=flow, injection=inj, return_encoder_cache=True)
+        model.apply_model(x9, ts(961), ctx, flow=flow, injection=inj, encoder_cache=cache,
+                          return_encoder_cache=True)
+        ddim_invert(model, z, w["inverse_cond"], inpaint, mask, num_steps=1, uncond=w["uncond"], cfg_scale=3.0)
+    torch.cuda.synchronize()
+    log("opts_warmup", evals="cached sampling b=12, CFG inversion b=12", wall_s=f"{time.perf_counter() - t0:.3f}")
+    del cache
+    seq_k1 = base["launches"]["flash_attention"]
+    for name, fields in OPTS_RUNS.items():
+        pipe = VideoSwapPipeline(model, dataclasses.replace(opts, **fields), device="cuda", aux_params=aux)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        out = pipe.swap_video_frames(frames, source, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        diff = np.abs(_u8(out).astype(np.int16) - base["u8"]).astype(np.float64)
+        finite = bool(torch.isfinite(out).all())
+        log("opts_run", run=name, frames=SCHED_FRAMES, frame_hw=f"{VIDEO_HW[0]}x{VIDEO_HW[1]}", window=FRAMES,
+            ddim_steps=opts.ddim_steps, inversion_steps=opts.inversion_steps, wall_s=f"{wall:.3f}",
+            frames_per_s=f"{SCHED_FRAMES / wall:.4f}", invert_s=f"{timings.get('invert', 0.0):.3f}",
+            sample_s=f"{timings.get('sample', 0.0):.3f}", **{k: launches[k] for k in OPTS_KERNELS},
+            exact_flash_attention=seq_k1, peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            mean_level_diff=f"{diff.mean():.4f}", max_level_diff=int(diff.max()))
+        if not (tuple(out.shape) == (SCHED_FRAMES, *VIDEO_HW, 3) and finite
+                and float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
+            raise SystemExit(f"chip_smoke: opts run {name}'s output has the wrong shape, is not finite or leaves [0, 1]")
+        if fields.get("encoder_interval", 1) > 1 and not launches["flash_attention"] < seq_k1:
+            raise SystemExit(f"chip_smoke: opts run {name} launched {launches['flash_attention']} K1s, not fewer "
+                             f"than the exact run's {seq_k1}")
+        del out
+    phase_opts_gate(seed)
+    log("opts_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+
+
+def phase_opts_gate(seed: int) -> None:
+    """Phase opts' fp32 gate: the tiny fp32 model (seeded) on the card against
+    the same calls on the CPU (which the tests hold to the JAX package), same
+    inputs: ``vface_sample`` (8 steps, FSAI + FGATS, the 3-chunk batch) with
+    ``encoder_interval=2``, eta = 0.5 (one explicit noise stack) and
+    ``src_start``, and ``ddim_invert`` (8 steps) with CFG (scale 3) and
+    ``encoder_interval=2``: each output within ``OPTS_GATE_TOL`` of its
+    peak magnitude (at least 1)."""
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.models.unet import InjectionSpec
+    from vface_torch.ops.attention import FusionConfig
+    from vface_torch.samplers.inversion import ddim_invert
+    from vface_torch.samplers.vface import vface_sample
+    from vface_torch.utils.convert import init_params
+
+    cfg = ModelConfig.tiny(image_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    f, hl, d, steps = 3, 16, cfg.unet.context_dim, 8
+    g = torch.Generator().manual_seed(seed + 5)
+    r = lambda *shape: torch.randn(shape, generator=g)
+    inputs = dict(x_T=r(f, hl, hl, 4), cond=r(f, 1, d), uncond=r(f, 1, d), tcond=r(f, 1, d),
+                  inv=r(steps, f, hl, hl, 4), inpaint=r(f, hl, hl, 4), mask=(r(f, hl, hl, 1) > 0).float(),
+                  flow=r(f - 1, hl, hl, 2) * 1.5, src=r(f, hl, hl, 4))
+    noise = r(steps, f, hl, hl, 4)
+    inj = InjectionSpec(input_blocks=FusionConfig("flow_fix", flow_tokens=hl * hl), chunks=3)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = VFaceModel(cfg, device=dev)
+        model.load_params(params)
+        x = {k: v.to(dev) for k, v in inputs.items()}
+        with torch.inference_mode():
+            z, traj = vface_sample(model, x["x_T"], x["cond"], x["uncond"], x["tcond"], x["inv"], x["inpaint"],
+                                   x["mask"], inj, flow=x["flow"], num_steps=steps, cfg_scale=3.0, eta=0.5,
+                                   src_start=x["src"], noise=lambda idx, shape: noise[idx],
+                                   encoder_interval=2)
+            x_T, lat = ddim_invert(model, x["x_T"], x["cond"], x["inpaint"], x["mask"], num_steps=steps,
+                                   uncond=x["uncond"], cfg_scale=3.0, encoder_interval=2)
+        outs[dev] = [o.cpu() for o in (z, traj, x_T, lat)]
+    err = [float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"])]
+    peak = [max(1.0, float(b.abs().max())) for b in outs["cpu"]]
+    names = ("sample_z0", "sample_traj", "invert_xT", "invert_latents")
+    log("opts_gate", config=f"tiny fp32, {f} frames of {hl}^2 latents, {steps} steps",
+        **{f"{n}_max_abs": f"{e:.3e}" for n, e in zip(names, err)},
+        **{f"{n}_peak": f"{p:.3f}" for n, p in zip(names, peak)}, tol=f"{OPTS_GATE_TOL} of the peak")
+    if not all(e <= OPTS_GATE_TOL * p for e, p in zip(err, peak)):
+        raise SystemExit("chip_smoke: the card's tiny samplers with the cache, eta, src_start or CFG disagree "
+                         "with the CPU's")
+
+
+MULTIFACE_FRAMES, MULTIFACE_SIZE = 12, 720  # a 720^2 two-face scene rolled 2 px a frame
+# the multi-face run's depth: cut from the reference's 50 + 50 steps for time
+# (the script's whole run stays near 600 s); its widths are the reference's
+MULTIFACE_STEPS = 20
+
+
+def phase_multiface(model, seed: int, base: dict) -> None:
+    """Phase multiface on the ``video`` phase's model: a seeded two-face
+    ``render_scene`` (the first seed from ``seed`` with exactly two faces) at
+    720^2, rolled 2 px a frame over 12 frames. The detector (shipped weights)
+    on the card against the CPU: boxes within 0.5 px, scores within 1e-4, the
+    same order, and each face found in every frame (a box with score > 0.3
+    whose centre is within half the face's size, as the JAX package's
+    detector test counts a hit). Then ``swap_video_frames_multiface`` at the
+    reference operating point but for the depth (top_k 2, threshold 0.3;
+    ``MULTIFACE_STEPS`` + ``MULTIFACE_STEPS`` steps, window 6, RAFT 20, parser
+    512): wall seconds, seconds per face, frames/s, peak
+    memory and launches; gated: finite frames in [0, 1], both faces swapped
+    and every kernel of the swap path launched."""
+    import numpy as np
+    import torch
+
+    from vface_torch.pipelines.video_swap import VideoSwapPipeline, swap_video_frames_multiface
+    from vface_torch.preprocess.detector import FaceDetector, decode_detections
+    from vface_torch.preprocess.synthetic_faces import render_scene
+
+    t_phase = time.perf_counter()
+    for scene_seed in range(seed, seed + 200):
+        img, boxes, valid = render_scene(np.random.default_rng(scene_seed), MULTIFACE_SIZE)
+        if valid.sum() == 2:
+            break
+    else:
+        raise SystemExit("chip_smoke: no two-face scene in 200 seeds")
+    frames = np.stack([np.roll(img, 2 * i, axis=1) for i in range(MULTIFACE_FRAMES)]).astype(np.float32)
+    gts = boxes[valid]
+    aux = base["aux"]
+    opts = dataclasses.replace(base["opts"], ddim_steps=MULTIFACE_STEPS, inversion_steps=MULTIFACE_STEPS)
+    pipe = VideoSwapPipeline(model, opts, device="cuda", aux_params=aux)
+    got_boxes, got_scores = (o.cpu() for o in pipe.detect_faces(frames, top_k=2))
+    det = FaceDetector().eval()
+    det.load_state_dict({k: v.cpu() for k, v in aux["detector"].items()})
+    with torch.inference_mode():
+        want_boxes, want_scores = decode_detections(*det(torch.from_numpy(frames)), top_k=2,
+                                                    image_hw=(MULTIFACE_SIZE, MULTIFACE_SIZE))
+    box_err = float((got_boxes - want_boxes).abs().max())
+    score_err = float((got_scores - want_scores).abs().max())
+    hits = 0
+    for i in range(MULTIFACE_FRAMES):
+        for cx, cy, fw, fh in gts:
+            dist = np.hypot(got_boxes[i, :, 0].numpy() - (cx + 2 * i), got_boxes[i, :, 1].numpy() - cy)
+            dist = np.where(got_scores[i].numpy() > 0.3, dist, np.inf)
+            hits += int(dist.min() < 0.5 * max(fw, fh))
+    log("multiface_detect", scene_seed=scene_seed, frames=MULTIFACE_FRAMES,
+        frame_hw=f"{MULTIFACE_SIZE}x{MULTIFACE_SIZE}", faces=len(gts), box_max_px=f"{box_err:.3e}",
+        score_max_abs=f"{score_err:.3e}", tol="boxes 0.5 px, scores 1e-4", hits=hits,
+        of=MULTIFACE_FRAMES * len(gts), mean_scores=",".join(f"{v:.4f}" for v in got_scores.mean(dim=0).tolist()))
+    if not (box_err <= 0.5 and score_err <= 1e-4 and hits == MULTIFACE_FRAMES * len(gts)):
+        raise SystemExit("chip_smoke: the card's face detector disagrees with the CPU's or misses a face")
+    faces = []
+    real = pipe.swap_video_frames
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        faces.append(time.perf_counter() - t0)
+        return out
+
+    pipe.swap_video_frames = timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    out = swap_video_frames_multiface(pipe, frames, base["source"], top_k=2, score_threshold=0.3, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    finite = bool(torch.isfinite(out).all())
+    log("multiface", frames=MULTIFACE_FRAMES, frame_hw=f"{MULTIFACE_SIZE}x{MULTIFACE_SIZE}", faces=len(faces),
+        ddim_steps=opts.ddim_steps, inversion_steps=opts.inversion_steps,
+        wall_s=f"{wall:.3f}", face_s=",".join(f"{v:.3f}" for v in faces),
+        frames_per_s=f"{MULTIFACE_FRAMES / wall:.4f}", **stage_line(timings),
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+        mean_abs_change=f"{float((out - torch.from_numpy(frames)).abs().mean()):.4f}",
+        **{k: v for k, v in launches.items() if v})
+    if not (tuple(out.shape) == frames.shape and finite and float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
+        raise SystemExit("chip_smoke: the multi-face output has the wrong shape, is not finite or leaves [0, 1]")
+    missing = [k for k in SWAP_KERNELS if launches[k] == 0]
+    if len(faces) != 2 or missing:
+        raise SystemExit(f"chip_smoke: the multi-face run swapped {len(faces)} faces, not 2, or launched no {missing}")
+    log("multiface_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
 
 
 def phase_sched_kernels() -> dict:
@@ -2634,7 +2891,12 @@ def main() -> int:
     model = build_model(SEED, conditioner=True)
     phase_video(model, SEED)
     torch.cuda.empty_cache()
-    phase_sched(model, SEED)
+    base = phase_sched(model, SEED)
+    torch.cuda.empty_cache()
+    phase_opts(model, SEED, base)
+    torch.cuda.empty_cache()
+    phase_multiface(model, SEED, base)
+    del base
     torch.cuda.empty_cache()
     train_launches = phase_train(model, SEED)
     phase_train_reference(model, SEED)

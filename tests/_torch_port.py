@@ -120,3 +120,18 @@ def tiny_video_bundle(n: int, seed: int, s: int = 32, hw=(48, 64)) -> dict:
     return dict(jm=jm, params=params, jaux=jaux, model=model, aux=from_flax_aux(np_tree(jaux)),
                 frames=smooth_frames(n, *hw, seed=seed + 3), source=smooth_frames(1, *hw, seed=seed + 4)[0],
                 keep=face_keep(n, s))
+
+
+def jax_noise(seed: int = 0):
+    """A sampler noise source that replays the JAX samplers' draws: at step
+    ``idx`` the normal draw from the ``idx``-th ``sub`` of the chain ``key, sub =
+    split(key)`` from ``PRNGKey(seed)``, as each JAX sampler call makes it."""
+    import jax.numpy as jnp
+
+    def noise(idx, shape):
+        key = jax.random.PRNGKey(seed)
+        for _ in range(idx + 1):
+            key, sub = jax.random.split(key)
+        return torch.from_numpy(np.array(jax.random.normal(sub, shape, jnp.float32)))
+
+    return noise

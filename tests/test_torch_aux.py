@@ -25,6 +25,7 @@ from vface_tpu.preprocess.synthetic_faces import canonical_landmarks as jax_cano
 from vface_torch.models import bisenet as TB
 from vface_torch.models import raft as TR
 from vface_torch.preprocess import align as TAl
+from vface_torch.preprocess import detector as TDet
 from vface_torch.preprocess import landmarks as TLm
 from vface_torch.preprocess import masks as TM
 from vface_torch.utils.convert import AUX_PARTS, from_flax_aux, init_aux_params
@@ -156,13 +157,14 @@ def test_raft_matches_jax_two_iterations_at_64():
 def test_aux_tree_conversion_and_seeded_init():
     """Each Flax aux tree converts to a state dict that loads strictly into the
     port's module; init_aux_params makes the same keys, seeded, with the
-    landmark net from the shipped file."""
+    landmark net and the face detector from the shipped files."""
     trees = {"bisenet": seeded_flax_params(JB.BiSeNet(), jnp.zeros((1, 64, 64, 3))),
              "raft": seeded_flax_params(JR.RAFT(JR.RAFTConfig(iters=1)), jnp.zeros((1, 32, 32, 3)),
                                         jnp.zeros((1, 32, 32, 3))),
-             "landmark": TLm.load_default_landmark_params()}
+             "landmark": TLm.load_default_landmark_params(), "detector": TDet.load_default_detector_params()}
     states = from_flax_aux(trees)
-    mods = {"bisenet": TB.BiSeNet(), "raft": TR.RAFT(TR.RAFTConfig(iters=1)), "landmark": TLm.LandmarkNet()}
+    mods = {"bisenet": TB.BiSeNet(), "raft": TR.RAFT(TR.RAFTConfig(iters=1)), "landmark": TLm.LandmarkNet(),
+            "detector": TDet.FaceDetector()}
     assert tuple(states) == AUX_PARTS
     for name, mod in mods.items():
         mod.load_state_dict(states[name])  # strict: same keys and shapes
@@ -171,4 +173,5 @@ def test_aux_tree_conversion_and_seeded_init():
         assert a[name].keys() == mods[name].state_dict().keys()
         assert all(torch.equal(a[name][k], b[name][k]) for k in a[name])
     assert torch.equal(a["landmark"]["head.weight"], states["landmark"]["head.weight"])
+    assert torch.equal(a["detector"]["heat.weight"], states["detector"]["heat.weight"])
     assert a["bisenet"]["cp.resnet.conv1.weight"].abs().max() > 0

@@ -145,20 +145,22 @@ def test_swap_video_frames_matches_jax(run, mode):
     close(got, run["want"][mode], atol=1e-4)
 
 
-UNPORTED = {  # the packing, the schedulers and the carry run: tests/test_torch_{pack,sched,carry}.py
-    "eta": (dict(eta=0.5), {}),
-    "encoder_interval": (dict(encoder_interval=2), {}),
+UNPORTED = {  # eta and encoder_interval run: tests/test_torch_video_opts.py; the carry: test_torch_carry.py
+    "eta": (dict(eta=0.5, encoder_interval=2, cross_window_carry=True), {}),
+    "encoder_interval": (dict(encoder_interval=2, cross_window_carry=True), {}),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_paths_raise(run, case):
-    """Where the JAX package would sample with eta > 0 or encoder propagation,
-    the port raises rather than running the loop without them."""
+    """The one combination of the sampler options that the JAX package cannot
+    run, encoder propagation with the cross-window carry (its ``lax.cond``
+    cannot join a cached step's empty carry to a key step's), with and
+    without eta > 0: the port refuses it too."""
     fields, kw = UNPORTED[case]
     pipe = VideoSwapPipeline(run["tpipe"].model, SwapOptions(**{**OPTS, **fields}), device="cpu",
                              aux_params=run["aux"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="encoder_interval"):
         pipe.swap_video_frames(run["frames"], run["source"], frame_keep=run["keep"], source_keep=run["keep"][0],
                                **kw)
 

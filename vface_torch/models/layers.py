@@ -77,12 +77,14 @@ class GroupNorm32(nn.Module):
     The apply is ``y = x32 * a_c + b_c`` in float32 with per-(b, c)
     ``a = inv_std * scale`` and ``b = bias - mean * a``, then the cast back to
     the input dtype. The sums come from the GN-stats kernel where
-    :func:`gn_kernel_eligible`, else from a plain float32 reduction.
+    :func:`gn_kernel_eligible` (and ``use_kernel``), else from a plain float32
+    reduction.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5, num_groups: int = 32):
+    def __init__(self, channels: int, eps: float = 1e-5, num_groups: int = 32, use_kernel: bool = True):
         super().__init__()
         self.eps = eps
+        self.use_kernel = use_kernel
         self.num_groups = min(num_groups, channels)
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -92,7 +94,7 @@ class GroupNorm32(nn.Module):
         g = self.num_groups
         cg = c // g
         x32 = x.to(torch.float32)
-        if gn_kernel_eligible(x):
+        if self.use_kernel and gn_kernel_eligible(x):
             s1, s2 = gn_sums(x.contiguous())
         else:
             dims = tuple(range(2, x.ndim))

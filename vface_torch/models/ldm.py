@@ -110,12 +110,16 @@ class VFaceModel(nn.Module):
         return torch.cat([z, z_inpaint, mask_latent], dim=-1)
 
     def apply_model(self, x9, t, context, flow=None, injection: Optional[InjectionSpec] = None,
-                    return_fgats_carry: bool = False):
+                    return_fgats_carry: bool = False, encoder_cache=None, return_encoder_cache: bool = False):
         """epsilon prediction; x9 (B, h, w, 9), t (B,) int, context (B, 1, D).
 
-        ``return_fgats_carry`` returns (epsilon, {site: {"q", "k"}}): each flow
-        site's last frame's post-FSAI q/k, the cross-window FGATS carry."""
-        return self.unet(x9, t, context, flow=flow, injection=injection, return_fgats_carry=return_fgats_carry)
+        ``return_encoder_cache`` appends the UNet's encoder cache and
+        ``return_fgats_carry`` then {site: {"q", "k"}}, each flow site's last
+        frame's post-FSAI q/k (the cross-window FGATS carry); a call given
+        ``encoder_cache`` runs only the output blocks (see
+        :class:`~vface_torch.models.unet.UNetModel`)."""
+        return self.unet(x9, t, context, flow=flow, injection=injection, return_fgats_carry=return_fgats_carry,
+                         encoder_cache=encoder_cache, return_encoder_cache=return_encoder_cache)
 
     # ----------------------------------------------------------- schedule
     def _table(self, name: str, t: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,16 @@ flow site produces, ``{site: {"q", "k"}}``, keyed by the site's
 SpatialTransformer name (``in_0_0_attn``: the Flax path the JAX package's
 ``_collect_fgats`` flattens).
 
-Not ported yet: the encoder cache, ``return_features``, the TSG conv
-injection, the dual 2x768 context and ``EncoderUNetModel``.
+The encoder cache (encoder propagation, "Faster Diffusion"):
+``return_encoder_cache=True`` also returns ``((skips...), mid)``, the input
+blocks' skip stack and the middle block's output; a call given that cache as
+``encoder_cache`` skips ``conv_in``, the input blocks and the middle block and
+runs only the output blocks, with the current timestep embedding. The cache
+holds the port's activations as they are inside (NCHW, at ``cfg.dtype``), so
+it is not interchangeable with the JAX package's NHWC cache.
+
+Not ported yet: ``return_features``, the TSG conv injection, the dual 2x768
+context and ``EncoderUNetModel``.
 """
 
 from __future__ import annotations
@@ -265,8 +273,11 @@ class UNetModel(nn.Module):
 
     ``injection`` selects the fusion per site class; ``flow`` is the FGATS
     pixel flow (F-1, Hq, Wq, 2) at the ds1 token grid, or a :class:`FlowPack`.
-    ``return_fgats_carry`` returns (epsilon, {site: {"q", "k"}}), the carry of
-    every flow site.
+    ``return_encoder_cache`` appends the encoder cache ``((skips...), mid)``
+    and ``return_fgats_carry`` then the carry of every flow site, ``{site:
+    {"q", "k"}}``, in that order: ``(epsilon, cache, carry)`` with both. Given
+    ``encoder_cache``, the encoder is skipped and that cache is returned as it
+    is; such a call visits no input-block site, so its carry is empty.
     """
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
@@ -314,13 +325,12 @@ class UNetModel(nn.Module):
         self.out_conv = Conv(ch, cfg.out_channels, zero_init=True, dtype=dt)
 
     def forward(self, x, timesteps, context, flow=None, injection: Optional[InjectionSpec] = None,
-                return_fgats_carry: bool = False):
+                return_fgats_carry: bool = False, encoder_cache=None, return_encoder_cache: bool = False):
         cfg = self.cfg
         carry = {} if return_fgats_carry else None
         inj = injection or InjectionSpec()
         dt = cfg.dtype
         m = lambda name: getattr(self, name)
-        x = x.to(dt).permute(0, 3, 1, 2)
         context = context.to(dt)
         emb = self.time_embed_0(timestep_embedding(timesteps, cfg.model_channels).to(dt))
         emb = self.time_embed_2(nonlinearity(emb))
@@ -335,24 +345,31 @@ class UNetModel(nn.Module):
         def attn(h, site, name):
             return block(name, h, context, inj.for_site(site), inj.chunks, flow, name, carry)
 
-        hs = []
-        h = self.conv_in(x)
-        hs.append(h)
-        ds = 1
-        for level in range(len(cfg.channel_mult)):
-            for i in range(cfg.num_res_blocks):
-                h = block(f"in_{level}_{i}_res", h, emb)
-                if ds in cfg.attention_resolutions:
-                    h = attn(h, "in", f"in_{level}_{i}_attn")
-                hs.append(h)
-            if level != len(cfg.channel_mult) - 1:
-                h = m(f"in_{level}_down")(h)
-                hs.append(h)
-                ds *= 2
-        h = block("mid_res_0", h, emb)
-        h = attn(h, "mid", "mid_attn")
-        h = block("mid_res_1", h, emb)
-        for level in reversed(range(len(cfg.channel_mult))):
+        levels = len(cfg.channel_mult)
+        if encoder_cache is None:
+            hs = []
+            h = self.conv_in(x.to(dt).permute(0, 3, 1, 2))
+            hs.append(h)
+            ds = 1
+            for level in range(levels):
+                for i in range(cfg.num_res_blocks):
+                    h = block(f"in_{level}_{i}_res", h, emb)
+                    if ds in cfg.attention_resolutions:
+                        h = attn(h, "in", f"in_{level}_{i}_attn")
+                    hs.append(h)
+                if level != levels - 1:
+                    h = m(f"in_{level}_down")(h)
+                    hs.append(h)
+                    ds *= 2
+            h = block("mid_res_0", h, emb)
+            h = attn(h, "mid", "mid_attn")
+            h = block("mid_res_1", h, emb)
+            cache = (tuple(hs), h)
+        else:
+            cache = encoder_cache
+            hs, h = list(encoder_cache[0]), encoder_cache[1]
+            ds = 2 ** (levels - 1)
+        for level in reversed(range(levels)):
             for i in range(cfg.num_res_blocks + 1):
                 h = block(f"out_{level}_{i}_res", torch.cat([h, hs.pop()], dim=1), emb)
                 if ds in cfg.attention_resolutions:
@@ -362,4 +379,20 @@ class UNetModel(nn.Module):
                     ds //= 2
         h = nonlinearity(self.out_norm(h))
         out = self.out_conv(h).to(torch.float32).permute(0, 2, 3, 1)
-        return (out, carry) if return_fgats_carry else out
+        extra = (cache,) * return_encoder_cache + (carry,) * return_fgats_carry
+        return (out, *extra) if extra else out
+
+    def zero_encoder_cache(self, batch: int, height: int, width: int, device=None):
+        """An encoder cache of zeros for a (batch, height, width, 9) input: the
+        JAX package's inversion starts from one when its first step is not a
+        key step."""
+        cfg = self.cfg
+        mc, levels = cfg.model_channels, len(cfg.channel_mult)
+        shapes = [(mc, height, width)]
+        for level, mult in enumerate(cfg.channel_mult):
+            shapes += [(mc * mult, height, width)] * cfg.num_res_blocks
+            if level != levels - 1:
+                height, width = (height + 1) // 2, (width + 1) // 2
+                shapes.append((mc * mult, height, width))
+        zeros = lambda shape: torch.zeros((batch, *shape), dtype=cfg.dtype, device=device)
+        return tuple(zeros(s) for s in shapes), zeros((mc * cfg.channel_mult[-1], height, width))

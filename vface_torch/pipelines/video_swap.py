@@ -38,8 +38,17 @@ giving the loop's frames:
 With a ``manifest`` and a ``window_sink`` a run is resumable: packs the
 manifest lists are read back from the sink's PNGs, and each computed pack is
 handed to the sink and marked done in pack order on a worker thread while the
-next one runs. ``eta > 0`` and ``encoder_interval > 1`` are not ported and
-raise ``NotImplementedError`` (ROADMAP A7).
+next one runs.
+
+``eta > 0`` draws each sampler call's noise from the pipeline's noise source
+(``noise``; by default a generator seeded with 0 afresh on each call, as the
+JAX package draws from ``PRNGKey(0)`` on each call); ``encoder_interval > 1``
+runs encoder propagation in the inversion and the sampling (not with
+``cross_window_carry``, which the JAX package refuses as well).
+
+:func:`swap_video_frames_multiface` swaps up to ``top_k`` faces a frame: the
+face detector (``aux_params["detector"]``) finds them, and each face's
+landmarks, found in its box crop, drive :meth:`VideoSwapPipeline.swap_video_frames`.
 """
 
 from __future__ import annotations
@@ -61,8 +70,10 @@ from vface_torch.models.unet import InjectionSpec
 from vface_torch.ops.attention import FusionConfig
 from vface_torch.ops.warp import resize_bilinear, resize_flow, resize_nearest
 from vface_torch.preprocess.align import compute_quad, paste_back, perspective_coefficients, quad_crop
+from vface_torch.preprocess.detector import FaceDetector, crop_boxes, decode_detections
 from vface_torch.preprocess.landmarks import LandmarkNet, landmarks_to_vector
 from vface_torch.preprocess.masks import TRAIN_REMOVE, inpaint_inputs
+from vface_torch.samplers.ddim import NoiseFn
 from vface_torch.samplers.inversion import ddim_invert
 from vface_torch.samplers.vface import vface_sample, vface_sample_pipelined
 from vface_torch.utils.platform import resolve_device
@@ -78,7 +89,7 @@ class SwapOptions:
     window: int = 6  # frames per window
     image_size: int = 512
     parser_size: int = 512  # BiSeNet input resolution
-    eta: float = 0.0  # 0 only (a seeded noise source for eta > 0 is ROADMAP A7)
+    eta: float = 0.0  # > 0 adds noise each sampling step (the pipeline's noise source)
     split_ratio: float = 0.8
     flow_alpha: float = 0.8
     # literal reference inversion batch cat([target, source]); the source
@@ -86,7 +97,9 @@ class SwapOptions:
     co_invert_source: bool = False
     # literal 3-chunk sampling batch; the recon chunk is inert, so off by default
     keep_recon_chunk: bool = False
-    encoder_interval: int = 1  # 1 only (encoder propagation is ROADMAP A7)
+    # encoder propagation: the full UNet on key steps only (1 = exact; the
+    # other steps reuse the last key step's encoder and middle block)
+    encoder_interval: int = 1
     # the FGATS carry across windows: each window's frame 0 blends with the
     # previous window's last frame (sequential loop only; experimental in the
     # JAX package, whose benefit needs trained weights to show)
@@ -109,7 +122,7 @@ class SwapOptions:
     background_res: int = 0
 
 
-_AUX = {"bisenet": "bisenet", "raft": "raft", "landmark": "landmark_net"}
+_AUX = {"bisenet": "bisenet", "raft": "raft", "landmark": "landmark_net", "detector": "detector"}
 # At 6 or more pairs of 512^2 crops, cuDNN's heuristics give RAFT's update
 # block (64^2 maps) an FFT-tiled convolution launched tile by tile: 432.7 and
 # 343.6 ms a pair at 6 and 11 pairs against 45.1 at 5 (an H100 80GB HBM3;
@@ -120,19 +133,23 @@ RAFT_MAX_PAIRS = 5
 class VideoSwapPipeline:
     """The diffusion model plus the aux nets and the window ops, on one device
     (CUDA unless asked otherwise). The aux nets' parameters come from
-    ``aux_params`` (``{"bisenet", "raft", "landmark"}`` state dicts, any
-    subset, each loaded strictly; e.g. from
+    ``aux_params`` (``{"bisenet", "raft", "landmark", "detector"}`` state
+    dicts, any subset, each loaded strictly; e.g. from
     :func:`vface_torch.utils.convert.from_flax_aux` or ``init_aux_params``); a
     stage whose net has none raises. ``swap_window`` needs neither; the video
-    path needs them and a model built with ``conditioner=True``."""
+    path needs them and a model built with ``conditioner=True``. ``noise``
+    is the samplers' noise source for ``eta > 0``, ``noise(step_idx, shape)
+    -> Tensor``, handed to every sampler call (None: each call seeds its own
+    generator with 0)."""
 
     def __init__(self, model: VFaceModel, opts: SwapOptions = SwapOptions(), device="cuda",
-                 aux_params: Optional[dict] = None):
+                 aux_params: Optional[dict] = None, noise: Optional[NoiseFn] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, pipeline asked for {self.device}")
         self.model = model
         self.opts = opts
+        self.noise = noise
         self.injection = InjectionSpec(
             input_blocks=FusionConfig("flow_fix", split_ratio=opts.split_ratio,
                                       flow_alpha=opts.flow_alpha, flow_tokens=opts.flow_tokens),
@@ -142,6 +159,7 @@ class VideoSwapPipeline:
             self.bisenet = BiSeNet().eval()
             self.raft = RAFT(RAFTConfig(iters=opts.raft_iters)).eval()
             self.landmark_net = LandmarkNet().eval()
+            self.detector = FaceDetector().eval()
         for name, state in (aux_params or {}).items():
             getattr(self, _AUX[name]).load_state_dict(state)
         self._loaded = set(aux_params or ())
@@ -162,6 +180,14 @@ class VideoSwapPipeline:
     def detect_landmarks(self, images01) -> torch.Tensor:
         """(B, H, W, 3) in [0, 1] -> (B, 68, 2) pixel coordinates."""
         return self._net("landmark")(self._on(images01))
+
+    @torch.inference_mode()
+    def detect_faces(self, images01, top_k: int = 2):
+        """(B, H, W, 3) in [0, 1] -> boxes (B, K, 4) [cx, cy, w, h] in frame
+        pixels and scores (B, K), the K highest peaks of the face detector."""
+        images01 = self._on(images01)
+        heat, size, offset = self._net("detector")(images01)
+        return decode_detections(heat, size, offset, top_k=top_k, image_hw=tuple(images01.shape[1:3]))
 
     @torch.inference_mode()
     def align_begin(self, frames01, scale: float = 1.0, landmarks=None):
@@ -264,13 +290,6 @@ class VideoSwapPipeline:
         return cond, model.uncond(f), inverse_cond, bcast(cond_w_src)
 
     # ------------------------------------------------------------- window
-    def _check_supported(self) -> None:
-        opts = self.opts
-        if opts.eta != 0.0:
-            raise NotImplementedError("eta > 0 needs the sampler's seeded noise source (ROADMAP A7)")
-        if opts.encoder_interval != 1:
-            raise NotImplementedError("encoder_interval > 1 (encoder propagation) is ROADMAP A7")
-
     def _encode_pack(self, crops, keep_mask):
         """(z_tar, z_inpaint, mask_lat) of one pack: crops (F, S, S, 3) in [-1, 1], keep_mask (F, S, S, 1)."""
         hl = self.model.cfg.latent_size
@@ -308,7 +327,6 @@ class VideoSwapPipeline:
         to it.
         """
         opts, model = self.opts, self.model
-        self._check_supported()
         args = [crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask, pair_mask]
         (crops, keep_mask, cond, uncond, inverse_cond, cond_w_src, src_crop, src_keep_mask,
          pair_mask) = [None if a is None else self._on(a) for a in args]
@@ -331,8 +349,8 @@ class VideoSwapPipeline:
         clock.mark("encode")
 
         skip = 1 if (not opts.keep_recon_chunk and opts.inversion_steps >= 2) else 0
-        _, inv_latents = ddim_invert(model, z2, inv_c, inv_inpaint, inv_mask,
-                                     num_steps=opts.inversion_steps, keep=f, skip_last=skip)
+        _, inv_latents = ddim_invert(model, z2, inv_c, inv_inpaint, inv_mask, num_steps=opts.inversion_steps,
+                                     keep=f, encoder_interval=opts.encoder_interval, skip_last=skip)
         if skip or opts.inversion_steps < 2:
             start_code = inv_latents[-1]
         else:
@@ -341,7 +359,8 @@ class VideoSwapPipeline:
 
         res = vface_sample(model, start_code, cond, uncond, inverse_cond, inv_latents, z_inpaint, mask_lat,
                            self.injection, flow=self._latent_flow(flow), num_steps=opts.ddim_steps,
-                           cfg_scale=opts.cfg_scale, drop_recon_chunk=not opts.keep_recon_chunk,
+                           cfg_scale=opts.cfg_scale, eta=opts.eta, noise=self.noise,
+                           encoder_interval=opts.encoder_interval, drop_recon_chunk=not opts.keep_recon_chunk,
                            fgats_prev=fgats_prev, fgats_flow0=self._latent_flow(fgats_flow0),
                            return_fgats_carry=return_fgats, flow_pair_mask=pair_mask)
         clock.mark("sample")
@@ -422,7 +441,7 @@ class VideoSwapPipeline:
             self.model, start_i, cond_i, uncond_i, z_inpaint_i, mask_lat_i, self.injection, next_z0=z_tar_n,
             next_cond=inv_cond_next, next_inpaint=z_inp_n, next_mask=ml_n, inversion_steps=opts.inversion_steps,
             skip_last=1, flow=self._latent_flow(flow_i), num_steps=opts.ddim_steps, cfg_scale=opts.cfg_scale,
-            flow_pair_mask=None if pair_mask_i is None else self._on(pair_mask_i))
+            eta=opts.eta, noise=self.noise, flow_pair_mask=None if pair_mask_i is None else self._on(pair_mask_i))
         clock.mark("pipelined")
         out01 = self._decode01(z0)
         clock.mark("decode")
@@ -435,7 +454,7 @@ class VideoSwapPipeline:
         clock = _StageClock(timings, self.device)
         z0, _ = vface_sample(self.model, start_i, cond_i, uncond_i, cond_i, None, z_inpaint_i, mask_lat_i,
                              self.injection, flow=self._latent_flow(flow_i), num_steps=opts.ddim_steps,
-                             cfg_scale=opts.cfg_scale, drop_recon_chunk=True,
+                             cfg_scale=opts.cfg_scale, eta=opts.eta, noise=self.noise, drop_recon_chunk=True,
                              flow_pair_mask=None if pair_mask_i is None else self._on(pair_mask_i))
         clock.mark("sample")
         out01 = self._decode01(z0)
@@ -465,7 +484,7 @@ class VideoSwapPipeline:
         z_tar, z_inpaint, mask_lat = per_half(self._encode_pack, crops_2, keep_2)
         clock.mark("encode")
         x_T, _ = ddim_invert(model, z_tar, inv_cond_2, z_inpaint, mask_lat, num_steps=opts.inversion_steps, keep=1,
-                             skip_last=1)
+                             encoder_interval=opts.encoder_interval, skip_last=1)
         clock.mark("invert")
         flow_q = self._latent_flow(flow_2)
 
@@ -473,7 +492,8 @@ class VideoSwapPipeline:
             pm = None if pair_mask is None or flow is None else self._on(pair_mask)
             return vface_sample(model, x_T[sl], cond_2[sl], uncond_2[sl], cond_2[sl], None, z_inpaint[sl],
                                 mask_lat[sl], self.injection, flow=flow, num_steps=opts.ddim_steps,
-                                cfg_scale=opts.cfg_scale, drop_recon_chunk=True, flow_pair_mask=pm)[0]
+                                cfg_scale=opts.cfg_scale, eta=opts.eta, noise=self.noise,
+                                encoder_interval=opts.encoder_interval, drop_recon_chunk=True, flow_pair_mask=pm)[0]
 
         if opts.merge_sampling:
             z0 = sample(slice(None), flow_q, pack_pair_mask(2 * f, opts.window))
@@ -582,7 +602,6 @@ class VideoSwapPipeline:
         for the last windows' sink after the loop) are added to it.
         """
         opts = self.opts
-        self._check_supported()
         if self.model.conditioner is None:
             raise ValueError("VideoSwapPipeline: the video path needs a model built with conditioner=True")
         n = int(frames01.shape[0])
@@ -768,6 +787,43 @@ class VideoSwapPipeline:
             st, prev_quad = finish_prep(upload_and_begin(s0, min(s0 + w, n)), prev_quad)
             emit(s0, self._swap_pack(st["fr"], st["coeffs"], st["p"], src, timings))
             clock.reset()
+
+
+@torch.inference_mode()
+def swap_video_frames_multiface(pipe: VideoSwapPipeline, frames01, source01, top_k: int = 2,
+                                score_threshold: float = 0.3, remove_classes=None,
+                                timings: Optional[dict] = None) -> torch.Tensor:
+    """Swap up to ``top_k`` faces a frame with one source face: frames01 (N, H, W,
+    3) in [0, 1] -> (N, H, W, 3) float32 in [0, 1], on the CPU.
+
+    The face detector (``aux_params["detector"]``) gives ``top_k`` boxes a
+    frame; faces whose mean score over the clip is under ``score_threshold``
+    are skipped. The rest, in ascending mean score (the most confident is
+    pasted last, on top), each run :meth:`VideoSwapPipeline.swap_video_frames`
+    on the previous face's result, with that face's landmarks: the landmark
+    net on the face's box crop (``image_size``^2), mapped back to frame
+    pixels. ``timings`` collects the stages of every face's run and the
+    detection's ("detect").
+    """
+    clock = _StageClock(timings, pipe.device)
+    frames = pipe._on(frames01)
+    boxes, scores = pipe.detect_faces(frames, top_k)
+    mean_scores = scores.mean(dim=0).cpu().numpy()
+    clock.mark("detect")
+    result = frames.cpu()
+    s = pipe.opts.image_size
+    for k in np.argsort(mean_scores):
+        if mean_scores[k] < score_threshold:
+            continue
+        box = boxes[:, k]  # (N, 4) cx, cy, w, h
+        lm_crop = pipe.detect_landmarks(crop_boxes(frames, box[:, None], s)[:, 0])  # (N, 68, 2) crop pixels
+        origin = torch.stack([box[:, 0] - box[:, 2] / 2, box[:, 1] - box[:, 3] / 2], dim=-1)
+        lm_frame = lm_crop * (box[:, 2:] / s)[:, None, :] + origin[:, None, :]
+        clock.mark("detect")
+        result = pipe.swap_video_frames(result, source01, remove_classes=remove_classes, frame_landmarks=lm_frame,
+                                        timings=timings)
+        clock.reset()
+    return result
 
 
 def pack_pair_mask(nf: int, window: int) -> Optional[np.ndarray]:

@@ -18,12 +18,13 @@ from __future__ import annotations
 
 from pathlib import Path
 
-import numpy as np
 import torch
 import torch.nn as nn
 
 from vface_torch.models.layers import Conv, GroupNorm32
 from vface_torch.ops.warp import resize_bilinear
+from vface_torch.runtime.checkpoint import read_flat_npz
+from vface_torch.preprocess.synthetic_faces import canonical_landmarks
 
 DEFAULT_WEIGHTS_PATH = Path(__file__).resolve().parents[2] / "vface_tpu" / "weights" / "landmark_net.npz"
 
@@ -54,16 +55,7 @@ class LandmarkNet(nn.Module):
 
     def heatmaps(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) -> heatmap logits (B, d/8, d/8, 68) in detection space."""
-        d = self.detect_size
-        if tuple(x.shape[1:3]) != (d, d):
-            x = resize_bilinear(x, d, d)
-        g = x.to(torch.float32).mean(dim=-1, keepdim=True)
-        mu = g.mean(dim=(1, 2, 3), keepdim=True)
-        sd = g.std(dim=(1, 2, 3), keepdim=True, correction=0) + 1e-5
-        g = (g - mu) / sd
-        gx = torch.nn.functional.pad(g[:, :, 1:] - g[:, :, :-1], (0, 0, 0, 1))
-        gy = torch.nn.functional.pad(g[:, 1:] - g[:, :-1], (0, 0, 0, 0, 0, 1))
-        h = torch.cat([g, gx, gy], dim=-1).permute(0, 3, 1, 2)
+        h = photometric_features(x, self.detect_size)
         for i in range(self.n_stages):
             h = torch.relu(getattr(self, f"gn_{i}")(getattr(self, f"conv_{i}")(h)))
         for i in range(2):
@@ -76,6 +68,21 @@ class LandmarkNet(nn.Module):
         hh, ww = heat.shape[1], heat.shape[2]
         scale = torch.tensor([in_w / ww, in_h / hh], dtype=torch.float32, device=x.device)
         return decode_heatmaps(heat) * scale
+
+
+def photometric_features(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, H, W, 3) in [0, 1] -> (B, 3, size, size): the grey image resized to
+    size^2, standardised per image, and its x and y forward differences (the
+    landmark net's and the face detector's photometric-invariant input)."""
+    if tuple(x.shape[1:3]) != (size, size):
+        x = resize_bilinear(x, size, size)
+    g = x.to(torch.float32).mean(dim=-1, keepdim=True)
+    mu = g.mean(dim=(1, 2, 3), keepdim=True)
+    sd = g.std(dim=(1, 2, 3), keepdim=True, correction=0) + 1e-5
+    g = (g - mu) / sd
+    gx = torch.nn.functional.pad(g[:, :, 1:] - g[:, :, :-1], (0, 0, 0, 1))
+    gy = torch.nn.functional.pad(g[:, 1:] - g[:, :-1], (0, 0, 0, 0, 0, 1))
+    return torch.cat([g, gx, gy], dim=-1).permute(0, 3, 1, 2)
 
 
 def _local_soft_argmax(flat, ix, iy, xx, yy):
@@ -153,58 +160,5 @@ def load_default_landmark_params(path=DEFAULT_WEIGHTS_PATH):
     numpy arrays, for :func:`vface_torch.utils.convert.from_flax_aux`), or None
     when the file is absent."""
     path = Path(path)
-    if not path.exists():
-        return None
-    tree: dict = {}
-    with np.load(path) as data:
-        for key in data.files:
-            node = tree
-            *mods, leaf = key.split("/")
-            for m in mods:
-                node = node.setdefault(m, {})
-            node[leaf] = np.asarray(data[key])
-    return tree
+    return read_flat_npz(path) if path.exists() else None
 
-
-# ---------------------------------------------------- the canonical layout
-def _shape_defaults() -> dict:
-    """The default face shape of the JAX package's synthetic face renderer
-    (``vface_tpu/preprocess/synthetic_faces.py``), kept here as data."""
-    return dict(
-        eye_x=0.40, eye_y=-0.26, eye_rx=0.15, eye_ry=0.07,
-        brow_y=-0.48, brow_x0=0.18, brow_x1=0.62, brow_arc=0.06,
-        mouth_y=0.55, mouth_rx=0.30, mouth_ry=0.13,
-        nose_w=0.14, nostril_y=0.22, nose_top=-0.35,
-        jaw_w=0.9, jaw_drop=0.1, jaw_h=0.9,
-    )
-
-
-def canonical_landmarks(p: dict = None) -> np.ndarray:
-    """(68, 2) landmark layout in canonical face coordinates ([-1, 1] box, +x
-    right, +y down) from shape parameters ``p`` (the default shape when None):
-    jaw 0-16, brows 17-26, nose 27-35, eyes 36-47, outer lip 48-59, inner 60-67."""
-    p = p or _shape_defaults()
-    pts = np.zeros((68, 2), np.float32)
-    th = np.linspace(0.0, np.pi, 17)
-    pts[0:17, 0] = -p["jaw_w"] * np.cos(th)
-    pts[0:17, 1] = p["jaw_drop"] + p["jaw_h"] * np.sin(th)
-    bx = np.linspace(-p["brow_x1"], -p["brow_x0"], 5)
-    pts[17:22, 0] = bx
-    pts[17:22, 1] = p["brow_y"] - p["brow_arc"] * np.sin(np.linspace(0, np.pi, 5))
-    pts[22:27, 0] = -bx[::-1]
-    pts[22:27, 1] = pts[17:22, 1][::-1]
-    pts[27:31, 0] = 0.0
-    pts[27:31, 1] = np.linspace(p["nose_top"], p["nostril_y"] - 0.10, 4)
-    pts[31:36, 0] = np.linspace(-p["nose_w"], p["nose_w"], 5)
-    pts[31:36, 1] = p["nostril_y"]
-    ang = np.deg2rad([180.0, 135.0, 45.0, 0.0, -45.0, -135.0])
-    eye = np.stack([p["eye_rx"] * np.cos(ang), -p["eye_ry"] * np.sin(ang)], axis=-1)
-    pts[36:42] = eye + (-p["eye_x"], p["eye_y"])
-    pts[42:48] = eye + (p["eye_x"], p["eye_y"])
-    ang12 = np.deg2rad(180.0 - np.arange(12) * 30.0)
-    pts[48:60, 0] = p["mouth_rx"] * np.cos(ang12)
-    pts[48:60, 1] = p["mouth_y"] - p["mouth_ry"] * np.sin(ang12)
-    ang8 = np.deg2rad(180.0 - np.arange(8) * 45.0)
-    pts[60:68, 0] = 0.6 * p["mouth_rx"] * np.cos(ang8)
-    pts[60:68, 1] = p["mouth_y"] - 0.45 * p["mouth_ry"] * np.sin(ang8)
-    return pts

@@ -61,18 +61,24 @@ class VideoProgressManifest:
         return sum(w["frames"] for w in self.data.get("windows", {}).values())
 
 
-def load_params_npz(path: str) -> dict:
-    """A JAX ``save_params_npz`` file -> ``{part: state_dict}`` for the parts it
-    holds: ``unet``, ``vae``, ``cond`` (a model bundle) and ``bisenet``,
-    ``raft``, ``landmark`` (the aux nets). Raises on any other part."""
+def read_flat_npz(path) -> dict:
+    """A flat npz of a Flax tree (``/``-joined paths) -> nested dicts of numpy arrays."""
     tree: dict = {}
     with np.load(path) as data:
         for key in data.files:
-            *mods, leaf = key.split("/")
             node = tree
+            *mods, leaf = key.split("/")
             for m in mods:
                 node = node.setdefault(m, {})
-            node[leaf] = data[key]
+            node[leaf] = np.asarray(data[key])
+    return tree
+
+
+def load_params_npz(path: str) -> dict:
+    """A JAX ``save_params_npz`` file -> ``{part: state_dict}`` for the parts it
+    holds: ``unet``, ``vae``, ``cond`` (a model bundle) and ``bisenet``,
+    ``raft``, ``landmark``, ``detector`` (the aux nets). Raises on any other part."""
+    tree = read_flat_npz(path)
     unknown = sorted(set(tree) - set(PARTS) - set(AUX_PARTS))
     if unknown:
         raise ValueError(f"{path}: unknown parameter groups {unknown} (expected {PARTS + AUX_PARTS})")

@@ -1,19 +1,53 @@
-"""DDIM: the update and the train-time reconstruction chain.
+"""DDIM: the update, the CFG sampler and the train-time reconstruction chain.
 
-Port of ``vface_tpu/samplers/ddim.py``'s ``ddim_step``,
+Port of ``vface_tpu/samplers/ddim.py``'s ``ddim_step``, ``ddim_sample``,
 ``train_recon_timesteps`` and ``ddim_sample_train``:
 
     pred_x0 = (x - sqrt(1 - a_t) * e_t) / sqrt(a_t)
     dir_xt  = sqrt(1 - a_prev - sigma^2) * e_t
     x_prev  = sqrt(a_prev) * pred_x0 + dir_xt + sigma * noise
+
+The noise of ``eta > 0`` comes from a noise source, ``noise(step_idx, shape)
+-> Tensor``, called once per step in step order. The JAX samplers draw it from
+``PRNGKey(0)`` afresh on each call; torch cannot replay that stream, so the
+default source (:func:`seeded_noise`) is a ``torch.Generator`` seeded with 0
+afresh on each call, and a caller that needs JAX's draws passes a source that
+gives them.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from vface_torch.utils.schedule import DDIMSchedule
+
+NoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
+
+
+def seeded_noise(device, seed: int = 0) -> NoiseFn:
+    """Standard normal draws from a ``torch.Generator`` on ``device`` seeded
+    with ``seed``: the default noise source, made afresh for each sampler call."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return lambda step_idx, shape: torch.randn(shape, generator=gen, device=device)
+
+
+def noise_source(noise: Optional[NoiseFn], eta: float, device) -> Optional[NoiseFn]:
+    """The noise source of one sampler call: None at eta = 0 (no draws),
+    ``noise`` where given, else :func:`seeded_noise` on ``device``."""
+    if eta == 0.0:
+        return None
+    return noise if noise is not None else seeded_noise(device)
+
+
+def draw(noise: Optional[NoiseFn], step_idx: int, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """Step ``step_idx``'s noise of x's shape, float32 on x's device (None without a source)."""
+    if noise is None:
+        return None
+    return noise(step_idx, tuple(x.shape)).to(device=x.device, dtype=torch.float32)
 
 
 def ddim_step(x, e_t, a_t: float, a_prev: float, sqrt_1m_at: float, sigma: float,
@@ -31,6 +65,35 @@ def ddim_step(x, e_t, a_t: float, a_prev: float, sqrt_1m_at: float, sigma: float
     if noise is not None:
         x_prev = x_prev + sigma * noise
     return x_prev, pred_x0
+
+
+def ddim_sample(model, x_T, cond, uncond, inpaint_latent, mask_latent, num_steps: int = 50,
+                cfg_scale: float = 3.0, eta: float = 0.0, noise: Optional[NoiseFn] = None):
+    """CFG DDIM sampling from x_T (B, h, w, 4) -> (z_0, pred_x0 trajectory (S, B, h, w, 4)).
+
+    Each step runs the 2-chunk [uncond, cond] batch with the fixed inpainting
+    channels (``inpaint_latent`` (B, h, w, 4), ``mask_latent`` (B, h, w, 1))
+    and ``e_t = e_uncond + cfg_scale (e_cond - e_uncond)``; with ``eta > 0``
+    each step adds ``sigma * noise(step_idx, x.shape)``.
+    """
+    sch = DDIMSchedule.create(model.schedule, num_steps, eta=eta)
+    n = sch.num_steps
+    b = x_T.shape[0]
+    noise = noise_source(noise, eta, x_T.device)
+    extra = torch.cat([inpaint_latent, mask_latent], dim=-1).to(torch.float32)
+    c_in = torch.cat([uncond, cond], dim=0)
+    x = x_T.to(torch.float32)
+    traj = []
+    for idx in range(n):
+        index = n - 1 - idx
+        t = torch.full((2 * b,), int(sch.timesteps[index]), dtype=torch.int64, device=x.device)
+        x9 = torch.cat([x, extra], dim=-1)
+        eps = model.apply_model(torch.cat([x9, x9], dim=0), t, c_in)
+        e_t = eps[:b] + cfg_scale * (eps[b:] - eps[:b])
+        x, pred_x0 = ddim_step(x, e_t, sch.alphas[index], sch.alphas_prev[index], sch.sqrt_one_minus_alphas[index],
+                               sch.sigmas[index], draw(noise, idx, x))
+        traj.append(pred_x0)
+    return x, torch.stack(traj)
 
 
 def train_recon_timesteps(t_start: int, num_steps: int) -> np.ndarray:

@@ -16,10 +16,12 @@ renaming the leaf:
 
 :func:`init_params` makes a seeded random init on any device, with no JAX.
 
-The video swap's aux nets (``{"bisenet", "raft", "landmark"}``) follow the
-same walk: :func:`from_flax_aux` converts their Flax trees, and
-:func:`init_aux_params` makes them seeded (the landmark net from the JAX
-package's shipped weights, read as data, where the file is present).
+The video swap's aux nets (``{"bisenet", "raft", "landmark", "detector"}``)
+follow the same walk (the detector's Flax ``nn.GroupNorm`` ``scale`` is a
+``weight`` too): :func:`from_flax_aux` converts their Flax trees, and
+:func:`init_aux_params` makes them seeded (the landmark net and the face
+detector from the JAX package's shipped weights, read as data, where the
+files are present).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ _DROP = {"Conv_0", "Dense_0", "GroupNorm_0", "LayerNorm_0"}
 _RENAME = {"GroupNorm32_0": "norm"}
 _KEEP = {"bias", "mean", "var", "alpha", "class_embedding", "position_embedding", "learnable_vector"}
 PARTS = ("unet", "vae", "cond")
-AUX_PARTS = ("bisenet", "raft", "landmark")
+AUX_PARTS = ("bisenet", "raft", "landmark", "detector")
 
 
 def _leaf(name: str, arr: np.ndarray):
@@ -74,26 +76,27 @@ def from_flax_params(tree) -> dict:
 
 
 def from_flax_aux(tree) -> dict:
-    """``{"bisenet": ..., "raft": ..., "landmark": ...}`` Flax trees (any subset)
+    """``{"bisenet": ..., "raft": ..., "landmark": ..., "detector": ...}`` Flax trees (any subset)
     -> the same keys as state dicts of the port's aux modules."""
     return {part: flax_tree_to_state_dict(tree[part]) for part in AUX_PARTS if part in tree}
 
 
 def init_aux_params(generator: torch.Generator) -> dict:
     """Seeded aux-net parameters on the generator's device: ``{"bisenet",
-    "raft", "landmark"}`` state dicts, conv weights LeCun-normal, conv biases
-    normal with std 0.02, norms and frozen-BN statistics the identity. The
-    landmark net takes the JAX package's trained weights where the shipped
-    file is present."""
+    "raft", "landmark", "detector"}`` state dicts, conv weights LeCun-normal,
+    conv biases normal with std 0.02, norms and frozen-BN statistics the
+    identity. The landmark net and the detector take the JAX package's
+    trained weights where the shipped files are present."""
     from vface_torch.models.bisenet import BiSeNet
     from vface_torch.models.layers import Conv
     from vface_torch.models.raft import RAFT
+    from vface_torch.preprocess.detector import FaceDetector, load_default_detector_params
     from vface_torch.preprocess.landmarks import LandmarkNet, load_default_landmark_params
 
     dev = generator.device
     randn = lambda shape: torch.randn(shape, generator=generator, device=dev)
     with torch.device(dev):
-        parts = {"bisenet": BiSeNet(), "raft": RAFT(), "landmark": LandmarkNet()}
+        parts = {"bisenet": BiSeNet(), "raft": RAFT(), "landmark": LandmarkNet(), "detector": FaceDetector()}
     with torch.no_grad():
         for part in parts.values():
             for mod in part.modules():
@@ -102,9 +105,10 @@ def init_aux_params(generator: torch.Generator) -> dict:
                     if mod.bias is not None:
                         mod.bias.copy_(randn(mod.bias.shape) * 0.02)
     out = {name: part.state_dict() for name, part in parts.items()}
-    shipped = load_default_landmark_params()
-    if shipped is not None:
-        out["landmark"] = {k: v.to(dev) for k, v in flax_tree_to_state_dict(shipped).items()}
+    for name, load in (("landmark", load_default_landmark_params), ("detector", load_default_detector_params)):
+        shipped = load()
+        if shipped is not None:
+            out[name] = {k: v.to(dev) for k, v in flax_tree_to_state_dict(shipped).items()}
     return out
 
 
