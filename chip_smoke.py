@@ -73,8 +73,8 @@ Phases, one line each:
      conditioner (CLIP ViT-L/14, IR-50) and the aux nets (BiSeNet and RAFT
      seeded, the landmark net from its shipped weights) on a seeded 8-frame
      720x1280 clip at the reference operating point but for the depth (10 +
-     10 steps; window 6, RAFT 20 iterations, parser 512; phase sched runs
-     50 + 50 on 12 frames): seconds per stage, frames/s, peak
+     10 steps; window 6, RAFT 20 iterations, parser 512; phase swap runs
+     50 + 50 on one window): seconds per stage, frames/s, peak
      memory, launches, degenerate-quad fallbacks, the output's checks;
   9. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
      at full width, batch 1 at 512^2, the reference operating point (4-step
@@ -85,13 +85,40 @@ Phases, one line each:
      and with their plain versions, relative L2 error, and every trainable
      group's gradient finite and non-zero; the tiny fp32 ``p_losses_face``
      and its gradients on the card against the CPU;
+ 10b. train_terms: one full-width step with every term the training CLI
+     leaves off (LPIPS on seeded weights at 0.1, the VLB term at 1e-3, a
+     seeded landmark head at 0.1; AdamW at lr 0, so the model stays as it
+     was), then ``make_split_train_step`` from the same generator state, its
+     UNet gradients within 1e-3 relative L2 of the fused step's; the tiny
+     fp32 loss with every term (128^2), card against CPU within 1e-4;
+ 10c. vae_train: ``make_vae_train_step`` on the SD VAE (the model's seeded
+     weights, copied) at 512^2, batch 1, a seeded PatchGAN from step 0 and
+     LPIPS: 3 steps, ms per step, peak memory, K3's launches and its
+     gradient path's passes;
+ 10d. train_cli: the training CLI (``vface_torch.scripts.train.main``) in
+     process at full width on a synthetic CelebA-HQ-layout directory the
+     script writes (6 renders of ``synthetic_faces.render_face`` at 512^2 with
+     class maps): 4 steps (log_every 1, image_log_every 2, ckpt_every 2),
+     then ``--resume`` for 2 (saving on exit only): ms per step (the first
+     step and those after an image log or a save left out), peak memory, the
+     loss terms, launches per step, checkpoint bytes and seconds per save,
+     the files written; the
+     disk a save needs (from the state's numel) against what the temporary
+     directory has; frozen parameters as the seeded init made them, the
+     resumed run's params bit for bit those of the first run's model at its
+     exit (copied from the live model, not read from a checkpoint);
+ 10e. racecheck: K2's fused kernel's a*g barrier: copies of ``geglu_ff.cu``
+     without it (and one warp's epilogue delayed) and with the delay alone,
+     against the shipped kernel; ``compute-sanitizer --tool racecheck`` where
+     the toolkit ships it;
  11. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
      sampling UNet eval (and the device time of its feed-forwards: K2's sites,
      the wide sites on K9, and the rest), of one train step;
  11b. sched (the window schedules of the video path; ``phase_sched_kernels``
      adds K1, K2 and K9 rows at b = 18 and 24 to the kernels phase): (b) on
      the video phase's model, a seeded 12-frame 720x1280 clip at the
-     reference operating point through the sequential loop, pipelined packs,
+     reference operating point but for the depth (25 + 25 steps, cut for
+     time) through the sequential loop, pipelined packs,
      the super-pack, its streaming form (numpy frames), merged sampling and
      the cross-window carry (after a 2 + 2-step warm-up of the new batches
      under the kernel-site checks): per run seconds, frames/s, stages, peak
@@ -107,7 +134,7 @@ Phases, one line each:
      clip, against its exact sequential run): a warm-up holds one cached
      sampling eval and one CFG inversion eval (b = 12) to the plain kernels;
      the sequential loop at ``encoder_interval`` 2 and 3, the super-pack with
-     merged sampling at 2 and the loop at eta = 0.5 (50 + 50 steps): seconds,
+     merged sampling at 2 and the loop at eta = 0.5 (sched's 25 + 25): seconds,
      frames/s, invert and sample seconds, K1/K2/K9 launches (the cached runs
      gated to fewer K1s than the exact run), peak memory, the uint8 difference
      (reported); then the tiny fp32 samplers with the cache, eta (an explicit
@@ -120,8 +147,9 @@ Phases, one line each:
      the depth (20 + 20 steps): seconds (per face), frames/s, peak memory,
      launches;
  12. cli: the video-swap CLI (``vface_torch.scripts.vface_video_swap.main``)
-     at its defaults (SD-v1 inpainting with its conditioner, seeded; 50 + 50
-     steps, window 6, scale 3.0, fps 10) on inputs written with the port's
+     at its defaults but for the depth (SD-v1 inpainting with its
+     conditioner, seeded; 25 + 25 steps, cut for time; window 6, scale 3.0,
+     fps 10) on inputs written with the port's
      writers to a temporary directory: pair A, a 12-frame 720x1280 Y4M with a
      WAV beside it; pair B, 3 frames with precomputed parse maps. A 2 + 2-step
      warm-up at ``--batch_windows 2`` holds every kernel call at the packed
@@ -617,7 +645,8 @@ def kernel_counts() -> dict:
     from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
 
     return {**FA.LAUNCHES, "geglu_ff": FF.LAUNCHES, "geglu_ff_wide": FF.WIDE_LAUNCHES,
-            "geglu_ff_split": FF.SPLIT_LAUNCHES, "geglu_ff_f32": FF.F32_LAUNCHES,
+            "geglu_ff_split": FF.SPLIT_LAUNCHES, "geglu_ff_split_f32": FF.SPLIT_F32_LAUNCHES,
+            "geglu_ff_f32": FF.F32_LAUNCHES,
             "geglu_ff_wide_f32": FF.WIDE_F32_LAUNCHES, "gn_sums": GN.LAUNCHES}
 
 
@@ -629,6 +658,7 @@ def reset_counts() -> None:
     FF.LAUNCHES = 0
     FF.WIDE_LAUNCHES = 0
     FF.SPLIT_LAUNCHES = 0
+    FF.SPLIT_F32_LAUNCHES = 0
     FF.F32_LAUNCHES = 0
     FF.WIDE_F32_LAUNCHES = 0
     GN.LAUNCHES = 0
@@ -1295,7 +1325,9 @@ def phase_bench_kernels() -> dict:
     (12, 1024, 320), within 1e-5 of the output's peak against
     ``flash_attention_v1_ref``. K13 at the row-tile sweep's shapes (C 320
     with M = 24*4096, C 640 with M = 24*1024, the bench's operands), each
-    built tile: 2 ulps against K2's plain version.
+    built tile: 2 ulps against K2's plain version; and K13 on fp32 operands
+    (the bench's values at fp32; K2's fp32 two-kernel form at its 128-row
+    tile) within 1e-5 of the output's peak.
 
     Bounds at the bf16 tensor-core peak (bf16 operands: the tensor cores
     compute K8's function as K6 does) or the bytes; fp32 operands at the
@@ -1309,7 +1341,7 @@ def phase_bench_kernels() -> dict:
     from vface_torch.ops import flash_attention as FA
     from vface_torch.ops import geglu_ff as FF
 
-    rows = {name: [] for name in BENCH_KERNELS}
+    rows = {name: [] for name in BENCH_KERNELS + ("geglu_ff_split_f32",)}
     line = {"flash_attention_v3": 72, "flash_attention_v4": 158, "flash_attention_v6": 247}
     h, dh = BA.H, BA.DH
     with torch.inference_mode():
@@ -1373,6 +1405,25 @@ def phase_bench_kernels() -> dict:
                     cuda_ms(lambda: FF.geglu_ff_split(*args, tm)), plain_ms, unfused_ms,
                     _ff_bound(m, c, 4 * c), f"({m},{c})I{4 * c} tm{tm}"))
             del args, want, got
+            # K13 on fp32 operands (no bench run takes them): its launches are
+            # the timed calls of this row, the comparison's call left out
+            args = tuple(a.float() for a in BF.operands(c, m))
+            want = FF.geglu_ff_ref(*args)
+            plain_ms = cuda_ms(lambda: FF.geglu_ff_ref(*args), reps=2, warmup=1)
+            unfused_ms = cuda_ms(lambda: FF.geglu_ff_unfused(*args))
+            inner = 4 * c
+            flops = 6.0 * m * c * inner
+            got = FF.geglu_ff_split(*args, 128)
+            torch.cuda.synchronize()
+            FF.SPLIT_F32_LAUNCHES = 0
+            ms = cuda_ms(lambda: FF.geglu_ff_split(*args, 128))
+            row = _row("geglu_ff_split_f32", "cuda", "vface_torch/csrc/geglu_ff.cu", "scripts/bench_ff_tile.py:63",
+                       _errs(got, want), ("rel", 1e-5), ms, plain_ms, unfused_ms,
+                       bound(3.0 * flops, (2 * m * c + 3 * c * inner + 2 * inner + c) * 4, PEAK_TF32_FLOPS),
+                       f"({m},{c})I{inner} tm128 fp32", ffma=ffma_ms(flops))
+            row["launches"] = FF.SPLIT_F32_LAUNCHES
+            rows["geglu_ff_split_f32"].append(row)
+            del args, want, got
     torch.cuda.empty_cache()
     return rows
 
@@ -1404,7 +1455,7 @@ def phase_bench(reps: int) -> dict:
 
 VIDEO_FRAMES, VIDEO_HW = 8, (720, 1280)  # an HD clip: a 6-frame window and a 2-frame window
 # the video phase's depth: cut from the reference's 50 + 50 steps for time,
-# since phase sched runs the reference operating point on a 12-frame clip
+# since phase swap runs the reference operating point on one window
 VIDEO_STEPS = 10
 
 
@@ -1568,6 +1619,7 @@ SCHED_RUNS = {
 # the pipeline's methods a run must call (and how often) to show that its schedule ran
 SCHED_PROGRAMS = ("_pipelined_step", "_final_pack", "_superpack", "_swap_frames_superpacked_streaming")
 SCHED_FRAMES = 12  # (b): two 6-frame windows of 720x1280
+SCHED_STEPS = 25  # (b) and phase opts: cut from the reference's 50 + 50 steps for time
 GATE_FRAMES, GATE_WINDOW, GATE_STEPS, GATE_HW = 10, 3, 4, (512, 512)  # (a): three packs and a remainder
 GATE_TOL = 1e-3  # (a): max abs on frames in [0, 1], fp32
 LANDSCAPE = (12, 18, 24, 36, 48)  # (c): sampling eval batches (2 chunks x frames)
@@ -1706,8 +1758,9 @@ def phase_sched_gate(seed: int) -> None:
 def phase_sched(model, seed: int) -> dict:
     """Phase sched (b) and (c) on the ``video`` phase's model (bf16, with the
     conditioner). (b): every schedule of ``swap_video_frames`` on a seeded
-    12-frame 720x1280 clip at the reference operating point (50 + 50 steps,
-    window 6, RAFT 20, parser 512): the sequential loop, pipelined packs,
+    12-frame 720x1280 clip at the reference operating point but for the
+    depth (``SCHED_STEPS`` + ``SCHED_STEPS`` steps; window 6, RAFT 20, parser
+    512): the sequential loop, pipelined packs,
     the super-pack (tensor frames), its streaming form (numpy frames), the
     super-pack with merged sampling, and the cross-window carry; a 2 + 2-step
     warm-up of the schedulers with new batches (pipelined: b = 18, merged:
@@ -1727,7 +1780,7 @@ def phase_sched(model, seed: int) -> dict:
     from vface_torch.utils.convert import init_aux_params
 
     t_phase = time.perf_counter()
-    opts = SwapOptions(ddim_steps=DDIM_STEPS, inversion_steps=INVERSION_STEPS, window=FRAMES,
+    opts = SwapOptions(ddim_steps=SCHED_STEPS, inversion_steps=SCHED_STEPS, window=FRAMES,
                        image_size=model.cfg.image_size, parser_size=512, raft_iters=20)
     aux = init_aux_params(torch.Generator(device="cuda").manual_seed(seed))
     frames = synthetic_clip(SCHED_FRAMES, VIDEO_HW, seed + 20)
@@ -1850,7 +1903,7 @@ def silu_forms(model, x9, ts, ctx, flow, inj) -> None:
 
 
 # Phase opts: the sampler options on the video phase's model, on phase sched's
-# 12-frame 720p clip at the reference operating point. Each run: its
+# 12-frame 720p clip at sched's depth. Each run: its
 # SwapOptions fields.
 OPTS_RUNS = {
     "sequential_interval2": dict(encoder_interval=2),
@@ -1868,8 +1921,8 @@ OPTS_GATE_TOL = 1e-4
 def phase_opts(model, seed: int, base: dict) -> None:
     """Phase opts on the ``video`` phase's model (bf16, with the conditioner):
     encoder propagation and eta > 0 through ``swap_video_frames`` on phase
-    sched's 12-frame 720x1280 clip at the reference operating point (50 + 50
-    steps, window 6, RAFT 20, parser 512): the sequential loop at
+    sched's 12-frame 720x1280 clip at sched's depth (``SCHED_STEPS`` +
+    ``SCHED_STEPS`` steps; window 6, RAFT 20, parser 512): the sequential loop at
     ``encoder_interval`` 2 and 3, the super-pack with merged sampling at 2, and
     the sequential loop at eta = 0.5, after a warm-up that holds every kernel
     call of one cached sampling eval and one CFG inversion eval (b = 12) to its
@@ -2528,6 +2581,7 @@ def phase_profile_train(model, seed: int, path: str) -> None:
 
 
 CLI_FRAMES, CLI_SHORT = 12, 3  # pair A: two windows (one pack of two); pair B: one short window
+CLI_STEPS = 25  # the CLI's 50 + 50 steps cut for the script's time
 _DONE = re.compile(r"\[done\] (\S+): (\d+) frames, swap ([\d.]+) s \(([\d.]+) frames/s\), sink ([\d.]+) s")
 
 
@@ -2721,9 +2775,9 @@ def check_cli_outputs(outdir: str, name: str, frames: int, windows: dict, audio:
 
 def phase_cli(seed: int) -> None:
     """The video-swap CLI (``python -m vface_torch.scripts.vface_video_swap``)
-    on the card, through ``main(argv)`` at its defaults (SD-v1 inpainting
-    with its conditioner, seeded; 50 + 50 steps, window 6, scale 3.0, fps 10,
-    parser 512): a 2 + 2-step warm-up at ``--batch_windows 2`` with every
+    on the card, through ``main(argv)`` at its defaults but for the depth
+    (SD-v1 inpainting with its conditioner, seeded; ``CLI_STEPS`` +
+    ``CLI_STEPS`` steps, window 6, scale 3.0, fps 10, parser 512): a 2 + 2-step warm-up at ``--batch_windows 2`` with every
     kernel call held to its plain version (the packed shapes: K1 at b = 24,
     K2 at M = 24 * 4096 and 24 * 1024, K9 at 24 * 256 and 24 * 64); run A
     (both pairs, separate windows: outputs checked, frames/s, the sink's
@@ -2742,7 +2796,7 @@ def phase_cli(seed: int) -> None:
     root = tempfile.mkdtemp(prefix="vface_cli_")
     try:
         cfg = write_cli_inputs(os.path.join(root, "in"), seed)
-        base = ["--seed", str(seed)]
+        base = ["--seed", str(seed), "--ddim_steps", str(CLI_STEPS), "--inversion_steps", str(CLI_STEPS)]
         out = lambda run: ["--outdir", os.path.join(root, run)]
         t0 = time.perf_counter()
         with checked_sites("cli"):
@@ -2831,19 +2885,473 @@ def phase_cli(seed: int) -> None:
     log("cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
 
 
+TRAIN_CLI_STEPS, TRAIN_CLI_RESUME, TRAIN_CLI_IMAGES = 4, 2, 6  # steps, resumed steps, synthetic pairs
+_STAGES = re.compile(r"^\[train\] stages (\{.*\})$", re.M)
+
+
+def _clean_steps(n: int, every: int) -> list:
+    """Steps whose ``sec_per_it`` (log_every 1) holds the step alone: not the
+    first (the warm-up) and not one after an image log or a save."""
+    return [s for s in range(2, n + 1) if (s - 1) % every]
+
+
+def _save_bytes(cfg) -> tuple:
+    """(bytes of a save_last, bytes of a save_monitored) at fp32, reckoned from
+    the state's numel: every parameter, plus Adam's two moments of the
+    trainable set in save_last."""
+    import torch
+
+    from vface_torch.models.ldm import VFaceModel
+    from vface_torch.pipelines.train import trainable_mask
+
+    meta = VFaceModel(cfg, device="meta", conditioner=True)
+    trainable_mask(meta)
+    n_all = sum(p.numel() for p in meta.parameters())
+    n_train = sum(p.numel() for p in meta.parameters() if p.requires_grad)
+    del meta
+    torch.cuda.empty_cache()
+    return 4 * (n_all + 2 * n_train), 4 * n_all
+
+
+def phase_train_cli(seed: int) -> dict:
+    """The training CLI (``vface_torch.scripts.train.main``) in process at its
+    full width (SD-v1 inpainting with its conditioner, seeded; batch 1 at
+    512^2) on a synthetic CelebA-HQ-layout directory: 4 steps (log_every 1,
+    image_log_every 2, ckpt_every 2), then ``--resume`` for 2 more (saving on
+    exit only). Returns the launches per step of the first run."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from vface_torch.data.datasets import write_synthetic_celeba
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.pipelines import train_driver
+    from vface_torch.pipelines.train import trainable_mask
+    from vface_torch.scripts import train as cli
+    from vface_torch.utils.convert import init_params
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.sd_v1_inpaint()
+    root = tempfile.mkdtemp(prefix="vface_train_cli_")
+    try:
+        data, logdir = os.path.join(root, "celeba"), os.path.join(root, "logs")
+        t0 = time.perf_counter()
+        write_synthetic_celeba(data, TRAIN_CLI_IMAGES, size=cfg.image_size, seed=seed)
+        data_s = time.perf_counter() - t0
+        last_b, mon_b = _save_bytes(cfg)
+        need = 2 * last_b + 2 * mon_b  # last, its temporary file during a save, step_2 and step_4
+        free = shutil.disk_usage(root).free
+        log("train_cli_disk", save_last_bytes=last_b, save_monitored_bytes=mon_b, need_bytes=need,
+            free_bytes=free, where=root)
+        if free < need:
+            raise SystemExit(f"chip_smoke: train_cli needs {need} bytes of disk for its checkpoints, "
+                             f"{root} has {free} free")
+        os.environ.pop("VFACE_PLATFORM", None)  # the CLI's default device: the card
+        argv = ["--dataset_dir", data, "--logdir", logdir, "--log_every", "1", "--image_log_every", "2",
+                "--ckpt_every", "2", "--seed", str(seed)]
+        runs = {}
+        exit_params = {}  # the first run's model at its exit, copied from the live model on the host
+        # the resumed run saves on exit only (each save_last writes ~12 GB)
+        for name, extra, steps in (("train", [], TRAIN_CLI_STEPS),
+                                   ("resume", ["--resume", "--ckpt_every", str(2 * TRAIN_CLI_RESUME)], TRAIN_CLI_RESUME)):
+            restored, built = {}, []
+
+            class CheckedModel(VFaceModel):
+                def __init__(self, *a, **k):
+                    super().__init__(*a, **k)
+                    built.append(self)
+
+                def load_params(self, state):
+                    # the resumed run's model as loaded, against the first run's model at its exit
+                    super().load_params(state)
+                    if exit_params:
+                        got = self.param_state()
+                        restored["equal"] = got.keys() == exit_params.keys() and all(
+                            sd.keys() == exit_params[part].keys()
+                            and all(torch.equal(v.cpu(), exit_params[part][k]) for k, v in sd.items())
+                            for part, sd in got.items())
+
+            tee = _Tee()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee), mock.patch.object(train_driver, "VFaceModel", CheckedModel):
+                rc = cli.main(argv + ["--max_steps", str(steps)] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if rc != 0:
+                raise SystemExit(f"chip_smoke: the training CLI's {name} run exited {rc}")
+            if not extra:
+                exit_params.update({part: {k: v.detach().cpu().clone() for k, v in sd.items()}
+                                    for part, sd in built[-1].param_state().items()})
+            del built[:]
+            torch.cuda.empty_cache()
+            out = "".join(tee.parts)
+            stages = json.loads(_STAGES.findall(out)[-1])
+            with open(os.path.join(logdir, "metrics.jsonl")) as fh:
+                recs = [json.loads(line) for line in fh][-steps:]
+            terms = {k: [r[k] for r in recs] for k in recs[0] if k.startswith("train/") and k != "train/sec_per_it"}
+            clean = [r["train/sec_per_it"] * 1e3 for r in recs if r["step"] in _clean_steps(steps, 2)]
+            runs[name] = dict(launches=launches, steps=steps)
+            ckdir = os.path.join(logdir, "checkpoints")
+            sizes = {n: os.path.getsize(os.path.join(ckdir, n)) for n in sorted(os.listdir(ckdir))}
+            files = sorted(os.path.relpath(os.path.join(d, f), logdir) for d, _, fs in os.walk(logdir) for f in fs)
+            log("train_cli", run=name, steps=steps, wall_s=f"{wall:.3f}",
+                ms_per_step=f"{sum(clean) / len(clean):.1f}" if clean else "n/a",
+                ms_steps=",".join(f"{r['train/sec_per_it'] * 1e3:.1f}" for r in recs),
+                warmup_and_save_steps_excluded=",".join(str(r["step"]) for r in recs
+                                                        if r["step"] not in _clean_steps(steps, 2)),
+                peak_gib=f"{peak:.2f}", **{k.split("/")[1]: ",".join(f"{x:.5f}" for x in v) for k, v in terms.items()},
+                save_last_s=f"{stages['save_last']['mean_s']:.2f}", save_last_n=stages["save_last"]["count"],
+                save_monitored_s=f"{stages.get('save_monitored', {}).get('mean_s', float('nan')):.2f}",
+                image_log_s=f"{stages.get('image_log', {}).get('mean_s', float('nan')):.3f}",
+                checkpoint_bytes=",".join(f"{n}:{b}" for n, b in sizes.items()), files=",".join(files),
+                data_write_s=f"{data_s:.1f}")
+            log("train_cli_launches", run=name, **{k: f"{v / steps:g}" for k, v in launches.items() if v},
+                note="per step; gn_sums includes the image logs' encode + decode")
+            if not all(math.isfinite(x) for v in terms.values() for x in v):
+                raise SystemExit(f"chip_smoke: a loss of the training CLI's {name} run is not finite")
+            missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+            if missing:
+                raise SystemExit(f"chip_smoke: the training CLI's {name} run launched no {missing} kernel")
+            if extra:
+                start = re.findall(r"\[train\] resumed from step (\d+)", out)
+                if not restored.get("equal") or start != [str(TRAIN_CLI_STEPS)]:
+                    raise SystemExit("chip_smoke: --resume did not restore the first run's params bit for bit")
+                log("train_cli_resume", restored_from_step=start[0], params_bit_equal_to_first_run_exit=restored["equal"],
+                    leaves=sum(len(sd) for sd in exit_params.values()))
+                exit_params.clear()
+            else:
+                # the frozen set (VAE, ArcFace, CLIP tower) as the seeded init made it
+                init = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), conditioner=True)
+                meta = VFaceModel(cfg, device="meta", conditioner=True)
+                mask = trainable_mask(meta)
+                del meta
+                last = torch.load(os.path.join(ckdir, f"step_{TRAIN_CLI_STEPS:08d}"), map_location="cpu",
+                                  weights_only=True)["state"]["params"]
+                frozen = [n for n, f in mask.items() if not f]
+                part = lambda n: ({"conditioner": "cond"}.get(n.split(".")[0], n.split(".")[0]), n.split(".", 1)[1])
+                changed = [n for n in frozen if not torch.equal(last[part(n)[0]][part(n)[1]],
+                                                                init[part(n)[0]][part(n)[1]].cpu())]
+                moved = sum(not torch.equal(last[part(n)[0]][part(n)[1]], init[part(n)[0]][part(n)[1]].cpu())
+                            for n, f in mask.items() if f)
+                del init, last
+                torch.cuda.empty_cache()
+                log("train_cli_frozen", frozen_leaves=len(frozen), changed=len(changed), trainable_moved=moved)
+                if changed or not moved:
+                    raise SystemExit(f"chip_smoke: frozen parameters changed in training ({changed[:5]}) "
+                                     f"or no trainable one moved ({moved})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("train_cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    return runs["train"]
+
+
+def _seeded_(module, generator):
+    """Conv / Dense weights N(0, 1/fan_in), biases N(0, 0.02^2), in place; returns the module."""
+    import torch
+
+    from vface_torch.models.layers import Conv, Dense
+
+    with torch.no_grad():
+        for name, mod in module.named_modules():
+            if isinstance(mod, (Conv, Dense)):
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator, device=mod.weight.device)
+                                 / math.sqrt(math.prod(mod.weight.shape[1:])))
+                if name.startswith("lin"):  # LPIPS's heads weigh squared distances: non-negative
+                    mod.weight.abs_()
+                if mod.bias is not None:
+                    mod.bias.copy_(torch.randn(mod.bias.shape, generator=generator, device=mod.bias.device) * 0.02)
+    return module
+
+
+def _tiny_terms_model(device, params=None):
+    """The tiny config at 128^2 (a three-level tiny VAE: LPIPS needs 128^2 for
+    its third scale) with its conditioner and a landmark head."""
+    import torch
+
+    from vface_torch.models.conditioning import ConditionerConfig
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.models.unet import UNetConfig
+    from vface_torch.models.vae import VAEConfig
+    from vface_torch.utils.convert import init_params
+
+    cfg = ModelConfig(unet=UNetConfig.tiny(), vae=VAEConfig(ch=32, ch_mult=(1, 2, 2), num_res_blocks=1),
+                      cond=ConditionerConfig.tiny(), image_size=128)
+    m = VFaceModel(cfg, device=device, conditioner=True, landmark_head=True)
+    m.load_params(params or init_params(cfg, torch.Generator().manual_seed(0), conditioner=True, landmark_head=True))
+    return m
+
+
+def phase_train_terms(model, seed: int) -> None:
+    """One full-width step (batch 1 at 512^2) with every term the CLI leaves
+    off: LPIPS (seeded weights, weight 0.1), the VLB term (1e-3) and a seeded
+    landmark head (0.1); then make_split_train_step against the fused step from
+    one generator state (UNet gradients within 1e-3 relative L2); then the tiny
+    fp32 loss with every term, card against CPU (1e-4)."""
+    import dataclasses as dc
+
+    import torch
+
+    from vface_torch.eval.lpips import LPIPS, make_lpips_fn
+    from vface_torch.pipelines.train import (
+        TrainConfig, make_optimizer, make_split_train_step, make_train_step, p_losses_face, trainable_mask)
+    from vface_torch.preprocess.landmarks import UNetLandmarkHead
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 20)
+    lp = make_lpips_fn(_seeded_(LPIPS().cuda(), g).state_dict(), device="cuda")
+    cfg = TrainConfig(lpips_loss_weight=0.1, original_elbo_weight=1e-3, landmark_loss_weight=0.1)
+    model.landmark_head = _seeded_(UNetLandmarkHead(2 * model.cfg.unet.model_channels, model.cfg.latent_size).cuda(), g)
+    try:
+        # lr 0: AdamW leaves every parameter as it was, so later phases see the same model
+        opt, sched = make_optimizer(dc.replace(cfg, learning_rate=0.0), model)
+        batch = train_batch(model, 1, seed + 21)
+        grads, times = {}, {}
+        # timed as the CLI runs; then the gradients compared with cuDNN's
+        # deterministic algorithms, twice fused for the run-to-run spread
+        runs = (("warmup", make_train_step, False), ("fused", make_train_step, False),
+                ("split", make_split_train_step, False), ("fused_det", make_train_step, True),
+                ("fused_det_again", make_train_step, True), ("split_det", make_split_train_step, True))
+        for name, make, det in runs:
+            step = make(model, opt, sched, cfg, lp)
+            gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+            torch.backends.cudnn.deterministic = det
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            logs = step(batch, gen)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30, kernel_counts(),
+                           {k: float(v) for k, v in logs.items()})
+            if name != "warmup":
+                grads[name] = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()
+                               if p.grad is not None and n.startswith("unet.")}
+            model.zero_grad(set_to_none=True)
+        torch.backends.cudnn.deterministic = False
+        for name in ("fused", "split"):
+            wall, peak, launches, logs = times[name]
+            log("train_terms", step=name, ms=f"{wall * 1e3:.1f}", peak_gib=f"{peak:.2f}",
+                **{k: f"{v:.6f}" for k, v in logs.items()})
+            log("train_terms_launches", step=name, **{k: v for k, v in launches.items() if v})
+            if not all(math.isfinite(v) for v in logs.values()) or not {
+                    "loss_lpips", "loss_vlb", "loss_landmark", "loss_id", "loss_simple"} <= set(logs):
+                raise SystemExit(f"chip_smoke: the {name} step with every term has a missing or non-finite term")
+        def rel(a, b):
+            ga, gb = grads[a], grads[b]
+            if ga.keys() != gb.keys():
+                raise SystemExit(f"chip_smoke: the {a} and {b} steps gave gradients to different leaves")
+            return (math.sqrt(sum(float((ga[n] - gb[n]).norm()) ** 2 for n in ga))
+                    / math.sqrt(sum(float(gb[n].norm()) ** 2 for n in gb)))
+
+        split_det, spread_det, split, spread = (rel("split_det", "fused_det"), rel("fused_det_again", "fused_det"),
+                                                rel("split", "fused"), rel("fused_det", "fused"))
+        log("train_terms_split", unet_grad_rel_l2=f"{split_det:.3e}", tol=1e-3, deterministic_cudnn=True,
+            fused_twice_rel_l2=f"{spread_det:.3e}", default_cudnn_split_rel_l2=f"{split:.3e}",
+            default_vs_deterministic_fused_rel_l2=f"{spread:.3e}", leaves=len(grads["fused"]))
+        del grads
+        if not split_det <= 1e-3:
+            raise SystemExit("chip_smoke: the split step's gradients disagree with the fused step's")
+    finally:
+        model.landmark_head = None
+        model.zero_grad(set_to_none=True)
+        trainable_mask(model)
+        torch.cuda.empty_cache()
+
+    # the tiny fp32 loss with every term: card against CPU (the CPU run is held to JAX by the tests)
+    out = {}
+    params = None
+    for dev in ("cpu", "cuda"):
+        m = _tiny_terms_model(dev, params)
+        params = params or {k: {n: v.cpu() for n, v in sd.items()} for k, sd in m.param_state().items()}
+        trainable_mask(m)
+        lpf = make_lpips_fn(_seeded_(LPIPS(), torch.Generator().manual_seed(seed + 23)).state_dict(), device=dev)
+        tb = train_batch(m, 2, seed + 24, device="cpu")
+        tf = _train_fixed(m, 2, seed + 25, device="cpu")
+        tf["drop"] = torch.tensor([True, False])[:, None, None]
+        mv = lambda d: {k: v.to(dev) for k, v in d.items()}
+        loss, logs = p_losses_face(m, mv(tb), None, dc.replace(cfg, reconstruct_steps=1), mv(tf), perceptual_fn=lpf)
+        loss.backward()
+        out[dev] = ({k: v.item() for k, v in logs.items()},
+                    {n: p.grad.detach().cpu() for n, p in m.named_parameters() if p.grad is not None})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    log_err = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc)
+    gmax = max(float(v.abs().max()) for v in gc.values())
+    ratio = max(float((gg[n] - gc[n]).abs().max()) / (1e-4 * float(gc[n].abs().max()) + 1e-6 * gmax) for n in gc)
+    log("train_terms_small_reference", config="tiny fp32 128^2 b2, every term", terms=",".join(sorted(lc)),
+        loss_max_rel_err=f"{log_err:.3e}", grad_err_over_tol=f"{ratio:.3f}", tol="1e-4", leaves=len(gc))
+    if not (gg.keys() == gc.keys() and log_err <= 1e-4 and ratio <= 1.0 and "loss_lpips" in lc):
+        raise SystemExit("chip_smoke: the card's tiny loss with every term disagrees with the CPU's")
+
+
+VAE_TRAIN_STEPS = 3
+
+
+def phase_vae_train(model, seed: int) -> None:
+    """make_vae_train_step on the SD VAE (the model's seeded weights, copied;
+    bf16 compute) at 512^2, batch 1, with a seeded PatchDiscriminator from step
+    0 (disc_start 0) and a seeded LPIPS: 3 steps, ms per step after the first,
+    peak memory, K3's launches and its gradient path."""
+    import torch
+
+    from vface_torch.eval.lpips import LPIPS, make_lpips_fn
+    from vface_torch.models.vae import AutoencoderKL
+    from vface_torch.ops import gn_sums as GN
+    from vface_torch.pipelines.vae_train import PatchDiscriminator, VAELossConfig, make_vae_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    vae = AutoencoderKL(model.cfg.vae).cuda()
+    vae.load_state_dict(model.vae.state_dict())
+    disc = _seeded_(PatchDiscriminator().cuda(), g)
+    lp = make_lpips_fn(_seeded_(LPIPS().cuda(), g).state_dict(), device="cuda")
+    g_opt = torch.optim.Adam(vae.parameters(), lr=4.5e-6, betas=(0.5, 0.9))  # taming's
+    d_opt = torch.optim.Adam(disc.parameters(), lr=4.5e-6, betas=(0.5, 0.9))
+    step = make_vae_train_step(vae, disc, g_opt, d_opt, VAELossConfig(disc_start=0), lp)
+    img = train_batch(model, 1, seed + 31)["gt_image"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    GN.BACKWARD_CALLS = 0
+    times, logs = [], []
+    for i in range(VAE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        logs.append({k: float(v) for k, v in step(img, i, generator=gen).items()})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches, bwd = kernel_counts(), GN.BACKWARD_CALLS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("vae_train", config="SD VAE 512^2 b1 bf16, PatchGAN from step 0, LPIPS", steps=VAE_TRAIN_STEPS,
+        ms_per_step=f"{sum(times[1:]) / len(times[1:]) * 1e3:.1f}", ms_steps=",".join(f"{t * 1e3:.1f}" for t in times),
+        peak_gib=f"{peak:.2f}", gn_sums_per_step=f"{launches['gn_sums'] / VAE_TRAIN_STEPS:g}",
+        gn_sums_backward_per_step=f"{bwd / VAE_TRAIN_STEPS:g}",
+        **{k.replace("vae/", ""): ",".join(f"{x[k]:.5f}" for x in logs) for k in logs[0]})
+    del vae, disc, lp, g_opt, d_opt, step
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for x in logs for v in x.values()):
+        raise SystemExit("chip_smoke: a VAE training loss is not finite")
+    if launches["gn_sums"] == 0 or bwd == 0:
+        raise SystemExit("chip_smoke: VAE training took no K3 launch or no pass through K3's gradient")
+
+
+# one fused K2 launch (C = 320, 128-row tiles) through a given library, for racecheck
+_ONE_LAUNCH = r"""
+import ctypes, sys, torch
+lib = ctypes.CDLL(sys.argv[1])
+fn = lib.vface_geglu_ff_fused_bf16
+fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+g = torch.Generator(device="cuda").manual_seed(0)
+m, c, inner = int(sys.argv[2]), 320, 1280
+r = lambda *s, k=1.0: (torch.randn(s, generator=g, device="cuda") * k).to(torch.bfloat16)
+x, wp, bp, wo, bo = r(m, c), r(2 * inner, c, k=c ** -0.5), r(2 * inner, k=0.1), r(c, inner, k=inner ** -0.5), r(c, k=0.1)
+out = torch.empty(m, c, dtype=torch.bfloat16, device="cuda")
+err = fn(x.data_ptr(), wp.data_ptr(), bp.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(), m, c, inner, 128,
+         torch.cuda.current_stream().cuda_stream)
+torch.cuda.synchronize()
+assert err == 0, err
+torch.save(out.cpu(), sys.argv[3])
+"""
+_AG_BARRIER = "bar_sync(2 + rw, 128);  // the chunk's whole a*g is in place"
+_EPILOGUE = "__nv_bfloat16* hbuf = &sm.h[rw][ch & 1][0][0][0];"
+
+
+def phase_racecheck() -> None:
+    """K2's fused kernel's a*g barrier (the named barrier between a
+    warpgroup's epilogue writes of a*g and its second product's reads).
+    Builds copies of ``geglu_ff.cu``: one with the barrier removed and the
+    epilogue of each warpgroup's last warp delayed 50 us, one with the delay
+    alone. A launch of each at C = 320 (M = 4096, 128-row tiles) against the
+    shipped kernel: the delay alone must leave the output bit for bit, and
+    the phase reports whether the copy without the barrier differs (the check
+    fails that copy) or not. Then ``compute-sanitizer --tool racecheck`` on one
+    launch of the shipped kernel and of the copy, where the toolkit ships it
+    and it runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vface_torch.ops import _native
+
+    src = (_native.CSRC / "geglu_ff.cu").read_text()
+    if src.count(_AG_BARRIER) != 1 or src.count(_EPILOGUE) != 1:
+        raise SystemExit("chip_smoke: racecheck cannot find the a*g barrier or the epilogue in geglu_ff.cu")
+    delay = _EPILOGUE + "\n    if (warp == 3) __nanosleep(50000);"
+    variants = {"delay": src.replace(_EPILOGUE, delay),
+                "no_barrier": src.replace(_EPILOGUE, delay).replace(_AG_BARRIER, "// a*g barrier removed")}
+    root = tempfile.mkdtemp(prefix="vface_racecheck_")
+    try:
+        shutil.copy(_native.CSRC / "hopper.cuh", root)
+        procs = {}
+        for name, text in variants.items():
+            path = os.path.join(root, f"geglu_{name}.cu")
+            with open(path, "w") as fh:
+                fh.write(text)
+            cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-o", os.path.join(root, f"lib{name}.so"), path]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for name, proc in procs.items():
+            text = proc.communicate()[0].decode(errors="replace")
+            if proc.returncode:
+                raise SystemExit(f"chip_smoke: racecheck's {name} copy did not build:\n{text[-2000:]}")
+        libs = {"shipped": str(_native.lib_path("geglu_ff")),
+                **{n: os.path.join(root, f"lib{n}.so") for n in variants}}
+        script = os.path.join(root, "one_launch.py")
+        with open(script, "w") as fh:
+            fh.write(_ONE_LAUNCH)
+        outs = {}
+        for name, lib in libs.items():
+            res = subprocess.run([sys.executable, script, lib, "4096", os.path.join(root, f"{name}.pt")],
+                                 capture_output=True, text=True, timeout=120)
+            if res.returncode:
+                raise SystemExit(f"chip_smoke: racecheck's launch of {name} failed:\n{res.stderr[-2000:]}")
+            outs[name] = torch.load(os.path.join(root, f"{name}.pt"))
+        delay_equal = torch.equal(outs["delay"], outs["shipped"])
+        nb_diff = (outs["no_barrier"].float() - outs["shipped"].float()).abs()
+        log("racecheck_delay", delay_alone_bit_equal=delay_equal, no_barrier_bit_equal=bool(nb_diff.max() == 0),
+            no_barrier_max_abs_diff=f"{float(nb_diff.max()):.3e}", no_barrier_rows_differ=int((nb_diff.amax(1) > 0).sum()),
+            verdict="the copy without the barrier fails" if nb_diff.max() > 0 else "the missing barrier did not show")
+        if not delay_equal:
+            raise SystemExit("chip_smoke: racecheck's delayed copy changed K2's output: the check itself is broken")
+        sanitizer = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+        if not os.path.exists(sanitizer):
+            log("racecheck_sanitizer", status="absent", looked_for=sanitizer)
+            return
+        for name in ("shipped", "no_barrier"):
+            try:
+                res = subprocess.run([sanitizer, "--tool", "racecheck", "--racecheck-report", "hazard", sys.executable,
+                                      script, libs[name], "256", os.path.join(root, f"s_{name}.pt")],
+                                     capture_output=True, text=True, timeout=300)
+                text = res.stdout + res.stderr
+                hazards = re.findall(r"RACECHECK SUMMARY: (\d+) hazard", text)
+                lines = [x.strip("= ").strip() for x in text.splitlines() if x.startswith("=========")]
+                log("racecheck_sanitizer", copy=name, rc=res.returncode, hazards=hazards[-1] if hazards else "n/a",
+                    sanitizer_says=" | ".join(x for x in lines if x)[:1200] or text.strip()[-600:])
+            except subprocess.TimeoutExpired:
+                log("racecheck_sanitizer", copy=name, status="timed out after 300 s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def kernels_line(rows: dict, launches: dict) -> dict:
     """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
 
     ``launches`` is each kernel's count over its main path's run (K1-K3 and K9
     the swap window, K4-K6 the timed train steps, K7-K8 the ops phase, K10-K13
     the bench phase, the fp32 forms of K5, K2 and K9 the fp32 UNet's eval and
-    loss + backward); K5's two kernels launch together, and its entries carry
-    the dQ kernel's count."""
+    loss + backward), or the rows' own counts where they carry one (K13 on
+    fp32: its timed calls); K5's two kernels launch together, and its entries
+    carry the dQ kernel's count."""
     out = []
     for name, sites in rows.items():
         head = dict(sites[0])
         head["max_abs_err"] = max(r["max_abs_err"] for r in sites)
-        head["launches"] = launches[name.replace("_bwd", "_bwd_dq", 1)]
+        head["launches"] = (sum(r["launches"] for r in sites) if "launches" in sites[0]
+                            else launches[name.replace("_bwd", "_bwd_dq", 1)])
         head["sites"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
                          for r in sites]
         head.pop("shape")
@@ -2902,8 +3410,12 @@ def main() -> int:
     phase_train_reference(model, SEED)
     if args.profile_train:
         phase_profile_train(model, SEED, args.profile_train)
-    del model  # the fp32 gate and the CLI build their own models
+    phase_train_terms(model, SEED)
+    phase_vae_train(model, SEED)
+    del model  # the training CLI, the fp32 gate and the video CLI build their own models
     torch.cuda.empty_cache()
+    phase_train_cli(SEED)
+    phase_racecheck()
     phase_sched_gate(SEED)
     phase_cli(SEED)
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})

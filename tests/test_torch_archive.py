@@ -125,6 +125,30 @@ def test_geglu_ff_split_matches_pallas_at_every_built_tile(c):
         FF.geglu_ff_split(*port, 32)  # a tile built at neither width
 
 
+@pytest.mark.parametrize("c", [320, 640])
+def test_geglu_ff_split_fp32_matches_pallas(c):
+    """K13 on fp32 operands (K2's fp32 two-kernel form on the card) against
+    _pallas_impl in interpret mode at fp32, at its one tile (128 rows),
+    M = 200 (ragged for the 128-row tile): every rounding
+    point is a no-op at fp32, the TPU kernel's erf is the Abramowitz-Stegun
+    form: within 1e-5 of the output's peak. The bf16-only tile at C = 320
+    raises for fp32 operands."""
+    rng = np.random.default_rng(c + 1)
+    m, inner = 200, 4 * c
+    raw = [np.asarray(a, np.float32) for a in (
+        rng.normal(size=(m, c)), rng.normal(size=(c, 2 * inner)) * c**-0.5, rng.normal(size=(2 * inner,)) * 0.1,
+        rng.normal(size=(inner, c)) * inner**-0.5, rng.normal(size=(c,)) * 0.1)]
+    x, wp, bp, wo, bo = [t(a) for a in raw]
+    port = (x, wp.t().contiguous(), bp, wo.t().contiguous(), bo)
+    want = np.asarray(_pallas_impl(*[jnp.asarray(a) for a in raw], True, 128), np.float32)
+    got = FF.geglu_ff_split(*port, 128)
+    assert got.dtype == torch.float32 and FF.SPLIT_F32_LAUNCHES == 0
+    close(got, want, atol=1e-5 * float(np.abs(want).max()))
+    if c == 320:
+        with pytest.raises(ValueError, match="no kernel"):
+            FF.geglu_ff_split(*port, 64)
+
+
 def test_attention_bench_variants_agree_on_the_cpu():
     """Every port counterpart in the attention benches runs (plain versions on
     the CPU) at a small shape and agrees with the einsum path within the bf16

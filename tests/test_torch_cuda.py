@@ -548,6 +548,23 @@ def test_geglu_ff_split_kernel(gen, c, m):
         FF.geglu_ff_split(*args, 32)
 
 
+@pytest.mark.parametrize("c,m", [(320, 1000), (640, 1000), (320, 17)])
+def test_geglu_ff_split_kernel_fp32(gen, c, m):
+    """K13 on fp32 operands at its built tile (K2's fp32 two-kernel form):
+    within 1e-5 of the output's peak of K2's plain version, K2's fp32 output
+    bit for bit, one SPLIT_F32_LAUNCHES count a call."""
+    args = tuple(a.float() for a in _ff_args(gen, m, c))
+    want = FF.geglu_ff_ref(*args)
+    before = FF.SPLIT_F32_LAUNCHES
+    got = FF.geglu_ff_split(*args, 128)
+    torch.cuda.synchronize()
+    assert FF.SPLIT_F32_LAUNCHES == before + 1 and got.dtype == torch.float32
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(got, FF.geglu_ff(*args))
+    with pytest.raises(ValueError, match="no kernel"):
+        FF.geglu_ff_split(*args, 64)  # bf16's tile at C = 320 only
+
+
 def test_unet_wide_feed_forward_takes_k9_only_without_a_gradient(gen):
     """The UNet's wide sites (C = 1280, use_fused as sd_v1_inpaint sets it):
     K9 under inference mode, within 2 bf16 ulps of its plain version; the

@@ -54,26 +54,44 @@ class VFaceModel(nn.Module):
 
     ``conditioner=True`` builds the conditioner (CLIP ViT, ArcFace and the
     conditioning heads), which training needs; serving takes its embeddings as
-    inputs and leaves it out.
+    inputs and leaves it out. ``landmark_head=True`` builds the training
+    landmark loss's :class:`~vface_torch.preprocess.landmarks.UNetLandmarkHead`
+    over the UNet's last two output-block activations (the JAX bundle's
+    ``model.init`` makes none; its loss adds the term only when
+    ``params["landmark_head"]`` exists).
     """
 
-    def __init__(self, cfg: ModelConfig = ModelConfig(), device="cuda", conditioner: bool = False):
+    def __init__(self, cfg: ModelConfig = ModelConfig(), device="cuda", conditioner: bool = False,
+                 landmark_head: bool = False):
         super().__init__()
+        from vface_torch.preprocess.landmarks import UNetLandmarkHead
+
         self.cfg = cfg
         self.device = resolve_device(device)
         self.unet = UNetModel(cfg.unet)
         self.vae = AutoencoderKL(cfg.vae)
         self.conditioner = Conditioner(cfg.cond) if conditioner else None
+        self.landmark_head = (UNetLandmarkHead(2 * cfg.unet.model_channels, cfg.latent_size)
+                              if landmark_head else None)
         self.schedule = DiffusionSchedule.create("linear", cfg.timesteps, cfg.linear_start, cfg.linear_end)
         self.to(self.device)
 
+    def parts(self) -> dict:
+        """The sub-nets by the JAX bundle's param-tree names: "unet", "vae", and
+        "cond" and "landmark_head" where built."""
+        out = {"unet": self.unet, "vae": self.vae, "cond": self.conditioner, "landmark_head": self.landmark_head}
+        return {k: v for k, v in out.items() if v is not None}
+
     def load_params(self, state: dict) -> None:
-        """Load ``{"unet": state_dict, "vae": state_dict[, "cond": state_dict]}``, each
-        strictly; "cond" is required with a conditioner and ignored without one."""
-        self.unet.load_state_dict(state["unet"])
-        self.vae.load_state_dict(state["vae"])
-        if self.conditioner is not None:
-            self.conditioner.load_state_dict(state["cond"])
+        """Load ``{"unet": state_dict, "vae": state_dict[, "cond": ...][, "landmark_head": ...]}``,
+        each strictly; "cond" and "landmark_head" are required where built and
+        ignored where not."""
+        for name, part in self.parts().items():
+            part.load_state_dict(state[name])
+
+    def param_state(self) -> dict:
+        """``{part: state_dict}`` of :meth:`parts`: what :meth:`load_params` takes."""
+        return {name: part.state_dict() for name, part in self.parts().items()}
 
     # -------------------------------------------------------- first stage
     def encode_first_stage(self, img: torch.Tensor) -> torch.Tensor:
@@ -110,16 +128,19 @@ class VFaceModel(nn.Module):
         return torch.cat([z, z_inpaint, mask_latent], dim=-1)
 
     def apply_model(self, x9, t, context, flow=None, injection: Optional[InjectionSpec] = None,
-                    return_fgats_carry: bool = False, encoder_cache=None, return_encoder_cache: bool = False):
+                    return_fgats_carry: bool = False, encoder_cache=None, return_encoder_cache: bool = False,
+                    return_features: bool = False):
         """epsilon prediction; x9 (B, h, w, 9), t (B,) int, context (B, 1, D).
 
-        ``return_encoder_cache`` appends the UNet's encoder cache and
-        ``return_fgats_carry`` then {site: {"q", "k"}}, each flow site's last
+        ``return_features`` appends the output blocks' activations (NHWC),
+        ``return_encoder_cache`` the UNet's encoder cache and
+        ``return_fgats_carry`` {site: {"q", "k"}}, each flow site's last
         frame's post-FSAI q/k (the cross-window FGATS carry); a call given
         ``encoder_cache`` runs only the output blocks (see
         :class:`~vface_torch.models.unet.UNetModel`)."""
         return self.unet(x9, t, context, flow=flow, injection=injection, return_fgats_carry=return_fgats_carry,
-                         encoder_cache=encoder_cache, return_encoder_cache=return_encoder_cache)
+                         encoder_cache=encoder_cache, return_encoder_cache=return_encoder_cache,
+                         return_features=return_features)
 
     # ----------------------------------------------------------- schedule
     def _table(self, name: str, t: torch.Tensor) -> torch.Tensor:

@@ -37,8 +37,12 @@ runs only the output blocks, with the current timestep embedding. The cache
 holds the port's activations as they are inside (NCHW, at ``cfg.dtype``), so
 it is not interchangeable with the JAX package's NHWC cache.
 
-Not ported yet: ``return_features``, the TSG conv injection, the dual 2x768
-context and ``EncoderUNetModel``.
+``return_features=True`` also returns every output block's activation (after
+its upsample, where it has one), in JAX's order and layout: NHWC at
+``cfg.dtype``; the training landmark loss reads the last two.
+
+Not ported yet: the TSG conv injection, the dual 2x768 context and
+``EncoderUNetModel``.
 """
 
 from __future__ import annotations
@@ -273,9 +277,10 @@ class UNetModel(nn.Module):
 
     ``injection`` selects the fusion per site class; ``flow`` is the FGATS
     pixel flow (F-1, Hq, Wq, 2) at the ds1 token grid, or a :class:`FlowPack`.
-    ``return_encoder_cache`` appends the encoder cache ``((skips...), mid)``
-    and ``return_fgats_carry`` then the carry of every flow site, ``{site:
-    {"q", "k"}}``, in that order: ``(epsilon, cache, carry)`` with both. Given
+    ``return_features`` appends the output blocks' activations (a list, NHWC),
+    ``return_encoder_cache`` the encoder cache ``((skips...), mid)`` and
+    ``return_fgats_carry`` the carry of every flow site, ``{site: {"q",
+    "k"}}``, in that order: ``(epsilon, features, cache, carry)`` with all. Given
     ``encoder_cache``, the encoder is skipped and that cache is returned as it
     is; such a call visits no input-block site, so its carry is empty.
     """
@@ -325,7 +330,8 @@ class UNetModel(nn.Module):
         self.out_conv = Conv(ch, cfg.out_channels, zero_init=True, dtype=dt)
 
     def forward(self, x, timesteps, context, flow=None, injection: Optional[InjectionSpec] = None,
-                return_fgats_carry: bool = False, encoder_cache=None, return_encoder_cache: bool = False):
+                return_fgats_carry: bool = False, encoder_cache=None, return_encoder_cache: bool = False,
+                return_features: bool = False):
         cfg = self.cfg
         carry = {} if return_fgats_carry else None
         inj = injection or InjectionSpec()
@@ -369,6 +375,7 @@ class UNetModel(nn.Module):
             cache = encoder_cache
             hs, h = list(encoder_cache[0]), encoder_cache[1]
             ds = 2 ** (levels - 1)
+        features = []
         for level in reversed(range(levels)):
             for i in range(cfg.num_res_blocks + 1):
                 h = block(f"out_{level}_{i}_res", torch.cat([h, hs.pop()], dim=1), emb)
@@ -377,9 +384,11 @@ class UNetModel(nn.Module):
                 if level != 0 and i == cfg.num_res_blocks:
                     h = m(f"out_{level}_up")(h)
                     ds //= 2
+                if return_features:
+                    features.append(h.permute(0, 2, 3, 1))
         h = nonlinearity(self.out_norm(h))
         out = self.out_conv(h).to(torch.float32).permute(0, 2, 3, 1)
-        extra = (cache,) * return_encoder_cache + (carry,) * return_fgats_carry
+        extra = (features,) * return_features + (cache,) * return_encoder_cache + (carry,) * return_fgats_carry
         return (out, *extra) if extra else out
 
     def zero_encoder_cache(self, batch: int, height: int, width: int, device=None):

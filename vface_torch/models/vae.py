@@ -155,6 +155,10 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self) -> torch.Tensor:
+        """KL divergence from the standard normal, summed per sample: (B,)."""
+        return 0.5 * (self.mean**2 + torch.exp(self.logvar) - 1.0 - self.logvar).sum(dim=(1, 2, 3))
+
 
 class AutoencoderKL(nn.Module):
     """KL autoencoder: ``encode`` (NHWC image -> posterior), ``decode`` (NHWC z -> image).

@@ -49,7 +49,9 @@ K13 :func:`geglu_ff_split` replaces ``scripts/bench_ff_tile.py::_pallas_split``
 (kernel ``_ff_kernel_split``, ``_ff_kernel``'s body line for line), the TPU
 kernel of the row-tile sweep: K2's kernel at a row tile ``tm`` chosen by the
 caller among the ones built (``SPLIT_TILES``): the fused kernel at C = 320,
-the two-kernel form (128 rows) at C = 640, bf16 only (its bench runs bf16).
+the two-kernel form (128 rows) at C = 640. fp32 operands (the JAX kernel
+computes at any dtype) take K2's fp32 two-kernel form, whose 3xTF32 GEMMs run
+on 128-row tiles (``tm`` = 128 only), and count under ``SPLIT_F32_LAUNCHES``.
 Its plain version is K2's.
 """
 
@@ -76,6 +78,7 @@ SPLIT_TILES = {320: (64, 128), 640: (128,)}
 LAUNCHES = 0  # K2
 WIDE_LAUNCHES = 0  # K9
 SPLIT_LAUNCHES = 0  # K13
+SPLIT_F32_LAUNCHES = 0  # K13 on fp32 operands
 F32_LAUNCHES = 0  # K2 on fp32 operands
 WIDE_F32_LAUNCHES = 0  # K9 on fp32 operands
 
@@ -246,19 +249,23 @@ def geglu_ff_wide(x, w_proj, b_proj, w_out, b_out) -> torch.Tensor:
 
 def geglu_ff_split(x, w_proj, b_proj, w_out, b_out, tm: int) -> torch.Tensor:
     """K13: K2's function over x (..., C) with the kernel's row tile set to ``tm``
-    rows, one of ``SPLIT_TILES[C]`` (any other ``tm`` raises); the kernel on
-    CUDA (no gradient), K2's plain version :func:`geglu_ff_ref` on the CPU."""
+    rows, one of ``SPLIT_TILES[C]`` (bf16; at fp32 the 128-row tile of K2's
+    fp32 form; any other ``tm`` raises); the kernel on CUDA (no gradient), K2's
+    plain version :func:`geglu_ff_ref` on the CPU."""
     c = x.shape[-1]
-    if tm not in SPLIT_TILES.get(c, ()):
-        raise ValueError(f"geglu_ff_split: no kernel at C={c}, tm={tm}; built: {SPLIT_TILES}")
+    f32 = x.dtype == torch.float32
+    if tm not in SPLIT_TILES.get(c, ()) or (f32 and tm != 128):
+        raise ValueError(f"geglu_ff_split: no kernel at C={c}, tm={tm} for {x.dtype}; built: {SPLIT_TILES}, "
+                         "fp32 at 128 rows")
     if x.device.type == "cpu":
         return _geglu_ff_plain(x, w_proj, b_proj, w_out, b_out)
     if needs_grad(x, w_proj, b_proj, w_out, b_out):
         raise ValueError("geglu_ff_split: no gradient (the bench kernel has no VJP); use geglu_ff")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"geglu_ff_split: unsupported dtype {x.dtype} (the row-tile kernels are bf16)")
-    global SPLIT_LAUNCHES
+    global SPLIT_LAUNCHES, SPLIT_F32_LAUNCHES
     out = _launch("geglu_ff_split", tuple(SPLIT_TILES), x, w_proj, b_proj, w_out, b_out,
-                  tm if c in FUSED_WIDTHS else None)
-    SPLIT_LAUNCHES += 1
+                  tm if c in FUSED_WIDTHS and not f32 else None)
+    if f32:
+        SPLIT_F32_LAUNCHES += 1
+    else:
+        SPLIT_LAUNCHES += 1
     return out

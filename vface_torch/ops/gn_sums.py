@@ -29,6 +29,7 @@ from vface_torch.ops import _native
 from vface_torch.ops._autograd import needs_grad
 
 LAUNCHES = 0  # kernel launches since the last reset
+BACKWARD_CALLS = 0  # backward passes through the VJP since the last reset (no kernel: plain PyTorch)
 
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}  # the kernel's dtype codes
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
@@ -56,6 +57,8 @@ class _GNSums(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ds1, ds2):
+        global BACKWARD_CALLS
+        BACKWARD_CALLS += 1
         (x,) = ctx.saved_tensors
         dx = ds1[:, :, None, None] + 2.0 * x.to(torch.float32) * ds2[:, :, None, None]
         return dx.to(x.dtype)

@@ -5,8 +5,8 @@ fully convolutional heatmap regressor at a canonical 256^2 detection scale),
 its shape-constrained decode :func:`decode_heatmaps`, :func:`landmarks_to_vector`
 and :func:`load_default_landmark_params`, which reads the JAX package's shipped
 weights, ``vface_tpu/weights/landmark_net.npz``, as a data file (a flat npz of
-the Flax tree, ``"conv_0/kernel"`` and so on). ``UNetLandmarkHead`` (the
-training landmark loss's head) is not ported yet.
+the Flax tree, ``"conv_0/kernel"`` and so on); and :class:`UNetLandmarkHead`,
+the training landmark loss's head over UNet features.
 
 Conventions that differ between Flax and PyTorch, held here to the JAX
 package's: the resize to the detection scale is bilinear with antialiasing
@@ -21,7 +21,7 @@ from pathlib import Path
 import torch
 import torch.nn as nn
 
-from vface_torch.models.layers import Conv, GroupNorm32
+from vface_torch.models.layers import Conv, Dense, GroupNorm32
 from vface_torch.ops.warp import resize_bilinear
 from vface_torch.runtime.checkpoint import read_flat_npz
 from vface_torch.preprocess.synthetic_faces import canonical_landmarks
@@ -148,6 +148,23 @@ def decode_heatmaps(heat: torch.Tensor) -> torch.Tensor:
         wgt = torch.gather(prob_g, 1, idx[:, None, :])[:, 0, :]
     gx, gy = _local_soft_argmax(flat, ix, iy, xx, yy)
     return torch.stack([gx, gy], dim=-1)
+
+
+class UNetLandmarkHead(nn.Module):
+    """(B, S, S, in_channels) UNet features -> (B, 136) landmark coordinates, in
+    float32: a 3x3 conv to 128 channels, ReLU, a 2x2 max-pool, the NCHW flatten
+    (torch's order, as the JAX head flattens) and a dense layer. ``size`` is S,
+    the features' side, which fixes the dense layer's width."""
+
+    def __init__(self, in_channels: int, size: int):
+        super().__init__()
+        self.conv = Conv(in_channels, 128)
+        self.fc = Dense(128 * (size // 2) ** 2, 136)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.conv(feats.to(torch.float32).permute(0, 3, 1, 2)))
+        x = torch.nn.functional.max_pool2d(x, 2, 2)
+        return self.fc(x.reshape(x.shape[0], -1))
 
 
 def landmarks_to_vector(landmarks68: torch.Tensor) -> torch.Tensor:

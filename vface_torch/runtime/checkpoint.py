@@ -1,6 +1,12 @@
-"""The video swap's progress manifest and the npz parameter loader.
+"""Training checkpoints, the video swap's progress manifest and the npz parameter loader.
 
-Port of the inference half of ``vface_tpu/runtime/checkpoint.py``:
+Port of ``vface_tpu/runtime/checkpoint.py``:
+
+* :class:`TrainCheckpointer`: ``last`` (save_last) and top-k ``step_%08d``
+  entries on a monitored metric, JAX's names and pruning order; each entry
+  is one ``torch.save`` file of ``{"state": {...}, "step": n}`` (the port's own
+  format: the model's ``{part: state_dict}`` under ``"params"`` and the
+  optimizer's ``state_dict`` under ``"opt_state"``), written atomically;
 
 * :class:`VideoProgressManifest`: a per-video JSON file naming the windows
   whose frames are on disk, so that a preempted run resumes by skipping them.
@@ -18,12 +24,63 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from vface_torch.utils.convert import AUX_PARTS, PARTS, from_flax_aux, from_flax_params
+
+
+class TrainCheckpointer:
+    """``last`` plus the ``keep_top_k`` entries with the lowest ``monitor``
+    metric, in ``directory`` (the reference's ModelCheckpoint save_last and
+    top-k). ``seconds`` lists each save's wall time."""
+
+    def __init__(self, directory: str, keep_top_k: int = 30, monitor: str = "loss_simple"):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.keep_top_k = keep_top_k
+        self.monitor = monitor
+        self.seconds: List[float] = []
+        self._scores: List[tuple] = []
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.directory, name)
+
+    def _save(self, name: str, state: Dict[str, Any], step: int) -> None:
+        t0 = time.perf_counter()
+        tmp = self._path(name + ".tmp")
+        torch.save({"state": state, "step": step}, tmp)
+        os.replace(tmp, self._path(name))
+        self.seconds.append(time.perf_counter() - t0)
+
+    def save_last(self, state: Dict[str, Any], step: int) -> None:
+        self._save("last", state, step)
+
+    def save_monitored(self, state: Dict[str, Any], step: int, metric: float) -> None:
+        """Save ``step_%08d``, then drop the entries past the ``keep_top_k``
+        lowest metrics (the highest first; ties by name)."""
+        name = f"step_{step:08d}"
+        self._save(name, state, step)
+        self._scores.append((metric, name))
+        self._scores.sort()
+        while len(self._scores) > self.keep_top_k:
+            _, worst = self._scores.pop()
+            path = self._path(worst)
+            if os.path.isdir(path):
+                shutil.rmtree(path, ignore_errors=True)
+            elif os.path.exists(path):
+                os.remove(path)
+
+    def restore_last(self) -> Optional[Dict[str, Any]]:
+        """``{"state": ..., "step": n}`` of ``last`` on the CPU, or None if there is none."""
+        path = self._path("last")
+        if not os.path.exists(path):
+            return None
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 class VideoProgressManifest:
@@ -75,9 +132,9 @@ def read_flat_npz(path) -> dict:
 
 
 def load_params_npz(path: str) -> dict:
-    """A JAX ``save_params_npz`` file -> ``{part: state_dict}`` for the parts it
-    holds: ``unet``, ``vae``, ``cond`` (a model bundle) and ``bisenet``,
-    ``raft``, ``landmark``, ``detector`` (the aux nets). Raises on any other part."""
+    """A JAX ``save_params_npz`` file -> ``{part: state_dict}`` for the parts it holds: ``unet``, ``vae``, ``cond``,
+    ``landmark_head`` (a model bundle) and ``bisenet``, ``raft``, ``landmark``,
+    ``detector`` (the aux nets). Raises on any other part."""
     tree = read_flat_npz(path)
     unknown = sorted(set(tree) - set(PARTS) - set(AUX_PARTS))
     if unknown:

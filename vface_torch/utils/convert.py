@@ -14,6 +14,13 @@ renaming the leaf:
   ``class_embedding`` and ``position_embedding``, the ``learnable_vector``,
   PReLU ``alpha``, frozen-BN ``mean`` and ``var``).
 
+The training nets convert with the same walk: the bundle's optional
+``landmark_head`` (:class:`~vface_torch.preprocess.landmarks.UNetLandmarkHead`)
+is a part of :func:`from_flax_params`; an ``LPIPS`` tree
+(:class:`~vface_torch.eval.lpips.LPIPS`) and a ``PatchDiscriminator`` tree
+(:class:`~vface_torch.pipelines.vae_train.PatchDiscriminator`) convert with
+:func:`flax_tree_to_state_dict`.
+
 :func:`init_params` makes a seeded random init on any device, with no JAX.
 
 The video swap's aux nets (``{"bisenet", "raft", "landmark", "detector"}``)
@@ -34,7 +41,7 @@ import torch
 _DROP = {"Conv_0", "Dense_0", "GroupNorm_0", "LayerNorm_0"}
 _RENAME = {"GroupNorm32_0": "norm"}
 _KEEP = {"bias", "mean", "var", "alpha", "class_embedding", "position_embedding", "learnable_vector"}
-PARTS = ("unet", "vae", "cond")
+PARTS = ("unet", "vae", "cond", "landmark_head")
 AUX_PARTS = ("bisenet", "raft", "landmark", "detector")
 
 
@@ -71,7 +78,8 @@ def flax_tree_to_state_dict(tree) -> dict:
 
 
 def from_flax_params(tree) -> dict:
-    """``{"unet": ..., "vae": ...[, "cond": ...]}`` Flax trees -> the same keys as state dicts."""
+    """``{"unet": ..., "vae": ...[, "cond": ...][, "landmark_head": ...]}`` Flax trees -> the
+    same keys as state dicts."""
     return {part: flax_tree_to_state_dict(tree[part]) for part in PARTS if part in tree}
 
 
@@ -112,11 +120,13 @@ def init_aux_params(generator: torch.Generator) -> dict:
     return out
 
 
-def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditioner: bool = False) -> dict:
+def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditioner: bool = False,
+                landmark_head: bool = False) -> dict:
     """Seeded random parameters for ``cfg`` (a :class:`~vface_torch.models.ldm.ModelConfig`),
-    made on the generator's device: ``{"unet": ..., "vae": ...}`` state dicts, and
-    ``"cond"`` with ``conditioner`` (drawn after the others, so the UNet and VAE
-    are the same either way).
+    made on the generator's device: ``{"unet": ..., "vae": ...}`` state dicts,
+    ``"cond"`` with ``conditioner`` and ``"landmark_head"`` with
+    ``landmark_head`` (drawn after the others, in that order, so the earlier
+    parts are the same either way).
 
     Conv and Dense weights are normal with std 1/sqrt(fan_in) (LeCun), the
     convs the reference zero-initialises included: with exact zeros there the
@@ -131,6 +141,7 @@ def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditi
     from vface_torch.models.layers import Conv, Dense, GroupNorm32, LayerNormF32
     from vface_torch.models.unet import UNetModel
     from vface_torch.models.vae import AutoencoderKL
+    from vface_torch.preprocess.landmarks import UNetLandmarkHead
 
     dev = generator.device
     randn = lambda shape: torch.randn(shape, generator=generator, device=dev)
@@ -138,8 +149,16 @@ def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditi
         parts = {"unet": UNetModel(cfg.unet), "vae": AutoencoderKL(cfg.vae)}
         if conditioner:
             parts["cond"] = Conditioner(cfg.cond)
+        if landmark_head:
+            parts["landmark_head"] = UNetLandmarkHead(2 * cfg.unet.model_channels, cfg.latent_size)
+    order = [parts[k] for k in ("unet", "vae", "cond") if k in parts]
     with torch.no_grad():
-        for part in parts.values():
+        for i, part in enumerate(order + [parts.get("landmark_head")]):
+            if i == len(order) and conditioner:  # the uncond vector before the head
+                lv = parts["cond"].learnable_vector
+                lv.copy_(randn(lv.shape))
+            if part is None:
+                continue
             for mod in part.modules():
                 if isinstance(mod, (Conv, Dense)):
                     fan_in = math.prod(mod.weight.shape[1:])
@@ -152,7 +171,4 @@ def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditi
                 elif isinstance(mod, CLIPVisionTower):
                     mod.class_embedding.copy_(randn(mod.class_embedding.shape) * 0.02)
                     mod.position_embedding.copy_(randn(mod.position_embedding.shape) * 0.02)
-        if conditioner:
-            lv = parts["cond"].learnable_vector
-            lv.copy_(randn(lv.shape))
     return {name: part.state_dict() for name, part in parts.items()}
