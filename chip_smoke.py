@@ -98,7 +98,8 @@ Phases, one line each:
  10d. train_cli: the training CLI (``vface_torch.scripts.train.main``) in
      process at full width on a synthetic CelebA-HQ-layout directory the
      script writes (6 renders of ``synthetic_faces.render_face`` at 512^2 with
-     class maps): 4 steps (log_every 1, image_log_every 2, ckpt_every 2),
+     class maps): 4 steps (log_every 1, image_log_every 2, ckpt_every 4: one
+     save, cut from two for time),
      then ``--resume`` for 2 (saving on exit only): ms per step (the first
      step and those after an image log or a save left out), peak memory, the
      loss terms, launches per step, checkpoint bytes and seconds per save,
@@ -120,7 +121,8 @@ Phases, one line each:
      reference operating point but for the depth (25 + 25 steps, cut for
      time) through the sequential loop, pipelined packs,
      the super-pack, its streaming form (numpy frames), merged sampling and
-     the cross-window carry (after a 2 + 2-step warm-up of the new batches
+     the cross-window carry (on the clip's first 8 frames, cut from 12 for
+     time; after a 2 + 2-step warm-up of the new batches
      under the kernel-site checks): per run seconds, frames/s, stages, peak
      memory, launches, the uint8 difference from the sequential run, the
      carry run's first window within 1 level of it; (c) one sampling UNet
@@ -146,6 +148,19 @@ Phases, one line each:
      ``swap_video_frames_multiface`` at the reference operating point but for
      the depth (20 + 20 steps): seconds (per face), frames/s, peak memory,
      launches;
+ 11e. image (on the video phase's model; ``phase_image_kernels`` adds K1, K2
+     and K9 rows at b = 8, the test bench's 4 pairs under CFG, to the kernels
+     phase): a 2-step warm-up of ``swap_image_batch`` at b = 4 and of
+     ``one_inference``'s ``swap_one`` at b = 1 on a 1024^2 frame holds every
+     K1, K2, K9 and K3 call at the new signatures to its plain version; then
+     ``swap_image_batch`` at 512^2, b = 4, 25 steps (cut from 50 for time),
+     scale 3.0 (seconds per stage, peak memory, launches), ``plms_sample`` at
+     25 steps (evals per step, seconds) and ``ddim_sample_guided`` at b = 1
+     with ID scaling and the ID gradient through the VAE decoder and ArcFace,
+     10 steps (seconds a step, peak memory, K3's forward launches and its
+     VJP's passes, every gradient finite and non-zero); the tiny fp32 image
+     path, the conv injection and each token mode on the card against the
+     CPU within 1e-4 of each output's peak;
  12. cli: the video-swap CLI (``vface_torch.scripts.vface_video_swap.main``)
      at its defaults but for the depth (SD-v1 inpainting with its
      conditioner, seeded; 25 + 25 steps, cut for time; window 6, scale 3.0,
@@ -159,6 +174,12 @@ Phases, one line each:
      recomputed, within 1 uint8 level of run A) and run P (pair A packed
      into one 12-frame call) print frames/s, the sink's seconds, peak
      memory and launches;
+ 12b. image_cli: ``inference_test_bench.main`` on 4 synthetic 512^2 pairs
+     (one batch; 4 PNGs) and ``one_inference.main`` on a 1024^2 target with
+     ``--watermark`` (the payload read back), with ``--safety_params`` (a
+     seeded ViT-L/14 checker whose thresholds flag everything: a black
+     output) and in the folder mode (2 targets x 1 source, the JAX CLI's
+     names), each at 25 steps: wall seconds and peak memory per run;
  13. the card line, the ``kernels`` JSON line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (the port's float32 ops,
@@ -1619,6 +1640,7 @@ SCHED_RUNS = {
 # the pipeline's methods a run must call (and how often) to show that its schedule ran
 SCHED_PROGRAMS = ("_pipelined_step", "_final_pack", "_superpack", "_swap_frames_superpacked_streaming")
 SCHED_FRAMES = 12  # (b): two 6-frame windows of 720x1280
+SCHED_CARRY_FRAMES = 8  # (b)'s carry run: a window and a 2-frame one to carry into (cut from 12 for time)
 SCHED_STEPS = 25  # (b) and phase opts: cut from the reference's 50 + 50 steps for time
 GATE_FRAMES, GATE_WINDOW, GATE_STEPS, GATE_HW = 10, 3, 4, (512, 512)  # (a): three packs and a remainder
 GATE_TOL = 1e-3  # (a): max abs on frames in [0, 1], fp32
@@ -1762,7 +1784,8 @@ def phase_sched(model, seed: int) -> dict:
     depth (``SCHED_STEPS`` + ``SCHED_STEPS`` steps; window 6, RAFT 20, parser
     512): the sequential loop, pipelined packs,
     the super-pack (tensor frames), its streaming form (numpy frames), the
-    super-pack with merged sampling, and the cross-window carry; a 2 + 2-step
+    super-pack with merged sampling, and the cross-window carry (on the
+    clip's first ``SCHED_CARRY_FRAMES`` frames); a 2 + 2-step
     warm-up of the schedulers with new batches (pipelined: b = 18, merged:
     b = 24) holds every kernel call at its new signatures to its plain
     version. Per run: wall seconds, frames/s, stage seconds, peak memory,
@@ -1796,6 +1819,7 @@ def phase_sched(model, seed: int) -> dict:
         wall_s=f"{time.perf_counter() - t0:.3f}")
     u8_seq = None
     for name, (_, host) in SCHED_RUNS.items():
+        n = SCHED_CARRY_FRAMES if name == "cross_window_carry" else SCHED_FRAMES
         pipe = sched_pipe(model, opts, aux, name)
         calls = _programs(pipe)
         torch.cuda.empty_cache()
@@ -1803,7 +1827,7 @@ def phase_sched(model, seed: int) -> dict:
         reset_counts()
         timings = {}
         t0 = time.perf_counter()
-        out = pipe.swap_video_frames(frames_np if host else frames, source, timings=timings)
+        out = pipe.swap_video_frames(frames_np[:n] if host else frames[:n], source, timings=timings)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernel_counts()
@@ -1811,16 +1835,16 @@ def phase_sched(model, seed: int) -> dict:
         u8 = _u8(out).astype(np.int16)
         if u8_seq is None:
             u8_seq, seq_launches = u8, launches
-        diff = np.abs(u8 - u8_seq).astype(np.float64)
+        diff = np.abs(u8 - u8_seq[:n]).astype(np.float64)
         w0 = int(np.abs(u8[:FRAMES] - u8_seq[:FRAMES]).max())
         finite = bool(torch.isfinite(out).all())
-        log("sched_run", run=name, frames=SCHED_FRAMES, frame_hw=f"{VIDEO_HW[0]}x{VIDEO_HW[1]}", window=FRAMES,
-            wall_s=f"{wall:.3f}", frames_per_s=f"{SCHED_FRAMES / wall:.4f}", **stage_line(timings),
+        log("sched_run", run=name, frames=n, frame_hw=f"{VIDEO_HW[0]}x{VIDEO_HW[1]}", window=FRAMES,
+            wall_s=f"{wall:.3f}", frames_per_s=f"{n / wall:.4f}", **stage_line(timings),
             peak_gib=f"{peak:.2f}", mean_level_diff=f"{diff.mean():.4f}", max_level_diff=int(diff.max()),
             window0_max_level_diff=w0, **{k: v for k, v in calls.items() if v},
             **{k: v for k, v in launches.items() if v})
-        want = _expected_programs(name, SCHED_FRAMES, opts.window)
-        if not (tuple(out.shape) == (SCHED_FRAMES, *VIDEO_HW, 3) and finite
+        want = _expected_programs(name, n, opts.window)
+        if not (tuple(out.shape) == (n, *VIDEO_HW, 3) and finite
                 and float(out.min()) >= 0.0 and float(out.max()) <= 1.0):
             raise SystemExit(f"chip_smoke: sched run {name}'s output has the wrong shape, is not finite or "
                              "leaves [0, 1]")
@@ -2785,8 +2809,8 @@ def phase_cli(seed: int) -> None:
     second window dropped from the manifest: pair B is skipped, pair A
     recomputes one window, within 1 uint8 level of run A); run P (pair A
     with ``--batch_windows 2``: one 12-frame pack; frames/s, peak memory and
-    the difference from run A, printed, not gated); run A2 (pair A's
-    separate windows again, after the pack); then :func:`cli_flow_batches`."""
+    the difference from run A, printed, not gated); then
+    :func:`cli_flow_batches`."""
     import tempfile
 
     import numpy as np
@@ -2871,12 +2895,6 @@ def phase_cli(seed: int) -> None:
         if launches_p["flash_attention"] != per_window:  # one pack: the evals of one window, at twice the batch
             raise SystemExit(f"chip_smoke: run P launched K1 {launches_p['flash_attention']} times, "
                              f"not one pack's {per_window:g}")
-        # pair A's separate windows once more after the pack, so that run P sits between two such runs
-        torch.cuda.empty_cache()
-        run_a2 = run_cli(["--config", cfg["a"], *out("run_a2"), *base])
-        n, swap_s, fps, sink_s = run_a2["done"]["pair_a"]
-        log("cli_run_a2", video="pair_a", frames=n, batch_windows=1, swap_s=f"{swap_s:.3f}",
-            frames_per_s=f"{fps:.4f}", sink_s=f"{sink_s:.3f}", **stage_line(run_a2["stages"]["pair_a"]))
         cli_flow_batches(seed)
     finally:
         import shutil
@@ -2917,7 +2935,7 @@ def phase_train_cli(seed: int) -> dict:
     """The training CLI (``vface_torch.scripts.train.main``) in process at its
     full width (SD-v1 inpainting with its conditioner, seeded; batch 1 at
     512^2) on a synthetic CelebA-HQ-layout directory: 4 steps (log_every 1,
-    image_log_every 2, ckpt_every 2), then ``--resume`` for 2 more (saving on
+    image_log_every 2, ckpt_every 4: one save), then ``--resume`` for 2 more (saving on
     exit only). Returns the launches per step of the first run."""
     import shutil
     import tempfile
@@ -2941,7 +2959,7 @@ def phase_train_cli(seed: int) -> dict:
         write_synthetic_celeba(data, TRAIN_CLI_IMAGES, size=cfg.image_size, seed=seed)
         data_s = time.perf_counter() - t0
         last_b, mon_b = _save_bytes(cfg)
-        need = 2 * last_b + 2 * mon_b  # last, its temporary file during a save, step_2 and step_4
+        need = 2 * last_b + mon_b  # last, its temporary file during a save, and step_4
         free = shutil.disk_usage(root).free
         log("train_cli_disk", save_last_bytes=last_b, save_monitored_bytes=mon_b, need_bytes=need,
             free_bytes=free, where=root)
@@ -2950,7 +2968,7 @@ def phase_train_cli(seed: int) -> dict:
                              f"{root} has {free} free")
         os.environ.pop("VFACE_PLATFORM", None)  # the CLI's default device: the card
         argv = ["--dataset_dir", data, "--logdir", logdir, "--log_every", "1", "--image_log_every", "2",
-                "--ckpt_every", "2", "--seed", str(seed)]
+                "--ckpt_every", str(TRAIN_CLI_STEPS), "--seed", str(seed)]
         runs = {}
         exit_params = {}  # the first run's model at its exit, copied from the live model on the host
         # the resumed run saves on exit only (each save_last writes ~12 GB)
@@ -3337,6 +3355,404 @@ def phase_racecheck() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+IMAGE_BATCH = 4  # the test bench's batch: b = 8 UNet rows under CFG
+IMAGE_STEPS = 25  # image and image_cli: cut from the CLIs' 50 steps for time
+GUIDED_STEPS, GUIDED_WEIGHT = 10, 0.1  # the guided sampler's depth and gradient weight (b = 1)
+IMAGE_FRAME = 1024  # one_inference's full target frame (the background trick and paste-back run at it)
+IMAGE_GATE_TOL = 1e-4  # the tiny fp32 image path, card against CPU, of each output's peak (at least 1)
+
+
+def phase_image_kernels() -> dict:
+    """K1, K2 and K9 at the test bench's batch (b = 8: 4 pairs under CFG),
+    against their plain versions, timed; returns the rows, which join each
+    kernel's row list."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    b = 2 * IMAGE_BATCH
+    return {"flash_attention": k1_rows(b, randn), "geglu_ff": ff_rows("geglu_ff", b, randn),
+            "geglu_ff_wide": ff_rows("geglu_ff_wide", b, randn)}
+
+
+def image_inputs(model, n: int, seed: int) -> dict:
+    """``n`` seeded target and source faces (``render_face``) at the model's image
+    size as the image core takes them: target crops in [-1, 1], keep-masks (1 outside an
+    ellipse over the face's landmarks), the masked sources CLIP-normalised,
+    the sources in [0, 1] and the targets' landmarks (n, 136), on the card."""
+    import numpy as np
+    import torch
+
+    from vface_torch.models.clip import clip_preprocess
+    from vface_torch.preprocess.synthetic_faces import render_face
+
+    size = model.cfg.image_size
+    rng = np.random.default_rng(seed)
+    faces = [render_face(rng, size) for _ in range(2 * n)]
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+
+    def keep(lm):
+        (x0, y0), (x1, y1) = lm.min(axis=0), lm.max(axis=0)
+        face = (((xx - (x0 + x1) / 2) / (0.6 * (x1 - x0) + 1)) ** 2
+                + ((yy - (y0 + y1) / 2) / (0.6 * (y1 - y0) + 1)) ** 2) <= 1.0
+        return (~face).astype(np.float32)[..., None]
+
+    on = lambda a: torch.from_numpy(np.stack(a).astype(np.float32)).cuda()
+    tar01, tar_lm = on([f[0] for f in faces[:n]]), on([f[1] for f in faces[:n]])
+    src01 = on([f[0] for f in faces[n:]])
+    tar_keep, src_keep = on([keep(f[1]) for f in faces[:n]]), on([keep(f[1]) for f in faces[n:]])
+    return dict(target=tar01 * 2 - 1, keep=tar_keep, src_clip=clip_preprocess(src01 * (1 - src_keep),
+                model.cfg.cond.clip.image_size), src01=src01, lms=tar_lm.reshape(n, 136))
+
+
+def phase_image(model, seed: int) -> None:
+    """Phase image on the video phase's model (bf16, with the conditioner):
+    the REFace image core and its samplers at 512^2, seeded weights and faces.
+
+    A warm-up (2 steps) of ``swap_image_batch`` at b = 4 and of
+    ``one_inference``'s ``swap_one`` at b = 1 on a ``IMAGE_FRAME``^2 frame
+    (its background trick and paste-back at the full frame) holds every K1,
+    K2, K9 and K3 call at their new signatures to its plain version. Then,
+    each with the counts set to 0 before it and read after: (1)
+    ``swap_image_batch`` at b = 4, ``IMAGE_STEPS`` steps, scale 3.0: seconds
+    per stage (conditioning, encode, sample, decode), peak memory, launches;
+    (2) ``plms_sample`` on the same conditioning, ``IMAGE_STEPS`` steps: UNet
+    evals per step and seconds; (3) ``ddim_sample_guided`` at b = 1 with
+    ``id_dir_scaling`` and ``grad_weight`` ``GUIDED_WEIGHT``, ``GUIDED_STEPS``
+    steps: seconds a step, peak memory, K3's forward launches and its VJP's
+    passes, every ID gradient finite and non-zero. Gated: finite outputs of
+    the expected shapes in their ranges, every kernel of the path launched,
+    two evals in the first PLMS step and one in each other. Then
+    :func:`phase_image_gate`."""
+    import numpy as np
+    import torch
+
+    from vface_torch.models.clip import clip_preprocess
+    from vface_torch.ops import gn_sums as GN
+    from vface_torch.ops.warp import resize_bilinear
+    from vface_torch.pipelines.image_swap import ImageSwapOptions, swap_image_batch
+    from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
+    from vface_torch.preprocess.synthetic_faces import render_face
+    from vface_torch.samplers import guided
+    from vface_torch.samplers.ddim import seeded_noise
+    from vface_torch.samplers.plms import plms_sample
+    from vface_torch.scripts.one_inference import swap_one
+    from vface_torch.utils.convert import init_aux_params
+
+    t_phase = time.perf_counter()
+    b, hl = IMAGE_BATCH, model.cfg.latent_size
+    x = image_inputs(model, b, seed + 40)
+    args = [x[k] for k in ("target", "keep", "src_clip", "src01", "lms")]
+    aux = init_aux_params(torch.Generator(device="cuda").manual_seed(seed + 41))
+    pipe = VideoSwapPipeline(model, SwapOptions(image_size=model.cfg.image_size, parser_size=512), device="cuda",
+                             aux_params={k: aux[k] for k in ("bisenet", "landmark")})
+    rng = np.random.default_rng(seed + 42)
+    s = model.cfg.image_size
+    frame, src_face = render_face(rng, IMAGE_FRAME)[0], render_face(rng, s)[0]
+    t0 = time.perf_counter()
+    with checked_sites("image"):
+        swap_image_batch(model, *args, ImageSwapOptions(2, 3.0))
+        one = swap_one(pipe, frame, src_face, ImageSwapOptions(2, 3.5))
+    torch.cuda.synchronize()
+    log("image_warmup", ddim_steps=2, batch=b, one_inference_frame=f"{IMAGE_FRAME}^2",
+        wall_s=f"{time.perf_counter() - t0:.3f}")
+    if not (one.shape == (IMAGE_FRAME, IMAGE_FRAME, 3) and np.isfinite(one).all()):
+        raise SystemExit("chip_smoke: one_inference's swap_one gave the wrong shape or non-finite values")
+
+    def measured(name, fn, expect=SWAP_KERNELS):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        GN.BACKWARD_CALLS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        missing = [k for k in expect if launches[k] == 0]
+        stray = [k for k in launches if k not in SWAP_KERNELS and launches[k]]
+        if missing or stray:
+            raise SystemExit(f"chip_smoke: the image path's {name} launched no {missing} / stray {stray} kernels")
+        return out, wall, launches, torch.cuda.max_memory_allocated() / 2**30
+
+    timings = {}
+    out, wall, launches, peak = measured("swap", lambda: swap_image_batch(
+        model, *args, ImageSwapOptions(IMAGE_STEPS, 3.0), timings=timings))
+    ok = tuple(out.shape) == (b, s, s, 3) and bool(torch.isfinite(out).all()) and 0 <= float(out.min()) \
+        and float(out.max()) <= 1
+    log("image_swap", batch=b, unet_batch=2 * b, ddim_steps=IMAGE_STEPS, scale=3.0, wall_s=f"{wall:.3f}",
+        s_per_pair=f"{wall / b:.3f}", **stage_line(timings), peak_gib=f"{peak:.2f}",
+        **{k: v for k, v in launches.items() if v})
+    if not ok:
+        raise SystemExit("chip_smoke: the image swap's output has the wrong shape, is not finite or leaves [0, 1]")
+
+    with torch.inference_mode():
+        tar_clip = clip_preprocess((x["target"] + 1) * 0.5, model.cfg.cond.clip.image_size)
+        cond = model.conditioning(x["src_clip"], x["lms"], tar_clip, x["src01"])
+        uncond = model.uncond(b)
+        z_inpaint = model.encode_first_stage(x["target"] * x["keep"])
+        mask_lat = resize_bilinear(x["keep"], hl, hl)
+        x_T = seeded_noise("cuda", 42)(0, (b, hl, hl, 4))
+    evals = []
+    real = model.apply_model
+
+    def counted(*a, **k):
+        evals.append(a[0].shape[0])
+        return real(*a, **k)
+
+    model.apply_model = counted
+    try:
+        with torch.inference_mode():
+            (z0, traj), wall, launches, peak = measured("plms", lambda: plms_sample(
+                model, x_T, cond, uncond, z_inpaint, mask_lat, num_steps=IMAGE_STEPS, cfg_scale=3.0),
+                expect=("flash_attention", "geglu_ff", "geglu_ff_wide"))
+    finally:
+        del model.apply_model
+    log("image_plms", batch=b, steps=IMAGE_STEPS, evals=len(evals), evals_first_step=2,
+        evals_per_step=f"{len(evals) / IMAGE_STEPS:.3f}", eval_batch=evals[0], wall_s=f"{wall:.3f}",
+        s_per_step=f"{wall / IMAGE_STEPS:.4f}", peak_gib=f"{peak:.2f}", **{k: v for k, v in launches.items() if v})
+    if not (len(evals) == IMAGE_STEPS + 1 and set(evals) == {2 * b} and bool(torch.isfinite(z0).all())
+            and tuple(traj.shape) == (IMAGE_STEPS, b, hl, hl, 4)):
+        raise SystemExit(f"chip_smoke: PLMS ran {len(evals)} evals for {IMAGE_STEPS} steps or gave non-finite latents")
+
+    grads = []
+    real_grad = guided.id_loss_grad
+
+    def spied(*a, **k):
+        g = real_grad(*a, **k)
+        grads.append((bool(torch.isfinite(g).all()), float(g.abs().max())))
+        return g
+
+    with torch.inference_mode():
+        src_emb = guided.safe_l2_normalize(model.conditioner.arcface(
+            guided.arcface_preprocess(x["src01"][:1] * (1 - x["keep"][:1]))))
+    src_emb = src_emb.clone()
+    guided.id_loss_grad = spied
+    try:
+        (zg, _), wall, launches, peak = measured("guided", lambda: guided.ddim_sample_guided(
+            model, x_T[:1].clone(), cond[:1].clone(), uncond[:1].clone(), z_inpaint[:1].clone(),
+            mask_lat[:1].clone(), src_emb, x["keep"][:1], num_steps=GUIDED_STEPS, cfg_scale=3.0,
+            id_dir_scaling=True, grad_weight=GUIDED_WEIGHT))
+    finally:
+        guided.id_loss_grad = real_grad
+    bwd = GN.BACKWARD_CALLS
+    log("image_guided", batch=1, steps=GUIDED_STEPS, grad_weight=GUIDED_WEIGHT, id_dir_scaling=True,
+        wall_s=f"{wall:.3f}", s_per_step=f"{wall / GUIDED_STEPS:.4f}", peak_gib=f"{peak:.2f}",
+        gn_sums_forward=launches["gn_sums"], gn_sums_backward_passes=bwd,
+        grad_abs_max=",".join(f"{m:.3e}" for _, m in grads), **{k: v for k, v in launches.items() if v})
+    if not (len(grads) == GUIDED_STEPS and all(f and m > 0 for f, m in grads) and bwd > 0
+            and bool(torch.isfinite(zg).all())):
+        raise SystemExit("chip_smoke: the guided sampler's ID gradient was not finite and non-zero at every "
+                         "step, or K3's backward did not run")
+    del out, z0, traj, zg
+    torch.cuda.empty_cache()
+    phase_image_gate(seed)
+    log("image_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+
+
+def phase_image_gate(seed: int) -> None:
+    """The tiny fp32 image path (seeded, its conditioner included) on the card
+    against the same calls on the CPU (which the tests hold to the JAX
+    package): ``swap_image_batch`` (an explicit x_T), ``plms_sample``,
+    ``ddim_sample_guided`` with both mechanisms, a 3-chunk UNet eval with the
+    conv injection, and in each of the "concat", "stack" and "sep_head"
+    modes the conditioner's tokens and a UNet eval on [uncond, cond]; each
+    output within ``IMAGE_GATE_TOL`` of its peak (at least 1)."""
+    import torch
+
+    from vface_torch.models.clip import clip_preprocess
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.models.unet import InjectionSpec
+    from vface_torch.pipelines.image_swap import ImageSwapOptions, swap_image_batch
+    from vface_torch.samplers.guided import ddim_sample_guided
+    from vface_torch.samplers.plms import plms_sample
+    from vface_torch.utils.convert import init_params
+
+    base = ModelConfig.tiny(image_size=32)
+    b, s, hl, d, steps = 2, 32, base.latent_size, base.unet.context_dim, 4
+    g = torch.Generator().manual_seed(seed + 50)
+    r = lambda *shape: torch.randn(shape, generator=g)
+    keep = torch.ones(b, s, s, 1)
+    keep[:, 8:26, 6:24] = 0.0
+    emb = r(b, 512)
+    x = dict(target=torch.rand(b, s, s, 3, generator=g) * 2 - 1, keep=keep, src_clip=r(b, s, s, 3),
+             src01=torch.rand(b, s, s, 3, generator=g), lms=torch.rand(b, 136, generator=g) * s, x_T=r(b, hl, hl, 4),
+             cond=r(b, 1, d), uncond=r(b, 1, d), inpaint=r(b, hl, hl, 4), mask=(r(b, hl, hl, 1) > 0).float(),
+             emb=emb / emb.norm(dim=-1, keepdim=True), x9=r(3 * b, hl, hl, 9), ctx=r(3 * b, 1, d))
+    ts = torch.tensor([900, 500, 100] * b)[:3 * b]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = VFaceModel(base, device=dev, conditioner=True)
+        model.load_params(init_params(base, torch.Generator().manual_seed(seed + 51), conditioner=True))
+        v = {k: t.to(dev) for k, t in x.items()}
+        res = {"swap": swap_image_batch(model, v["target"], v["keep"], v["src_clip"], v["src01"], v["lms"],
+                                        ImageSwapOptions(steps, 3.0, s), noise=lambda i, shape: v["x_T"])}
+        with torch.inference_mode():
+            res["plms_z0"], res["plms_traj"] = plms_sample(model, v["x_T"], v["cond"], v["uncond"], v["inpaint"],
+                                                           v["mask"], num_steps=steps)
+            res["conv_inject"] = model.apply_model(v["x9"], ts.to(dev), v["ctx"],
+                                                   injection=InjectionSpec(chunks=3, conv_inject=True))
+        res["guided_z0"], res["guided_traj"] = ddim_sample_guided(
+            model, v["x_T"], v["cond"], v["uncond"], v["inpaint"], v["mask"], v["emb"], v["keep"], num_steps=steps,
+            id_dir_scaling=True, grad_weight=0.5)
+        for mode in ("concat", "stack", "sep_head"):
+            cfg = dataclasses.replace(base, cond=dataclasses.replace(base.cond, mode=mode))
+            mm = VFaceModel(cfg, device=dev, conditioner=True)
+            mm.load_params(init_params(cfg, torch.Generator().manual_seed(seed + 52), conditioner=True))
+            with torch.inference_mode():
+                tar_clip = clip_preprocess(v["target"] * 0.5 + 0.5, cfg.cond.clip.image_size)
+                c = mm.conditioning(v["src_clip"], v["lms"], tar_clip, v["src01"])
+                ctx = torch.cat([mm.uncond(b), c])
+                res[f"{mode}_cond"] = c
+                res[f"{mode}_unet"] = mm.apply_model(v["x9"][:2 * b], ts[:2 * b].to(dev), ctx)
+        outs[dev] = {k: t.detach().cpu() for k, t in res.items()}
+    err = {k: float((outs["cuda"][k] - outs["cpu"][k]).abs().max()) for k in outs["cpu"]}
+    peak = {k: max(1.0, float(outs["cpu"][k].abs().max())) for k in outs["cpu"]}
+    log("image_gate", config=f"tiny fp32, b = {b}, {steps} steps", **{f"{k}_max_abs": f"{e:.3e}" for k, e in err.items()},
+        **{f"{k}_peak": f"{peak[k]:.3f}" for k in err}, tol=f"{IMAGE_GATE_TOL} of the peak")
+    if not all(err[k] <= IMAGE_GATE_TOL * peak[k] for k in err):
+        raise SystemExit("chip_smoke: the card's tiny image path, conv injection or token modes disagree with "
+                         "the CPU's")
+
+
+def flax_npz_arrays(prefix: str, state: dict) -> dict:
+    """A module's state dict as the flat ``<prefix>/<Flax path>`` arrays of a JAX
+    params npz (``save_params_npz``'s layout): Dense and Conv ``weight`` ->
+    ``kernel`` (transposed to (in, out) / HWIO), a norm's 1-D ``weight`` ->
+    ``scale``, the rest as they are."""
+    out = {}
+    for key, value in state.items():
+        *mods, leaf = key.split(".")
+        a = value.detach().float().cpu().numpy()
+        if leaf == "weight" and a.ndim in (2, 4):
+            leaf, a = "kernel", (a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0))
+        elif leaf == "weight":
+            leaf = "scale"
+        out["/".join([prefix, *mods, leaf])] = a
+    return out
+
+
+def run_image_cli(module, argv: list) -> dict:
+    """An image CLI's ``main(argv)`` in process on the card, its output kept;
+    returns {"wall_s", "peak_gib", "out"}. A non-zero return fails the script."""
+    import torch
+
+    tee = _Tee()
+    os.environ.pop("VFACE_PLATFORM", None)  # the CLIs' default device: the card
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = module.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"chip_smoke: {module.__name__} {' '.join(argv)} exited {rc}")
+    return {"wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "out": "".join(tee.parts)}
+
+
+def phase_image_cli(seed: int) -> None:
+    """Phase image_cli: both image CLIs in process through ``main(argv)`` at
+    their defaults but for the depth (``IMAGE_STEPS`` steps; SD-v1
+    inpainting with its conditioner, seeded by each CLI), on inputs the
+    script writes to a temporary directory with ``write_synthetic_celeba``
+    (512^2 renders with class maps) and ``render_face``:
+    ``inference_test_bench`` on 4 pairs (one batch; 4 PNGs of 512^2);
+    ``one_inference`` on one ``IMAGE_FRAME``^2 target with ``--watermark``
+    (the payload read back from the saved PNG); with ``--safety_params`` from a
+    seeded checker (the ViT-L/14 tower at random, thresholds that flag
+    everything: the output black); the folder mode, 2 targets x 1 source (two
+    files with the JAX CLI's names). Each run's wall seconds and peak memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vface_torch.data.datasets import write_synthetic_celeba
+    from vface_torch.io.image import read_png, write_png
+    from vface_torch.models.clip import CLIPVisionConfig, CLIPVisionTower
+    from vface_torch.preprocess.synthetic_faces import render_face
+    from vface_torch.scripts import inference_test_bench, one_inference
+    from vface_torch.utils.watermark import DEFAULT_PAYLOAD, extract_watermark
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="vface_image_cli_")
+    try:
+        write_synthetic_celeba(os.path.join(root, "src"), 4, size=512, seed=seed + 60)
+        write_synthetic_celeba(os.path.join(root, "tar"), 4, size=512, seed=seed + 61)
+        bench_out = os.path.join(root, "bench")
+        run = run_image_cli(inference_test_bench, [
+            "--src_dir", os.path.join(root, "src", "CelebA-HQ-img"),
+            "--tar_dir", os.path.join(root, "tar", "CelebA-HQ-img"),
+            "--mask_dir", os.path.join(root, "tar", "Overall_mask"), "--outdir", bench_out,
+            "--ddim_steps", str(IMAGE_STEPS)])
+        pngs = sorted(os.listdir(bench_out))
+        shapes = {read_png(os.path.join(bench_out, p)).shape for p in pngs}
+        log("image_cli_bench", pairs=4, batch=4, ddim_steps=IMAGE_STEPS, wall_s=f"{run['wall_s']:.3f}",
+            peak_gib=f"{run['peak_gib']:.2f}", pngs=",".join(pngs))
+        if len(pngs) != 4 or shapes != {(512, 512, 3)} or "saved 4 swapped images" not in run["out"]:
+            raise SystemExit(f"chip_smoke: the test bench wrote {pngs} of {shapes}")
+
+        rng = np.random.default_rng(seed + 62)
+        u8 = lambda a: (np.clip(a, 0, 1) * 255).astype(np.uint8)
+        for d in ("targets", "sources"):
+            os.makedirs(os.path.join(root, d))
+        for i in range(2):
+            write_png(os.path.join(root, "targets", f"frame{i}.png"), u8(render_face(rng, IMAGE_FRAME)[0]))
+        write_png(os.path.join(root, "sources", "me.png"), u8(render_face(rng, 512)[0]))
+        tar, src = os.path.join(root, "targets", "frame0.png"), os.path.join(root, "sources", "me.png")
+        common = ["--ddim_steps", str(IMAGE_STEPS)]
+        out = os.path.join(root, "marked.png")
+        run = run_image_cli(one_inference, ["--target", tar, "--source", src, "--out", out, "--watermark", *common])
+        img = read_png(out)
+        payload = extract_watermark(img)
+        log("image_cli_one", mode="single", watermark=True, wall_s=f"{run['wall_s']:.3f}",
+            peak_gib=f"{run['peak_gib']:.2f}", shape=img.shape, payload=payload.decode(errors="replace"))
+        if img.shape != (IMAGE_FRAME, IMAGE_FRAME, 3) or payload != DEFAULT_PAYLOAD:
+            raise SystemExit(f"chip_smoke: one_inference wrote {img.shape}, payload {payload!r}")
+
+        width = CLIPVisionConfig().width
+        with torch.device("cuda"):
+            tower = CLIPVisionTower(CLIPVisionConfig())
+        g = torch.Generator(device="cuda").manual_seed(seed + 63)
+        with torch.no_grad():
+            for p in tower.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, device="cuda") * 0.02)
+        sr = np.random.default_rng(seed + 64)
+        safety = {**flax_npz_arrays("clip", tower.state_dict()),
+                  "visual_projection": (sr.normal(size=(width, 768)) / math.sqrt(width)).astype(np.float32),
+                  "concept_embeds": sr.normal(size=(17, 768)).astype(np.float32),
+                  "concept_thresholds": np.full(17, -2.0, np.float32),  # every cosine passes: flagged
+                  "special_care_embeds": sr.normal(size=(3, 768)).astype(np.float32),
+                  "special_care_thresholds": np.full(3, 2.0, np.float32)}
+        del tower
+        np.savez(os.path.join(root, "safety.npz"), **safety)
+        del safety
+        out = os.path.join(root, "checked.png")
+        run = run_image_cli(one_inference, ["--target", tar, "--source", src, "--out", out, "--safety_params",
+                                            os.path.join(root, "safety.npz"), *common])
+        img = read_png(out)
+        log("image_cli_one", mode="single", safety=True, wall_s=f"{run['wall_s']:.3f}",
+            peak_gib=f"{run['peak_gib']:.2f}", flagged="[safety]" in run["out"], black=not img.any())
+        if img.any() or "[safety]" not in run["out"]:
+            raise SystemExit("chip_smoke: the flagged one_inference output is not black")
+
+        folder = os.path.join(root, "folder")
+        run = run_image_cli(one_inference, ["--target", os.path.join(root, "targets"), "--source",
+                                            os.path.join(root, "sources"), "--out", folder, *common])
+        names = sorted(os.listdir(folder))
+        log("image_cli_one", mode="folder", targets=2, sources=1, wall_s=f"{run['wall_s']:.3f}",
+            peak_gib=f"{run['peak_gib']:.2f}", files=",".join(names))
+        if names != ["me_to_frame0.png", "me_to_frame1.png"]:
+            raise SystemExit(f"chip_smoke: one_inference's folder mode wrote {names}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("image_cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+
+
 def kernels_line(rows: dict, launches: dict) -> dict:
     """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
 
@@ -3368,6 +3784,7 @@ def main() -> int:
     args = ap.parse_args()
     if args.previous:
         PREVIOUS.update(read_previous(args.previous))
+    t_script = time.perf_counter()
 
     import torch
 
@@ -3383,6 +3800,8 @@ def main() -> int:
     rows.update(phase_ops_kernels())
     rows.update(phase_bench_kernels())
     for name, more in phase_sched_kernels().items():  # K1, K2, K9 at the schedulers' batches
+        rows[name] += more
+    for name, more in phase_image_kernels().items():  # and at the image test bench's
         rows[name] += more
     bench_launches = phase_bench(args.bench_reps)
     model = build_model(SEED)
@@ -3406,6 +3825,8 @@ def main() -> int:
     phase_multiface(model, SEED, base)
     del base
     torch.cuda.empty_cache()
+    phase_image(model, SEED)
+    torch.cuda.empty_cache()
     train_launches = phase_train(model, SEED)
     phase_train_reference(model, SEED)
     if args.profile_train:
@@ -3418,10 +3839,12 @@ def main() -> int:
     phase_racecheck()
     phase_sched_gate(SEED)
     phase_cli(SEED)
+    phase_image_cli(SEED)
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     launches.update({k: ops_launches[k] for k in OPS_KERNELS})
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
     launches.update({k: f32_launches[k] for k in ("flash_attention_bwd_dq_f32", "geglu_ff_f32", "geglu_ff_wide_f32")})
+    log("script", wall_s=f"{time.perf_counter() - t_script:.1f}")
     print(smi, flush=True)
     print(json.dumps(kernels_line(rows, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

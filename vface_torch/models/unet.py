@@ -41,8 +41,16 @@ it is not interchangeable with the JAX package's NHWC cache.
 its upsample, where it has one), in JAX's order and layout: NHWC at
 ``cfg.dtype``; the training landmark loss reads the last two.
 
-Not ported yet: the TSG conv injection, the dual 2x768 context and
-``EncoderUNetModel``.
+The TSG conv injection (``InjectionSpec.conv_inject``): the ResBlock of the
+output block with global index 3 replaces every chunk's residual branch by
+the last chunk's (the target-reconstruction donor) before its skip add.
+
+The dual 2x768 context: a cross-attention context twice ``context_dim`` wide
+(the "sep_head" conditioning token) is split into c1 and c2; the first
+``head_splits[0]`` heads take their keys and values from c1, the last
+``head_splits[1]`` from c2 (3:1 by default).
+
+:class:`EncoderUNetModel` is the half-UNet encoder with a pooled linear head.
 """
 
 from __future__ import annotations
@@ -75,6 +83,7 @@ class InjectionSpec:
     middle: FusionConfig = NONE
     output_blocks: FusionConfig = NONE
     chunks: int = 3
+    conv_inject: bool = False  # TSG conv injection at the output block with global index 3
 
     def for_site(self, site: str) -> FusionConfig:
         return {"in": self.input_blocks, "mid": self.middle, "out": self.output_blocks}[site]
@@ -111,9 +120,11 @@ class CrossAttention(nn.Module):
     """q from x, k/v from the context (or x for self-attention); attn1 is fusion-aware."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
-                 dtype=torch.float32, use_flash: bool = False):
+                 dtype=torch.float32, use_flash: bool = False, head_splits: Optional[Tuple[int, int]] = None):
         super().__init__()
         kv_dim = context_dim or query_dim
+        self.context_dim = context_dim
+        self.head_splits = head_splits
         self.heads = heads
         self.dtype = dtype
         self.use_flash = use_flash
@@ -130,9 +141,9 @@ class CrossAttention(nn.Module):
         if context is not None and ctx.shape[1] == 1 and not fusion.active:
             # single-token context: the softmax over one key is exactly 1, so
             # every query's output is v; project it once and broadcast
-            out = self.to_out(self.to_v(ctx))
+            out = self.to_out(self._project(self.to_v, ctx))
             return out.expand(x.shape[0], x.shape[1], out.shape[-1])
-        q, k, v = self.to_q(x), self.to_k(ctx), self.to_v(ctx)
+        q, k, v = self.to_q(x), self._project(self.to_k, ctx), self._project(self.to_v, ctx)
         if fusion.active:
             if isinstance(flow, FlowPack):
                 prev_qk = None if flow.prev is None else flow.prev.get(site)
@@ -149,6 +160,18 @@ class CrossAttention(nn.Module):
         else:
             out = multi_head_attention(q, k, v, self.heads, dtype=self.dtype)
         return self.to_out(out)
+
+    def _project(self, layer: nn.Module, ctx: torch.Tensor) -> torch.Tensor:
+        """``layer(ctx)``, or on a dual context (``2 * context_dim`` wide) the
+        first ``head_splits[0]`` heads' columns of ``layer(c1)`` beside the last
+        ``head_splits[1]`` heads' of ``layer(c2)``."""
+        if self.context_dim is None or ctx.shape[-1] != 2 * self.context_dim:
+            return layer(ctx)
+        c1, c2 = ctx.chunk(2, dim=-1)
+        inner, h = layer.weight.shape[0], self.heads
+        splits = self.head_splits or (h * 3 // 4, h - h * 3 // 4)
+        dh = inner // h
+        return torch.cat([layer(c1)[..., :splits[0] * dh], layer(c2)[..., inner - splits[1] * dh:]], dim=-1)
 
 
 class GEGLU(nn.Module):
@@ -233,7 +256,9 @@ class SpatialTransformer(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """UNet residual block with the timestep-embedding add."""
+    """UNet residual block with the timestep-embedding add; with ``inject_chunks``
+    (the TSG conv injection) every chunk's residual branch becomes the last
+    chunk's before the skip add."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, dtype=torch.float32):
         super().__init__()
@@ -244,10 +269,13 @@ class ResBlock(nn.Module):
         self.out_conv = Conv(out_ch, out_ch, zero_init=True, dtype=dtype)
         self.skip = Conv(in_ch, out_ch, kernel=1, dtype=dtype) if in_ch != out_ch else None
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, inject_chunks: int = 0):
         h = self.in_conv(nonlinearity(self.in_norm(x)))
         h = h + self.emb_proj(nonlinearity(emb))[:, :, None, None]
         h = self.out_conv(nonlinearity(self.out_norm(h)))
+        if inject_chunks:
+            f = h.shape[0] // inject_chunks
+            h = h[(inject_chunks - 1) * f:].repeat(inject_chunks, 1, 1, 1)
         if self.skip is not None:
             x = self.skip(x)
         return x + h
@@ -376,9 +404,12 @@ class UNetModel(nn.Module):
             hs, h = list(encoder_cache[0]), encoder_cache[1]
             ds = 2 ** (levels - 1)
         features = []
+        to = 0  # the output block's global index
         for level in reversed(range(levels)):
             for i in range(cfg.num_res_blocks + 1):
-                h = block(f"out_{level}_{i}_res", torch.cat([h, hs.pop()], dim=1), emb)
+                inject = inj.chunks if inj.conv_inject and to == 3 else 0
+                h = block(f"out_{level}_{i}_res", torch.cat([h, hs.pop()], dim=1), emb, inject)
+                to += 1
                 if ds in cfg.attention_resolutions:
                     h = attn(h, "out", f"out_{level}_{i}_attn")
                 if level != 0 and i == cfg.num_res_blocks:
@@ -405,3 +436,48 @@ class UNetModel(nn.Module):
                 shapes.append((mc * mult, height, width))
         zeros = lambda shape: torch.zeros((batch, *shape), dtype=cfg.dtype, device=device)
         return tuple(zeros(s) for s in shapes), zeros((mc * cfg.channel_mult[-1], height, width))
+
+
+class EncoderUNetModel(nn.Module):
+    """The half-UNet encoder with a pooled head: ``forward(x (B, H, W, C), t (B,))``
+    (``context`` is taken and unused, as in the JAX module)
+    runs the UNet's input blocks (ResBlocks only) and its middle's two
+    ResBlocks, GN, SiLU, a spatial mean and ``head`` (Dense to ``out_dim``);
+    returns float32 (B, out_dim). Port of the JAX package's ``EncoderUNetModel``."""
+
+    def __init__(self, cfg: UNetConfig = UNetConfig(), out_dim: int = 1000):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.dtype
+        mc = cfg.model_channels
+        emb_dim = mc * 4
+        self.time_embed_0 = Dense(mc, emb_dim, dtype=dt)
+        self.time_embed_2 = Dense(emb_dim, emb_dim, dtype=dt)
+        self.conv_in = Conv(cfg.in_channels, mc, dtype=dt)
+        ch = mc
+        for level, mult in enumerate(cfg.channel_mult):
+            for i in range(cfg.num_res_blocks):
+                self.add_module(f"in_{level}_{i}_res", ResBlock(ch, mc * mult, emb_dim, dtype=dt))
+                ch = mc * mult
+            if level != len(cfg.channel_mult) - 1:
+                self.add_module(f"in_{level}_down", Downsample(ch, dtype=dt))
+        self.mid_res_0 = ResBlock(ch, ch, emb_dim, dtype=dt)
+        self.mid_res_1 = ResBlock(ch, ch, emb_dim, dtype=dt)
+        self.out_norm = GroupNorm32(ch)
+        self.head = Dense(ch, out_dim, dtype=dt)
+
+    def forward(self, x, timesteps, context=None):
+        cfg = self.cfg
+        dt = cfg.dtype
+        emb = self.time_embed_0(timestep_embedding(timesteps, cfg.model_channels).to(dt))
+        emb = self.time_embed_2(nonlinearity(emb))
+        h = self.conv_in(x.to(dt).permute(0, 3, 1, 2))
+        levels = len(cfg.channel_mult)
+        for level in range(levels):
+            for i in range(cfg.num_res_blocks):
+                h = getattr(self, f"in_{level}_{i}_res")(h, emb)
+            if level != levels - 1:
+                h = getattr(self, f"in_{level}_down")(h)
+        h = self.mid_res_1(self.mid_res_0(h, emb), emb)
+        pooled = nonlinearity(self.out_norm(h)).mean(dim=(2, 3))
+        return self.head(pooled).to(torch.float32)

@@ -332,7 +332,7 @@ class VideoSwapPipeline:
          pair_mask) = [None if a is None else self._on(a) for a in args]
         f = crops.shape[0]
         hl = model.cfg.latent_size
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
 
         z_tar, z_inpaint, mask_lat = self._encode_pack(crops, keep_mask)
         if opts.co_invert_source:
@@ -412,14 +412,14 @@ class VideoSwapPipeline:
                                src_keep_mask, flow, timings=timings, pair_mask=pair_mask, fgats_prev=fgats_prev,
                                fgats_flow0=fgats_flow0, return_fgats=return_fgats)
         swapped = res[0] if return_fgats else res
-        pasted = self._paste(frames01_w, inv_coeffs_w, keep_mask, swapped, _StageClock(timings, self.device))
+        pasted = self._paste(frames01_w, inv_coeffs_w, keep_mask, swapped, StageClock(timings, self.device))
         return (pasted, res[1]) if return_fgats else pasted
 
     # ---------------------------------------------------- pipelined packs
     def _invert_pack(self, crops, keep_mask, inverse_cond, timings=None):
         """The pipelined packs' prologue: encode and invert pack 0 -> (start
         code, z_inpaint, mask_lat); recon-free, so ``skip_last=1``."""
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         z_tar, z_inpaint, mask_lat = self._encode_pack(crops, keep_mask)
         clock.mark("encode")
         x_T, _ = ddim_invert(self.model, z_tar, inverse_cond, z_inpaint, mask_lat,
@@ -434,7 +434,7 @@ class VideoSwapPipeline:
         trick and the paste-back of pack i -> (pasted, pack i+1's start code,
         z_inpaint, mask_lat)."""
         opts = self.opts
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         z_tar_n, z_inp_n, ml_n = self._encode_pack(crops_next, keep_next)
         clock.mark("encode")
         z0, _, start_next = vface_sample_pipelined(
@@ -451,7 +451,7 @@ class VideoSwapPipeline:
                     flow_i, pair_mask_i, timings=None):
         """The epilogue: sampling only for the last pack (no inversion rides it)."""
         opts = self.opts
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         z0, _ = vface_sample(self.model, start_i, cond_i, uncond_i, cond_i, None, z_inpaint_i, mask_lat_i,
                              self.injection, flow=self._latent_flow(flow_i), num_steps=opts.ddim_steps,
                              cfg_scale=opts.cfg_scale, eta=opts.eta, noise=self.noise, drop_recon_chunk=True,
@@ -473,7 +473,7 @@ class VideoSwapPipeline:
         batch rows are independent and each pack blends only its own pairs."""
         opts, model = self.opts, self.model
         f = crops_2.shape[0] // 2
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
 
         def per_half(fn, *xs):
             outs = [fn(*(x[h * f:(h + 1) * f] for x in xs)) for h in (0, 1)]
@@ -614,7 +614,7 @@ class VideoSwapPipeline:
         can_pipeline = (opts.pipeline_packs and exact and opts.encoder_interval == 1
                         and opts.inversion_steps <= opts.ddim_steps + 1 and n >= w + 1 and fresh)
         remove_classes = remove_classes or TRAIN_REMOVE
-        clock = _StageClock(timings, self.device)
+        clock = StageClock(timings, self.device)
         src = self._source_inputs(source01, source_keep, remove_classes, clock)
 
         persist = _WindowPersist(manifest, window_sink) if manifest is not None and window_sink is not None else None
@@ -805,7 +805,7 @@ def swap_video_frames_multiface(pipe: VideoSwapPipeline, frames01, source01, top
     pixels. ``timings`` collects the stages of every face's run and the
     detection's ("detect").
     """
-    clock = _StageClock(timings, pipe.device)
+    clock = StageClock(timings, pipe.device)
     frames = pipe._on(frames01)
     boxes, scores = pipe.detect_faces(frames, top_k)
     mean_scores = scores.mean(dim=0).cpu().numpy()
@@ -887,7 +887,7 @@ class _WindowPersist:
         self.pool.shutdown(wait=True)
 
 
-class _StageClock:
+class StageClock:
     """Wall seconds per stage, device-synchronised, added to a target dict; a
     no-op without one."""
 

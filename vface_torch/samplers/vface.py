@@ -161,8 +161,12 @@ def vface_sample_pipelined(model, x_T, cond, uncond, inpaint_latent, mask_latent
     evals at its last timestep, their output unused), so ``n_inv`` <= the
     sampling steps. ``eta > 0`` adds the sampling rows' noise as
     :func:`vface_sample` does. Returns (z0, pred_x0 trajectory, next_x_T),
-    ``next_x_T`` the inversion's start code.
+    ``next_x_T`` the inversion's start code. ``injection.conv_inject`` is
+    refused (ValueError), as in the JAX package.
     """
+    if injection.conv_inject:
+        # the conv injection splits the batch by chunks alone and knows no bystander rows
+        raise ValueError("pipelined packs do not support conv_inject")
     sch = DDIMSchedule.create(model.schedule, num_steps, eta=eta)
     n = sch.num_steps
     sch_i = DDIMSchedule.create(model.schedule, inversion_steps)

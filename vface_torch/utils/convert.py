@@ -23,6 +23,12 @@ is a part of :func:`from_flax_params`; an ``LPIPS`` tree
 
 :func:`init_params` makes a seeded random init on any device, with no JAX.
 
+Other trees convert with the same walk: an ``EncoderUNetModel`` tree
+(:class:`~vface_torch.models.unet.EncoderUNetModel`) with
+:func:`flax_tree_to_state_dict`, the conditioner's token-mode parameters
+(``concat_feat_proj``, ``other_learnable_vector``) inside "cond", and the
+safety checker's tree with :func:`from_flax_safety`.
+
 The video swap's aux nets (``{"bisenet", "raft", "landmark", "detector"}``)
 follow the same walk (the detector's Flax ``nn.GroupNorm`` ``scale`` is a
 ``weight`` too): :func:`from_flax_aux` converts their Flax trees, and
@@ -40,7 +46,8 @@ import torch
 
 _DROP = {"Conv_0", "Dense_0", "GroupNorm_0", "LayerNorm_0"}
 _RENAME = {"GroupNorm32_0": "norm"}
-_KEEP = {"bias", "mean", "var", "alpha", "class_embedding", "position_embedding", "learnable_vector"}
+_KEEP = {"bias", "mean", "var", "alpha", "class_embedding", "position_embedding", "learnable_vector",
+         "other_learnable_vector"}
 PARTS = ("unet", "vae", "cond", "landmark_head")
 AUX_PARTS = ("bisenet", "raft", "landmark", "detector")
 
@@ -81,6 +88,34 @@ def from_flax_params(tree) -> dict:
     """``{"unet": ..., "vae": ...[, "cond": ...][, "landmark_head": ...]}`` Flax trees -> the
     same keys as state dicts."""
     return {part: flax_tree_to_state_dict(tree[part]) for part in PARTS if part in tree}
+
+
+def set_path(tree: dict, path: str, value) -> None:
+    """Put ``value`` at the "/"-separated ``path`` of nested dicts (a flat npz key
+    such as ``clip/layer_0/attn/q/kernel``), making the levels it needs."""
+    *parts, leaf = path.split("/")
+    node = tree
+    for p in parts:
+        node = node.setdefault(p, {})
+    node[leaf] = value
+
+
+SAFETY_ARRAYS = ("visual_projection", "concept_embeds", "concept_thresholds", "special_care_embeds",
+                 "special_care_thresholds")
+
+
+def from_flax_safety(tree) -> dict:
+    """The safety checker's tree (``{"clip": a CLIPVisionTower tree, "visual_projection",
+    "concept_embeds", "concept_thresholds", "special_care_embeds",
+    "special_care_thresholds"}``, or its flat ``clip/<path>`` keys as an npz
+    holds them) -> ``{"clip": the tower's state dict, <the arrays> as float32
+    numpy}``, what :class:`vface_torch.utils.watermark.SafetyChecker` takes."""
+    nested = {}
+    for key, value in tree.items():
+        set_path(nested, key, value)
+    out = {"clip": flax_tree_to_state_dict(nested["clip"])}
+    out.update({k: np.asarray(nested[k], np.float32) for k in SAFETY_ARRAYS})
+    return out
 
 
 def from_flax_aux(tree) -> dict:
@@ -133,7 +168,7 @@ def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditi
     UNet's epsilon is identically 0 and no attention kernel can affect the
     output. Biases are normal with std ``bias_std``; norm scales are 1 and
     norm biases 0. As in the JAX init: CLIP's class and position embeddings
-    are normal with std 0.02, the learnable uncond vector standard normal,
+    are normal with std 0.02, the learnable uncond vectors standard normal,
     frozen BatchNorms the identity and PReLU slopes 0.25.
     """
     from vface_torch.models.clip import CLIPVisionTower
@@ -154,9 +189,11 @@ def init_params(cfg, generator: torch.Generator, bias_std: float = 0.02, conditi
     order = [parts[k] for k in ("unet", "vae", "cond") if k in parts]
     with torch.no_grad():
         for i, part in enumerate(order + [parts.get("landmark_head")]):
-            if i == len(order) and conditioner:  # the uncond vector before the head
-                lv = parts["cond"].learnable_vector
-                lv.copy_(randn(lv.shape))
+            if i == len(order) and conditioner:  # the uncond vectors before the head
+                for name in ("learnable_vector", "other_learnable_vector"):
+                    lv = getattr(parts["cond"], name, None)
+                    if lv is not None:
+                        lv.copy_(randn(lv.shape))
             if part is None:
                 continue
             for mod in part.modules():
