@@ -99,15 +99,13 @@ Phases, one line each:
      process at full width on a synthetic CelebA-HQ-layout directory the
      script writes (6 renders of ``synthetic_faces.render_face`` at 512^2 with
      class maps): 4 steps (log_every 1, image_log_every 2, ckpt_every 4: one
-     save, cut from two for time),
-     then ``--resume`` for 2 (saving on exit only): ms per step (the first
-     step and those after an image log or a save left out), peak memory, the
-     loss terms, launches per step, checkpoint bytes and seconds per save,
-     the files written; the
-     disk a save needs (from the state's numel) against what the temporary
-     directory has; frozen parameters as the seeded init made them, the
-     resumed run's params bit for bit those of the first run's model at its
-     exit (copied from the live model, not read from a checkpoint);
+     save, cut from two for time; the ``--resume`` run that followed is cut
+     for time and disk writes, and mesh_train reads a ``last`` back instead): ms per
+     step (the first step and those after an image log or a save left out),
+     peak memory, the loss terms, launches per step, checkpoint bytes and
+     seconds per save, the files written; the disk a save needs (from the
+     state's numel) against what the temporary directory has; frozen
+     parameters as the seeded init made them;
  10e. racecheck: K2's fused kernel's a*g barrier: copies of ``geglu_ff.cu``
      without it (and one warp's epilogue delayed) and with the delay alone,
      against the shipped kernel; ``compute-sanitizer --tool racecheck`` where
@@ -118,7 +116,7 @@ Phases, one line each:
  11b. sched (the window schedules of the video path; ``phase_sched_kernels``
      adds K1, K2 and K9 rows at b = 18 and 24 to the kernels phase): (b) on
      the video phase's model, a seeded 12-frame 720x1280 clip at the
-     reference operating point but for the depth (25 + 25 steps, cut for
+     reference operating point but for the depth (15 + 15 steps, cut for
      time) through the sequential loop, pipelined packs,
      the super-pack, its streaming form (numpy frames), merged sampling and
      the cross-window carry (on the clip's first 8 frames, cut from 12 for
@@ -136,7 +134,7 @@ Phases, one line each:
      clip, against its exact sequential run): a warm-up holds one cached
      sampling eval and one CFG inversion eval (b = 12) to the plain kernels;
      the sequential loop at ``encoder_interval`` 2 and 3, the super-pack with
-     merged sampling at 2 and the loop at eta = 0.5 (sched's 25 + 25): seconds,
+     merged sampling at 2 and the loop at eta = 0.5 (sched's 15 + 15): seconds,
      frames/s, invert and sample seconds, K1/K2/K9 launches (the cached runs
      gated to fewer K1s than the exact run), peak memory, the uint8 difference
      (reported); then the tiny fp32 samplers with the cache, eta (an explicit
@@ -146,7 +144,7 @@ Phases, one line each:
      frames; the face detector (shipped weights) on the card against the CPU
      (boxes 0.5 px, scores 1e-4, every face found in every frame), then
      ``swap_video_frames_multiface`` at the reference operating point but for
-     the depth (20 + 20 steps): seconds (per face), frames/s, peak memory,
+     the depth (12 + 12 steps): seconds (per face), frames/s, peak memory,
      launches;
  11e. image (on the video phase's model; ``phase_image_kernels`` adds K1, K2
      and K9 rows at b = 8, the test bench's 4 pairs under CFG, to the kernels
@@ -163,7 +161,7 @@ Phases, one line each:
      CPU within 1e-4 of each output's peak;
  12. cli: the video-swap CLI (``vface_torch.scripts.vface_video_swap.main``)
      at its defaults but for the depth (SD-v1 inpainting with its
-     conditioner, seeded; 25 + 25 steps, cut for time; window 6, scale 3.0,
+     conditioner, seeded; 15 + 15 steps, cut for time; window 6, scale 3.0,
      fps 10) on inputs written with the port's
      writers to a temporary directory: pair A, a 12-frame 720x1280 Y4M with a
      WAV beside it; pair B, 3 frames with precomputed parse maps. A 2 + 2-step
@@ -180,6 +178,33 @@ Phases, one line each:
      seeded ViT-L/14 checker whose thresholds flag everything: a black
      output) and in the folder mode (2 targets x 1 source, the JAX CLI's
      names), each at 25 steps: wall seconds and peak memory per run;
+ 12c. eval (after multiface, on its own seeded nets): ``evaluate_all`` on
+     16 ``render_face`` images a directory at full size (InceptionV3's
+     pool3 with He kernels, IR-SE-50, Hopenet, the 3DMM regressor; perturbed
+     frozen-BN statistics): seconds per metric, peak memory; 4 images' features
+     from each net, card against CPU, within 1e-4 of their peak with TF32
+     switched on around the card's call; ``evaluate_temporal`` on the sched
+     phase's sequential swap at 360x640 with RAFT's flow;
+ 12d. mesh_gate (after sched (a)): two ranks, spawned (NCCL on two cards
+     where the host has them, else gloo with both on card 0), the fp32
+     gate's model and depth: the frame-sharded swap (window 6, 3 frames a
+     rank, the FGATS halo) and the window-parallel swap (2 full windows and
+     a short one) each within 1e-3 of the sequential loop, and the
+     frame-sharded swap with each rank's halo replaced by its own first
+     frame missing that limit; backend, world size, seconds and peak memory
+     a rank;
+ 12e. mesh_train: ``train(n_data=2)`` at full width, batch 1 a rank, 2 steps,
+     ZeRO-1, cuDNN deterministic: the first step's averaged UNet gradients
+     within 1e-5 relative L2 of the same two rows computed at batch 1 on one
+     process, and as far from the one-rank step on the global batch of 2 as
+     the batch shape alone moves it (1.25x); the params after 2 steps within
+     1e-3 relative L2 of the one-rank run's; each rank's optimizer state
+     about half the one-rank total; ``last`` read back as a one-rank resume
+     reads it;
+ 12f. mesh_cli (inside cli): the video CLI under ``torchrun --standalone
+     --nproc_per_node 1`` with ``--mesh_data 1`` and with ``--mesh_frames 1``
+     on pair A, its frames against run A's (1 level in the PNGs, 2 in the
+     Y4M), frames/s and peak memory;
  13. the card line, the ``kernels`` JSON line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (the port's float32 ops,
@@ -197,6 +222,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -1641,7 +1667,7 @@ SCHED_RUNS = {
 SCHED_PROGRAMS = ("_pipelined_step", "_final_pack", "_superpack", "_swap_frames_superpacked_streaming")
 SCHED_FRAMES = 12  # (b): two 6-frame windows of 720x1280
 SCHED_CARRY_FRAMES = 8  # (b)'s carry run: a window and a 2-frame one to carry into (cut from 12 for time)
-SCHED_STEPS = 25  # (b) and phase opts: cut from the reference's 50 + 50 steps for time
+SCHED_STEPS = 15  # (b) and phase opts: cut from the reference's 50 + 50 steps for time (25 + 25 before the mesh phases)
 GATE_FRAMES, GATE_WINDOW, GATE_STEPS, GATE_HW = 10, 3, 4, (512, 512)  # (a): three packs and a remainder
 GATE_TOL = 1e-3  # (a): max abs on frames in [0, 1], fp32
 LANDSCAPE = (12, 18, 24, 36, 48)  # (c): sampling eval batches (2 chunks x frames)
@@ -2071,7 +2097,7 @@ def phase_opts_gate(seed: int) -> None:
 MULTIFACE_FRAMES, MULTIFACE_SIZE = 12, 720  # a 720^2 two-face scene rolled 2 px a frame
 # the multi-face run's depth: cut from the reference's 50 + 50 steps for time
 # (the script's whole run stays near 600 s); its widths are the reference's
-MULTIFACE_STEPS = 20
+MULTIFACE_STEPS = 12  # cut from 50 for time (20 before the mesh phases)
 
 
 def phase_multiface(model, seed: int, base: dict) -> None:
@@ -2605,7 +2631,7 @@ def phase_profile_train(model, seed: int, path: str) -> None:
 
 
 CLI_FRAMES, CLI_SHORT = 12, 3  # pair A: two windows (one pack of two); pair B: one short window
-CLI_STEPS = 25  # the CLI's 50 + 50 steps cut for the script's time
+CLI_STEPS = 15  # the CLI's 50 + 50 steps cut for the script's time (25 before the mesh phases)
 _DONE = re.compile(r"\[done\] (\S+): (\d+) frames, swap ([\d.]+) s \(([\d.]+) frames/s\), sink ([\d.]+) s")
 
 
@@ -2816,6 +2842,8 @@ def phase_cli(seed: int) -> None:
     import numpy as np
     import torch
 
+    from vface_torch.io.video import read_y4m
+
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="vface_cli_")
     try:
@@ -2850,6 +2878,7 @@ def phase_cli(seed: int) -> None:
         check_cli_outputs(dir_a, "pair_a", CLI_FRAMES, {0: 6, 6: 6}, audio=True)
         check_cli_outputs(dir_a, "pair_b", CLI_SHORT, {0: CLI_SHORT}, audio=False)
         frames_a = _read_frames(os.path.join(dir_a, "pair_a_frames"), CLI_FRAMES)
+        y4m_a = read_y4m(os.path.join(dir_a, "pair_a.y4m"))[0].astype(np.int16)
 
         os.remove(os.path.join(dir_a, "pair_a.avi"))
         path = os.path.join(dir_a, "pair_a.manifest.json")
@@ -2895,6 +2924,8 @@ def phase_cli(seed: int) -> None:
         if launches_p["flash_attention"] != per_window:  # one pack: the evals of one window, at twice the batch
             raise SystemExit(f"chip_smoke: run P launched K1 {launches_p['flash_attention']} times, "
                              f"not one pack's {per_window:g}")
+        torch.cuda.empty_cache()
+        phase_mesh_cli(root, cfg["a"], base, frames_a, y4m_a)
         cli_flow_batches(seed)
     finally:
         import shutil
@@ -2903,7 +2934,7 @@ def phase_cli(seed: int) -> None:
     log("cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
 
 
-TRAIN_CLI_STEPS, TRAIN_CLI_RESUME, TRAIN_CLI_IMAGES = 4, 2, 6  # steps, resumed steps, synthetic pairs
+TRAIN_CLI_STEPS, TRAIN_CLI_IMAGES = 4, 6  # steps, synthetic pairs
 _STAGES = re.compile(r"^\[train\] stages (\{.*\})$", re.M)
 
 
@@ -2931,12 +2962,15 @@ def _save_bytes(cfg) -> tuple:
     return 4 * (n_all + 2 * n_train), 4 * n_all
 
 
-def phase_train_cli(seed: int) -> dict:
+def phase_train_cli(seed: int, resume: dict) -> dict:
     """The training CLI (``vface_torch.scripts.train.main``) in process at its
-    full width (SD-v1 inpainting with its conditioner, seeded; batch 1 at
-    512^2) on a synthetic CelebA-HQ-layout directory: 4 steps (log_every 1,
-    image_log_every 2, ckpt_every 4: one save), then ``--resume`` for 2 more (saving on
-    exit only). Returns the launches per step of the first run."""
+    full width (SD-v1 inpainting with its conditioner; batch 1 at 512^2) on a
+    synthetic CelebA-HQ-layout directory: ``--resume`` from the ``last`` that
+    phase mesh_train's two ranks saved (``resume``: its logdir and rank 0's
+    parameter digest at exit), which the resumed model must hold bit for bit
+    as loaded, then 4 steps (log_every 1, image_log_every 2, ckpt_every 4:
+    one save). The frozen set must still be the seeded init's. Removes the
+    logdir. Returns the launches per step."""
     import shutil
     import tempfile
     from unittest import mock
@@ -2954,120 +2988,112 @@ def phase_train_cli(seed: int) -> dict:
     cfg = ModelConfig.sd_v1_inpaint()
     root = tempfile.mkdtemp(prefix="vface_train_cli_")
     try:
-        data, logdir = os.path.join(root, "celeba"), os.path.join(root, "logs")
+        data, logdir = os.path.join(root, "celeba"), resume["logdir"]
         t0 = time.perf_counter()
         write_synthetic_celeba(data, TRAIN_CLI_IMAGES, size=cfg.image_size, seed=seed)
         data_s = time.perf_counter() - t0
         last_b, mon_b = _save_bytes(cfg)
-        need = 2 * last_b + mon_b  # last, its temporary file during a save, and step_4
-        free = shutil.disk_usage(root).free
+        need = last_b + mon_b  # the new last's temporary file beside mesh_train's, and step_4
+        free = shutil.disk_usage(logdir).free
         log("train_cli_disk", save_last_bytes=last_b, save_monitored_bytes=mon_b, need_bytes=need,
-            free_bytes=free, where=root)
+            free_bytes=free, where=logdir)
         if free < need:
             raise SystemExit(f"chip_smoke: train_cli needs {need} bytes of disk for its checkpoints, "
-                             f"{root} has {free} free")
+                             f"{logdir} has {free} free")
         os.environ.pop("VFACE_PLATFORM", None)  # the CLI's default device: the card
+        name, steps = "train", TRAIN_CLI_STEPS
         argv = ["--dataset_dir", data, "--logdir", logdir, "--log_every", "1", "--image_log_every", "2",
-                "--ckpt_every", str(TRAIN_CLI_STEPS), "--seed", str(seed)]
-        runs = {}
-        exit_params = {}  # the first run's model at its exit, copied from the live model on the host
-        # the resumed run saves on exit only (each save_last writes ~12 GB)
-        for name, extra, steps in (("train", [], TRAIN_CLI_STEPS),
-                                   ("resume", ["--resume", "--ckpt_every", str(2 * TRAIN_CLI_RESUME)], TRAIN_CLI_RESUME)):
-            restored, built = {}, []
+                "--ckpt_every", str(steps), "--seed", str(seed), "--max_steps", str(steps), "--resume"]
+        restored = {}
 
-            class CheckedModel(VFaceModel):
-                def __init__(self, *a, **k):
-                    super().__init__(*a, **k)
-                    built.append(self)
+        class CheckedModel(VFaceModel):
+            def load_params(self, state):
+                # the resumed model as loaded, against mesh_train's rank 0 at its exit
+                super().load_params(state)
+                restored["equal"] = _param_digest(self) == resume["digest"]
 
-                def load_params(self, state):
-                    # the resumed run's model as loaded, against the first run's model at its exit
-                    super().load_params(state)
-                    if exit_params:
-                        got = self.param_state()
-                        restored["equal"] = got.keys() == exit_params.keys() and all(
-                            sd.keys() == exit_params[part].keys()
-                            and all(torch.equal(v.cpu(), exit_params[part][k]) for k, v in sd.items())
-                            for part, sd in got.items())
-
-            tee = _Tee()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(tee), mock.patch.object(train_driver, "VFaceModel", CheckedModel):
-                rc = cli.main(argv + ["--max_steps", str(steps)] + extra)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = kernel_counts()
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            if rc != 0:
-                raise SystemExit(f"chip_smoke: the training CLI's {name} run exited {rc}")
-            if not extra:
-                exit_params.update({part: {k: v.detach().cpu().clone() for k, v in sd.items()}
-                                    for part, sd in built[-1].param_state().items()})
-            del built[:]
-            torch.cuda.empty_cache()
-            out = "".join(tee.parts)
-            stages = json.loads(_STAGES.findall(out)[-1])
-            with open(os.path.join(logdir, "metrics.jsonl")) as fh:
-                recs = [json.loads(line) for line in fh][-steps:]
-            terms = {k: [r[k] for r in recs] for k in recs[0] if k.startswith("train/") and k != "train/sec_per_it"}
-            clean = [r["train/sec_per_it"] * 1e3 for r in recs if r["step"] in _clean_steps(steps, 2)]
-            runs[name] = dict(launches=launches, steps=steps)
-            ckdir = os.path.join(logdir, "checkpoints")
-            sizes = {n: os.path.getsize(os.path.join(ckdir, n)) for n in sorted(os.listdir(ckdir))}
-            files = sorted(os.path.relpath(os.path.join(d, f), logdir) for d, _, fs in os.walk(logdir) for f in fs)
-            log("train_cli", run=name, steps=steps, wall_s=f"{wall:.3f}",
-                ms_per_step=f"{sum(clean) / len(clean):.1f}" if clean else "n/a",
-                ms_steps=",".join(f"{r['train/sec_per_it'] * 1e3:.1f}" for r in recs),
-                warmup_and_save_steps_excluded=",".join(str(r["step"]) for r in recs
-                                                        if r["step"] not in _clean_steps(steps, 2)),
-                peak_gib=f"{peak:.2f}", **{k.split("/")[1]: ",".join(f"{x:.5f}" for x in v) for k, v in terms.items()},
-                save_last_s=f"{stages['save_last']['mean_s']:.2f}", save_last_n=stages["save_last"]["count"],
-                save_monitored_s=f"{stages.get('save_monitored', {}).get('mean_s', float('nan')):.2f}",
-                image_log_s=f"{stages.get('image_log', {}).get('mean_s', float('nan')):.3f}",
-                checkpoint_bytes=",".join(f"{n}:{b}" for n, b in sizes.items()), files=",".join(files),
-                data_write_s=f"{data_s:.1f}")
-            log("train_cli_launches", run=name, **{k: f"{v / steps:g}" for k, v in launches.items() if v},
-                note="per step; gn_sums includes the image logs' encode + decode")
-            if not all(math.isfinite(x) for v in terms.values() for x in v):
-                raise SystemExit(f"chip_smoke: a loss of the training CLI's {name} run is not finite")
-            missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
-            if missing:
-                raise SystemExit(f"chip_smoke: the training CLI's {name} run launched no {missing} kernel")
-            if extra:
-                start = re.findall(r"\[train\] resumed from step (\d+)", out)
-                if not restored.get("equal") or start != [str(TRAIN_CLI_STEPS)]:
-                    raise SystemExit("chip_smoke: --resume did not restore the first run's params bit for bit")
-                log("train_cli_resume", restored_from_step=start[0], params_bit_equal_to_first_run_exit=restored["equal"],
-                    leaves=sum(len(sd) for sd in exit_params.values()))
-                exit_params.clear()
-            else:
-                # the frozen set (VAE, ArcFace, CLIP tower) as the seeded init made it
-                init = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), conditioner=True)
-                meta = VFaceModel(cfg, device="meta", conditioner=True)
-                mask = trainable_mask(meta)
-                del meta
-                last = torch.load(os.path.join(ckdir, f"step_{TRAIN_CLI_STEPS:08d}"), map_location="cpu",
-                                  weights_only=True)["state"]["params"]
-                frozen = [n for n, f in mask.items() if not f]
-                part = lambda n: ({"conditioner": "cond"}.get(n.split(".")[0], n.split(".")[0]), n.split(".", 1)[1])
-                changed = [n for n in frozen if not torch.equal(last[part(n)[0]][part(n)[1]],
-                                                                init[part(n)[0]][part(n)[1]].cpu())]
-                moved = sum(not torch.equal(last[part(n)[0]][part(n)[1]], init[part(n)[0]][part(n)[1]].cpu())
-                            for n, f in mask.items() if f)
-                del init, last
-                torch.cuda.empty_cache()
-                log("train_cli_frozen", frozen_leaves=len(frozen), changed=len(changed), trainable_moved=moved)
-                if changed or not moved:
-                    raise SystemExit(f"chip_smoke: frozen parameters changed in training ({changed[:5]}) "
-                                     f"or no trainable one moved ({moved})")
+        tee = _Tee()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee), mock.patch.object(train_driver, "VFaceModel", CheckedModel):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if rc != 0:
+            raise SystemExit(f"chip_smoke: the training CLI's {name} run exited {rc}")
+        torch.cuda.empty_cache()
+        out = "".join(tee.parts)
+        start = re.findall(r"\[train\] resumed from step (\d+)", out)
+        log("train_cli_resume", restored_from_step=start[0] if start else "none",
+            params_bit_equal_to_mesh_train_rank0_exit=restored.get("equal"),
+            leaves=sum(len(sd) for sd in resume["digest"].values()))
+        if not restored.get("equal") or start != [str(MESH_TRAIN_STEPS)]:
+            raise SystemExit("chip_smoke: --resume did not restore mesh_train's last bit for bit")
+        stages = json.loads(_STAGES.findall(out)[-1])
+        with open(os.path.join(logdir, "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh][-steps:]
+        terms = {k: [r[k] for r in recs] for k in recs[0] if k.startswith("train/") and k != "train/sec_per_it"}
+        clean = [r["train/sec_per_it"] * 1e3 for r in recs if r["step"] in _clean_steps(steps, 2)]
+        ckdir = os.path.join(logdir, "checkpoints")
+        sizes = {n: os.path.getsize(os.path.join(ckdir, n)) for n in sorted(os.listdir(ckdir))}
+        files = sorted(os.path.relpath(os.path.join(d, f), logdir) for d, _, fs in os.walk(logdir) for f in fs)
+        log("train_cli", run=name, steps=steps, wall_s=f"{wall:.3f}",
+            ms_per_step=f"{sum(clean) / len(clean):.1f}" if clean else "n/a",
+            ms_steps=",".join(f"{r['train/sec_per_it'] * 1e3:.1f}" for r in recs),
+            warmup_and_save_steps_excluded=",".join(str(r["step"]) for r in recs
+                                                    if r["step"] not in _clean_steps(steps, 2)),
+            peak_gib=f"{peak:.2f}", **{k.split("/")[1]: ",".join(f"{x:.5f}" for x in v) for k, v in terms.items()},
+            save_last_s=f"{stages['save_last']['mean_s']:.2f}", save_last_n=stages["save_last"]["count"],
+            save_monitored_s=f"{stages.get('save_monitored', {}).get('mean_s', float('nan')):.2f}",
+            image_log_s=f"{stages.get('image_log', {}).get('mean_s', float('nan')):.3f}",
+            checkpoint_bytes=",".join(f"{n}:{b}" for n, b in sizes.items()), files=",".join(files),
+            data_write_s=f"{data_s:.1f}")
+        log("train_cli_launches", run=name, **{k: f"{v / steps:g}" for k, v in launches.items() if v},
+            note="per step; gn_sums includes the image logs' encode + decode")
+        if not all(math.isfinite(x) for v in terms.values() for x in v):
+            raise SystemExit(f"chip_smoke: a loss of the training CLI's {name} run is not finite")
+        missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+        if missing:
+            raise SystemExit(f"chip_smoke: the training CLI's {name} run launched no {missing} kernel")
+        # the frozen set (VAE, ArcFace, CLIP tower) as the seeded init made it
+        init = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), conditioner=True)
+        meta = VFaceModel(cfg, device="meta", conditioner=True)
+        mask = trainable_mask(meta)
+        del meta
+        last = torch.load(os.path.join(ckdir, f"step_{steps:08d}"), map_location="cpu",
+                          weights_only=True)["state"]["params"]
+        frozen = [n for n, f in mask.items() if not f]
+        part = lambda n: ({"conditioner": "cond"}.get(n.split(".")[0], n.split(".")[0]), n.split(".", 1)[1])
+        changed = [n for n in frozen if not torch.equal(last[part(n)[0]][part(n)[1]],
+                                                        init[part(n)[0]][part(n)[1]].cpu())]
+        moved = sum(not torch.equal(last[part(n)[0]][part(n)[1]], init[part(n)[0]][part(n)[1]].cpu())
+                    for n, f in mask.items() if f)
+        del init, last
+        torch.cuda.empty_cache()
+        log("train_cli_frozen", frozen_leaves=len(frozen), changed=len(changed), trainable_moved=moved)
+        if changed or not moved:
+            raise SystemExit(f"chip_smoke: frozen parameters changed in training ({changed[:5]}) "
+                             f"or no trainable one moved ({moved})")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(resume["root"], ignore_errors=True)
     log("train_cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
-    return runs["train"]
+    return dict(launches=launches, steps=steps)
+
+
+def _param_digest(model) -> dict:
+    """``{part: {name: sha256 of the tensor's bytes}}`` over ``model.param_state()``:
+    bit equality of two models' parameters across processes."""
+    import hashlib
+
+    import torch
+
+    return {part: {k: hashlib.sha256(v.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+                   for k, v in sd.items()} for part, sd in model.param_state().items()}
 
 
 def _seeded_(module, generator):
@@ -3753,6 +3779,598 @@ def phase_image_cli(seed: int) -> None:
     log("image_cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
 
 
+# ------------------------------------------------------------ multi-GPU phases
+MESH_RANKS = 2
+MESH_FS_FRAMES, MESH_FS_WINDOW = 7, 6  # mesh_gate: one frame-sharded window (3 frames a rank) and a 1-frame one
+MESH_WP_FRAMES, MESH_WP_WINDOW = 8, 3  # mesh_gate: 2 full windows dealt to the ranks and a 2-frame one
+MESH_TRAIN_STEPS, MESH_TRAIN_LR = 2, 1e-5  # mesh_train: warm-up 1, so that the second step moves the params
+MESH_UPDATE_TOL = 0.2  # mesh_train: relative L2 of last's update and moments against one rank's (a lost one reads 1)
+
+
+def _mesh_child(rank: int, world: int, tmp: str, fn_name: str) -> None:
+    """One rank of a multi-process phase: NCCL on a card of its own where the
+    host has ``world`` cards, else gloo, every rank on card 0; runs
+    ``fn_name(mesh, args)`` and saves its result for the parent."""
+    import traceback
+
+    import torch
+
+    from vface_torch.parallel.mesh import destroy, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        own = torch.cuda.device_count() >= world
+        mesh = make_mesh(backend="nccl" if own else "gloo", device=f"cuda:{rank if own else 0}",
+                         init_method=f"file://{tmp}/pg", rank=rank, world_size=world)
+        args = torch.load(os.path.join(tmp, "args.pt"), weights_only=False)
+        out = globals()[fn_name](mesh, args)
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        destroy()
+
+
+def run_ranks(fn_name: str, args, timeout: float, world: int = MESH_RANKS) -> list:
+    """``fn_name(mesh, args)`` on ``world`` processes (spawned; a file rendezvous
+    in a temporary directory); every process is joined or killed; a rank's
+    failure fails the script with its traceback."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="vface_mesh_")
+    try:
+        torch.save(args, os.path.join(tmp, "args.pt"))
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_child, args=(r, world, tmp, fn_name)) for r in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.perf_counter() + timeout
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.perf_counter()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        errs = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp)) if f.startswith("err")]
+        if errs or any(proc.exitcode != 0 for proc in procs):
+            raise SystemExit(f"chip_smoke: {fn_name} failed on its ranks (exit codes "
+                             f"{[proc.exitcode for proc in procs]}):\n" + "\n".join(errs))
+        return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mesh_gate_rank(mesh, a) -> dict:
+    """mesh_gate on one rank: the frame-sharded and window-parallel swaps, the
+    no-halo control, and on rank 0 the sequential loops they are held to."""
+    from unittest import mock
+
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.parallel import mesh as M
+    from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
+    from vface_torch.utils.convert import init_aux_params, init_params
+
+    seed, dev = a["seed"], mesh.device
+    cfg = ModelConfig.sd_v1_inpaint(dtype=torch.float32)
+    model = VFaceModel(cfg, device=dev, conditioner=True)
+    model.load_params(init_params(cfg, torch.Generator(device=dev).manual_seed(seed), conditioner=True))
+    aux = init_aux_params(torch.Generator(device=dev).manual_seed(seed + 1))
+    base = SwapOptions(ddim_steps=GATE_STEPS, inversion_steps=GATE_STEPS, image_size=cfg.image_size,
+                       parser_size=512, raft_iters=20)
+    pipe = lambda w: VideoSwapPipeline(model, dataclasses.replace(base, window=w), device=dev, aux_params=aux)
+    fs_clip = synthetic_clip(MESH_FS_FRAMES, GATE_HW, seed + 40, device=dev)
+    wp_clip = synthetic_clip(MESH_WP_FRAMES, GATE_HW, seed + 42, device=dev)
+    source = synthetic_clip(1, GATE_HW, seed + 41, device=dev)[0]
+    out = dict(backend=mesh.backend, world=mesh.size, device=str(dev))
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        out[name + "_s"] = time.perf_counter() - t0
+        out[name + "_launches"] = {k: v for k, v in kernel_counts().items() if v}
+        return res
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    fs = timed("frame_sharded", lambda: pipe(MESH_FS_WINDOW).swap_video_frames_frame_sharded(fs_clip, source, mesh))
+    wp = timed("window_parallel", lambda: pipe(MESH_WP_WINDOW).swap_video_frames_sharded(wp_clip, source, mesh))
+    # the control: each rank's halo replaced by its own first frame
+    with mock.patch.object(M, "frame_halo_exchange", lambda x, axis_name="data": x[0]):
+        ctl = timed("no_halo", lambda: pipe(MESH_FS_WINDOW).swap_video_frames_frame_sharded(fs_clip, source, mesh))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if mesh.rank == 0:
+        seq_fs = timed("sequential_fs", lambda: pipe(MESH_FS_WINDOW).swap_video_frames(fs_clip, source))
+        seq_wp = timed("sequential_wp", lambda: pipe(MESH_WP_WINDOW).swap_video_frames(wp_clip, source))
+        out.update(frame_sharded_max_abs=float((fs - seq_fs).abs().max()),
+                   window_parallel_max_abs=float((wp - seq_wp).abs().max()),
+                   no_halo_max_abs=float((ctl - seq_fs).abs().max()),
+                   shapes_ok=tuple(fs.shape) == (MESH_FS_FRAMES, *GATE_HW, 3)
+                   and tuple(wp.shape) == (MESH_WP_FRAMES, *GATE_HW, 3),
+                   finite=bool(torch.isfinite(fs).all() and torch.isfinite(wp).all()))
+    else:
+        out.update(returns_none=fs is None and wp is None and ctl is None)
+    return out
+
+
+def phase_mesh_gate(seed: int) -> None:
+    """Phase mesh_gate: the multi-GPU video paths on the card, two ranks
+    (NCCL across two cards where the host has them, else gloo with both
+    ranks on card 0) at the exactness gate's operating point (phase sched
+    (a): the SD-v1 inpainting model at fp32 with its conditioner, seeded,
+    512^2 crops, 4 + 4 steps, RAFT 20, parser 512). The frame-sharded swap
+    of a 7-frame clip at window 6 (3 frames a rank, the FGATS halo between
+    them, and a 1-frame window on rank 0) and the window-parallel swap of an
+    8-frame clip at window 3 (two full windows dealt to the ranks and a
+    2-frame one) each within ``GATE_TOL`` of the sequential loop on rank 0;
+    the frame-sharded swap with each rank's halo replaced by its own first
+    frame must miss that limit. Per rank: seconds, launches, peak memory;
+    the backend and the world size."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    outs = run_ranks("_mesh_gate_rank", {"seed": seed}, timeout=600)
+    r0 = outs[0]
+    for r, o in enumerate(outs):
+        log("mesh_gate_rank", rank=r, backend=o["backend"], world=o["world"], device=o["device"],
+            peak_gib=f"{o['peak_gib']:.2f}", **{k: f"{v:.3f}" for k, v in o.items() if k.endswith("_s")},
+            frame_sharded_launches=",".join(f"{k}:{v}" for k, v in o["frame_sharded_launches"].items()))
+    log("mesh_gate", config="sd_v1_inpaint fp32 + conditioner", backend=r0["backend"], world=r0["world"],
+        tol=GATE_TOL, frame_sharded_frames=MESH_FS_FRAMES, frame_sharded_window=MESH_FS_WINDOW,
+        window_parallel_frames=MESH_WP_FRAMES, window_parallel_window=MESH_WP_WINDOW, ddim_steps=GATE_STEPS,
+        frame_sharded_max_abs=f"{r0['frame_sharded_max_abs']:.3e}",
+        window_parallel_max_abs=f"{r0['window_parallel_max_abs']:.3e}",
+        no_halo_max_abs=f"{r0['no_halo_max_abs']:.3e}", no_halo_over_tol=f"{r0['no_halo_max_abs'] / GATE_TOL:.1f}",
+        finite=r0["finite"], shapes_ok=r0["shapes_ok"], other_ranks_return_none=outs[1]["returns_none"],
+        wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    missing = [k for k in (*F32_EVAL_KERNELS, "gn_sums") for o in outs if not o["frame_sharded_launches"].get(k)]
+    if missing:
+        raise SystemExit(f"chip_smoke: the frame-sharded swap launched no {sorted(set(missing))} on a rank")
+    if not (r0["finite"] and r0["shapes_ok"] and outs[1]["returns_none"]):
+        raise SystemExit("chip_smoke: the mesh swaps' frames are malformed or the other rank returned frames")
+    for key in ("frame_sharded_max_abs", "window_parallel_max_abs"):
+        if not r0[key] <= GATE_TOL:
+            raise SystemExit(f"chip_smoke: {key} {r0[key]:.3e} is over the gate {GATE_TOL}")
+    if not r0["no_halo_max_abs"] > GATE_TOL:
+        raise SystemExit(f"chip_smoke: without the halo the frame-sharded swap is within {r0['no_halo_max_abs']:.3e} "
+                         "of the loop: the gate cannot tell a missing halo")
+
+
+def _mesh_train_rank(mesh, a) -> dict:
+    """mesh_train on one rank: ``train(n_data=2)``; rank 0 saves its first
+    step's averaged UNet gradients for the parent."""
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig
+    from vface_torch.parallel.mesh import local_state_bytes
+    from vface_torch.pipelines import train_driver as TD
+    from vface_torch.pipelines.train import TrainConfig
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev = mesh.device
+    opts, saved = [], []
+    real_opt, real_step = TD.make_optimizer, TD.make_train_step
+    TD.make_optimizer = lambda *x, **k: opts.append(real_opt(*x, **k)) or opts[-1]
+
+    def step_maker(model, *x, **k):
+        step = real_step(model, *x, **k)
+
+        def first_grads(batch, gen):
+            logs = step(batch, gen)
+            if not saved:
+                saved.append(1)
+                if mesh.rank == 0:
+                    torch.save(_unet_grads(model).cpu(), a["grads_path"])
+            return logs
+
+        return first_grads
+
+    TD.make_train_step = step_maker
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    model = TD.train(ModelConfig.sd_v1_inpaint(), TrainConfig(learning_rate=MESH_TRAIN_LR, warmup_steps=1),
+                     TD.DriverConfig(logdir=a["logdir"], max_steps=MESH_TRAIN_STEPS, log_every=1,
+                                     image_log_every=10**6, ckpt_every=10**6, batch_size=1, seed=a["seed"]),
+                     iter([a["batch"]] * (MESH_TRAIN_STEPS + 1)), device=str(dev), n_data=mesh.size)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                opt_bytes=local_state_bytes(opts[0][0]), backend=mesh.backend, world=mesh.size,
+                launches={k: v for k, v in kernel_counts().items() if v}, digest=_param_digest(model))
+
+
+def _halves_grads(model, batch: dict, tcfg, seed: int):
+    """The UNet gradients two ranks average, computed on this process: each
+    row of the global batch of 2 at batch 1, as rank r computes it (the
+    generator from the seed, the global batch's draws and its rows, the
+    reference batch gathered for the flip), each loss halved and summed."""
+    from unittest import mock
+
+    import torch
+
+    from vface_torch.parallel.mesh import Mesh
+    from vface_torch.pipelines import train as T
+
+    whole = {batch[k].shape[1]: batch[k] for k in ("ref_clip", "ref_face01")}
+    model.zero_grad(set_to_none=True)
+    with mock.patch.object(T, "all_gather_rows", lambda x, mesh: whole[x.shape[1]]):
+        for r in range(MESH_RANKS):
+            fake = Mesh(rank=r, size=MESH_RANKS, device=torch.device("cuda"))
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            loss, _ = T.p_losses_face(model, {k: v[r:r + 1] for k, v in batch.items()}, gen, tcfg, mesh=fake)
+            (loss / MESH_RANKS).backward()
+    return _unet_grads(model)
+
+
+def _unet_grads(model):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1).float() for p in model.unet.parameters() if p.grad is not None])
+
+
+def _rel_l2(got, want) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def phase_mesh_train(seed: int) -> dict:
+    """Phase mesh_train: ``train(n_data=2)`` at full width (SD-v1 inpainting
+    with its conditioner, bf16, seeded) over two ranks on the card (as
+    mesh_gate), batch 1 a rank (a global batch of 2 seeded 512^2 samples),
+    2 steps (lr 1e-5, warm-up 1), the AdamW moments sharded (ZeRO-1), cuDNN
+    deterministic. Held: the ranks' parameters bit-equal at exit; on one
+    process, the ranks' first step as they compute it (each row at batch 1
+    from the same generator state, the losses halved and summed), which the
+    ranks' averaged UNet gradients must meet within 1e-5 relative L2; the
+    same 2 steps on the global batch at batch 2, whose UNet params the
+    ranks' saved ``last`` meets within 1e-3 relative L2 and whose update
+    (params minus init) within 0.2 (at lr 1e-5 the update is ~4e-4 of the
+    params' norm, so the 1e-3 limit alone cannot see a lost step; a lost
+    update reads 1); ``last``'s gathered moments read into a one-rank AdamW
+    and within 0.2 relative L2 of that run's; each rank's optimizer-state
+    bytes about half the one-rank total (0.3-0.7). The first step's
+    gradients against the global batch's are printed beside what the batch
+    shape alone moves them (bf16 kernels round by batch). Per rank: step
+    seconds, peak memory. Returns ``last``'s logdir (and the temporary root
+    holding it) with rank 0's parameter digest at exit, for the training
+    CLI's ``--resume`` (phase train_cli)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.pipelines.train import TrainConfig, make_optimizer, make_train_step
+    from vface_torch.utils.convert import init_params
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.sd_v1_inpaint()
+    root = tempfile.mkdtemp(prefix="vface_mesh_train_")
+    try:
+        last_b, _ = _save_bytes(cfg)
+        n_unet = sum(p.numel() for p in VFaceModel(cfg, device="meta").unet.parameters())
+        need, free = 2 * last_b + 4 * n_unet, shutil.disk_usage(root).free
+        log("mesh_train_disk", save_last_bytes=last_b, grads_bytes=4 * n_unet, need_bytes=need, free_bytes=free)
+        if free < need:
+            raise SystemExit(f"chip_smoke: mesh_train needs {need} bytes of disk, {root} has {free} free")
+        r = np.random.default_rng(seed + 50)
+        s, clip = cfg.image_size, cfg.cond.clip.image_size
+        b = MESH_RANKS
+        batch = {"gt_image": r.uniform(-1, 1, (b, s, s, 3)), "inpaint": r.uniform(-1, 1, (b, s, s, 3)),
+                 "mask": (r.uniform(size=(b, s, s, 1)) > 0.3), "ref_clip": r.normal(size=(b, clip, clip, 3)) * 0.3,
+                 "ref_face01": r.uniform(size=(b, 112, 112, 3)), "landmarks": r.uniform(size=(b, 136))}
+        batch = {k: np.asarray(v, np.float32) for k, v in batch.items()}
+        logdir, grads_path = os.path.join(root, "logs"), os.path.join(root, "grads.pt")
+        torch.cuda.empty_cache()
+        outs = run_ranks("_mesh_train_rank", dict(seed=seed, batch=batch, logdir=logdir, grads_path=grads_path),
+                         timeout=600)
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            step_s = [rec["train/sec_per_it"] for rec in map(json.loads, f)]
+        ranks_equal = all(o["digest"] == outs[0]["digest"] for o in outs)
+
+        # one rank, the global batch, the same seed
+        deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.cuda.reset_peak_memory_stats()
+        model = VFaceModel(cfg, device="cuda", conditioner=True)
+        model.load_params(init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), conditioner=True))
+        init = torch.cat([p.detach().reshape(-1).float() for p in model.unet.parameters()])
+        tcfg = TrainConfig(learning_rate=MESH_TRAIN_LR, warmup_steps=1)
+        opt, sched = make_optimizer(tcfg, model)
+        step = make_train_step(model, opt, sched, tcfg)
+        dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        mesh_g = torch.load(grads_path).cuda()
+        os.remove(grads_path)
+        # the ranks' first step on one process: each half at batch 1 with the global batch's draws and flip
+        halves_g = _halves_grads(model, dev_batch, tcfg, seed)
+        opt.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        step(dev_batch, gen)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_g = _unet_grads(model)
+        halves_err, grads_err, shape_err = _rel_l2(mesh_g, halves_g), _rel_l2(mesh_g, one_g), _rel_l2(halves_g, one_g)
+        del mesh_g, halves_g, one_g
+        for _ in range(MESH_TRAIN_STEPS - 1):
+            step(dev_batch, gen)
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        total = sum(v.numel() * v.element_size() for st in opt.state.values() for v in st.values()
+                    if isinstance(v, torch.Tensor) and v.ndim > 0)
+        one = torch.cat([p.detach().reshape(-1).float() for p in model.unet.parameters()])
+        # last as saved (mapped, not read whole): its UNet params and its gathered moments
+        last = torch.load(os.path.join(logdir, "checkpoints", "last"), map_location="cpu", mmap=True,
+                          weights_only=True)
+        mesh_p = torch.cat([last["state"]["params"]["unet"][k].reshape(-1).float().cuda()
+                            for k, _ in model.unet.named_parameters()])
+        params_err, update_err = _rel_l2(mesh_p, one), float((mesh_p - one).norm() / (one - init).norm())
+        fresh, _ = make_optimizer(tcfg, model)
+        fresh.load_state_dict(last["state"]["opt_state"])  # the gathered state, the one-device layout
+        sq = lambda st, key: sum(float((st[p][key].float() ** 2).sum()) for p in st)
+        diff = lambda key: sum(float(((fresh.state[p][key] - opt.state[p][key]).float() ** 2).sum()) for p in opt.state)
+        moments_err = max(math.sqrt(diff(k) / sq(opt.state, k)) for k in ("exp_avg", "exp_avg_sq"))
+        last_step, n_state = last["step"], len(fresh.state)
+        resumed_ok = last_step == MESH_TRAIN_STEPS and n_state == len(opt.state)
+        del model, opt, fresh, last, init, one, mesh_p
+        torch.cuda.empty_cache()
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    shares = [o["opt_bytes"] / total for o in outs]
+    for r, o in enumerate(outs):
+        log("mesh_train_rank", rank=r, backend=o["backend"], world=o["world"], wall_s=f"{o['wall_s']:.3f}",
+            peak_gib=f"{o['peak_gib']:.2f}", opt_state_bytes=o["opt_bytes"], opt_state_share=f"{shares[r]:.4f}",
+            **o["launches"])
+    log("mesh_train", config="sd_v1_inpaint bf16 + conditioner", ranks=MESH_RANKS, batch_per_rank=1,
+        steps=MESH_TRAIN_STEPS, lr=MESH_TRAIN_LR, step_s=",".join(f"{x:.3f}" for x in step_s),
+        one_rank_step_s=f"{one_s:.3f}", one_rank_peak_gib=f"{one_peak:.2f}", one_rank_opt_state_bytes=total,
+        ranks_params_bit_equal=ranks_equal, unet_grads_vs_halves_rel_l2=f"{halves_err:.3e}",
+        unet_grads_vs_global_batch_rel_l2=f"{grads_err:.3e}", halves_vs_global_batch_rel_l2=f"{shape_err:.3e}",
+        params_rel_l2=f"{params_err:.3e}", update_rel_l2=f"{update_err:.3e}", moments_rel_l2=f"{moments_err:.3e}",
+        halves_tol=1e-5, params_tol=1e-3, update_tol=MESH_UPDATE_TOL, moments_tol=MESH_UPDATE_TOL,
+        last_step=last_step, last_moment_entries=n_state, wall_s=f"{time.perf_counter() - t_phase:.3f}")
+    fails = []
+    if not ranks_equal:
+        fails.append("the ranks' parameters differ at exit")
+    if not halves_err <= 1e-5:
+        fails.append(f"two ranks' gradients are {halves_err:.3e} from the same halves on one rank (limit 1e-5)")
+    if not (params_err <= 1e-3 and update_err <= MESH_UPDATE_TOL):
+        fails.append(f"last's params are {params_err:.3e} from the one-rank run's (limit 1e-3), its update "
+                     f"{update_err:.3e} from that run's (limit {MESH_UPDATE_TOL})")
+    if not (moments_err <= MESH_UPDATE_TOL and resumed_ok):
+        fails.append(f"last's gathered moments are {moments_err:.3e} from the one-rank run's (limit "
+                     f"{MESH_UPDATE_TOL}), or its step {last_step} / {n_state} entries are not the one-rank run's")
+    missing = sorted({k for o in outs for k in TRAIN_KERNELS if not o["launches"].get(k)})
+    if missing:
+        fails.append(f"a rank launched no {missing}")
+    if not all(0.3 <= x <= 0.7 for x in shares):
+        fails.append(f"the ZeRO-1 shares are {shares}")
+    if fails:
+        shutil.rmtree(root, ignore_errors=True)
+        raise SystemExit("chip_smoke: mesh_train: " + "; ".join(fails))
+    return dict(root=root, logdir=logdir, digest=outs[0]["digest"])
+
+
+MESH_CLI_WRAPPER = """import runpy, sys
+import torch
+# the script's precision flags (set in main), so that the frames compare with run A's
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+try:
+    runpy.run_module("vface_torch.scripts.vface_video_swap", run_name="__main__", alter_sys=True)
+finally:
+    from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
+
+    print("[mesh_cli] peak_gib=%.3f flash_attention=%d geglu_ff=%d geglu_ff_wide=%d gn_sums=%d" % (
+        torch.cuda.max_memory_allocated() / 2**30, FA.LAUNCHES["flash_attention"], FF.LAUNCHES,
+        FF.WIDE_LAUNCHES, GN.LAUNCHES), flush=True)
+"""
+
+
+def phase_mesh_cli(root: str, config_a: str, base: list, frames_a, y4m_a) -> None:
+    """Phase mesh_cli (inside phase cli, on its inputs): the video CLI under
+    ``torchrun --standalone --nproc_per_node 1`` (NCCL, world size 1) with
+    ``--mesh_data 1`` and then ``--mesh_frames 1`` on pair A at the cli
+    phase's steps; the module runs through ``runpy`` in a wrapper that sets
+    the script's precision flags and prints the process's peak memory at its exit. The ``--mesh_data`` sink's PNGs
+    within 1 uint8 level of run A's and the ``--mesh_frames`` Y4M within 2
+    of run A's (its path keeps no sink, as the JAX package's); frames/s and
+    peak memory."""
+    import numpy as np
+
+    from vface_torch.io.video import read_y4m
+
+    wrapper = os.path.join(root, "mesh_cli_main.py")
+    with open(wrapper, "w") as f:
+        f.write(MESH_CLI_WRAPPER)
+    env = dict(os.environ, PYTHONPATH=os.getcwd() + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("VFACE_PLATFORM", None)
+    for flag in ("--mesh_data", "--mesh_frames"):
+        outdir = os.path.join(root, "mesh" + flag.split("_")[1])
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", wrapper,
+               "--config", config_a, "--outdir", outdir, *base, flag, "1"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        done = _DONE.search(proc.stdout)
+        peak = re.search(r"\[mesh_cli\] peak_gib=([\d.]+) (.*)", proc.stdout)
+        launches = dict(kv.split("=") for kv in peak[2].split()) if peak else {}
+        if proc.returncode != 0 or done is None or "[fail]" in proc.stdout:
+            raise SystemExit(f"chip_smoke: torchrun {flag} 1 failed (rc {proc.returncode}):\n"
+                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+        y4m = read_y4m(os.path.join(outdir, "pair_a.y4m"))[0].astype(np.int16)
+        y4m_diff = int(np.abs(y4m - y4m_a).max())
+        png_diff = None
+        if flag == "--mesh_data":
+            png_diff = int(np.abs(_read_frames(os.path.join(outdir, "pair_a_frames"), CLI_FRAMES) - frames_a).max())
+        log("mesh_cli", flag=flag, world=1, backend="nccl", frames=int(done[2]), swap_s=done[3],
+            frames_per_s=done[4], peak_gib=peak[1] if peak else "not read", wall_s=f"{wall:.3f}",
+            y4m_max_level_diff=y4m_diff, png_max_level_diff=png_diff, **launches)
+        missing = [k for k in SWAP_KERNELS if int(launches.get(k, 0)) == 0]
+        if missing:
+            raise SystemExit(f"chip_smoke: torchrun {flag} 1 launched no {missing}")
+        if y4m_diff > 2 or (png_diff is not None and png_diff > 1):
+            raise SystemExit(f"chip_smoke: torchrun {flag} 1's frames are {y4m_diff} / {png_diff} levels from run A's")
+
+
+EVAL_PAIRS = 16  # evaluate_all: 16 render_face images in each directory
+EVAL_CHECK = 4  # images whose features are held card against CPU
+
+
+def _seeded_eval(module, generator, gain: float = 1.0):
+    """An eval net's seeded weights in place: conv / dense kernels N(0,
+    gain / fan_in) (gain 2, He-normal, keeps a deep plain ReLU chain such as
+    InceptionV3 at activations of order 1; the residual nets take 1, since
+    each residual add grows them), biases N(0, 0.02^2), frozen-BN scales 1 +
+    N(0, 0.05^2), biases and means N(0, 0.05^2), variances U(0.5, 1.5);
+    returns the module."""
+    import torch
+
+    from vface_torch.models.arcface import _FrozenBNParams
+    from vface_torch.models.layers import Conv, Dense
+
+    with torch.no_grad():
+        for mod in module.modules():
+            rn = lambda t: torch.randn(t.shape, generator=generator, device=t.device)
+            if isinstance(mod, (Conv, Dense)):
+                mod.weight.copy_(rn(mod.weight) * math.sqrt(gain / math.prod(mod.weight.shape[1:])))
+                if mod.bias is not None:
+                    mod.bias.copy_(rn(mod.bias) * 0.02)
+            elif isinstance(mod, _FrozenBNParams):
+                mod.weight.copy_(1.0 + 0.05 * rn(mod.weight))
+                mod.bias.copy_(0.05 * rn(mod.bias))
+                mod.mean.copy_(0.05 * rn(mod.mean))
+                mod.var.copy_(0.5 + torch.rand(mod.var.shape, generator=generator, device=mod.var.device))
+    return module.eval()
+
+
+def phase_eval(seed: int, base: dict) -> None:
+    """Phase eval: ``evaluate_all`` at full size on the card with seeded eval
+    nets (InceptionV3's pool3 with He kernels, IR-SE-50, Hopenet and the 3DMM
+    regressor with LeCun ones; perturbed frozen-BN statistics) over 16 ``render_face``
+    512^2 images in each of the results, dataset, source and target
+    directories (``_load_dir`` at 256^2; Inception at 299^2, the ResNet-50
+    nets at 224^2): seconds per metric and peak memory. The features of 4
+    images from each net, card against CPU, within 1e-4 of each output's
+    peak, with TF32 switched on around the card's call (the eval entry
+    points turn it off for their own work). ``evaluate_temporal`` on the
+    sched phase's sequential 12-frame 720p swap at 360x640 with RAFT's flow
+    (20 iterations) between its frames."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vface_torch.eval.expression import FaceReconNet, face_coeffs
+    from vface_torch.eval.fid import InceptionV3Pool3, inception_features
+    from vface_torch.eval.harness import evaluate_all
+    from vface_torch.eval.pose import Hopenet, head_pose
+    from vface_torch.eval.temporal import evaluate_temporal
+    from vface_torch.io.image import write_png
+    from vface_torch.models.arcface import IRSE50
+    from vface_torch.models.raft import RAFT, RAFTConfig
+    from vface_torch.ops.warp import resize_bilinear
+    from vface_torch.preprocess.synthetic_faces import render_face
+
+    # the package exports the function id_retrieval under the module's name, as the JAX package does
+    embed_faces = importlib.import_module("vface_torch.eval.id_retrieval").embed_faces
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(seed + 60)
+    nets = {}
+    for name, cls in (("inception", InceptionV3Pool3), ("arcface", IRSE50), ("hopenet", Hopenet),
+                      ("facerecon", FaceReconNet)):
+        with torch.device("cuda"):
+            nets[name] = _seeded_eval(cls(), g, gain=2.0 if name == "inception" else 1.0)
+    root = tempfile.mkdtemp(prefix="vface_eval_")
+    try:
+        dirs = {}
+        for i, key in enumerate(("results", "dataset", "sources", "targets")):
+            dirs[key] = os.path.join(root, key)
+            os.makedirs(dirs[key])
+            rng = np.random.default_rng(seed + 70 + i)
+            for j in range(EVAL_PAIRS):
+                img = render_face(rng, 512)[0]
+                write_png(os.path.join(dirs[key], f"{j:03d}.png"), (np.clip(img, 0, 1) * 255).astype(np.uint8))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t0 = time.perf_counter()
+        report = evaluate_all(dirs["results"], dirs["dataset"], dirs["sources"], dirs["targets"], nets,
+                              out_path=os.path.join(root, "report.jsonl"), device="cuda", timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # card against CPU on 4 images per net, TF32 on around the card's calls
+        from vface_torch.eval.harness import _load_dir
+
+        imgs = _load_dir(dirs["results"], limit=EVAL_CHECK)
+        cpu = {k: _seeded_copy(v) for k, v in nets.items()}
+        fns = {"inception": inception_features, "arcface": embed_faces, "hopenet": head_pose,
+               "facerecon": face_coeffs}
+        errs = {}
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        for name, fn in fns.items():
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                got = fn(nets[name], imgs)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+            want = fn(cpu[name], imgs)
+            errs[name] = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        # the temporal metrics of the sched phase's sequential swap
+        frames = torch.from_numpy(base["u8"]).cuda().float() / 255.0
+        small = resize_bilinear(frames, 360, 640)
+        with torch.device("cuda"):
+            raft = RAFT(RAFTConfig(iters=20)).eval()
+        raft.load_state_dict(base["aux"]["raft"])
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            x = small * 2 - 1
+            flow = torch.cat([raft(x[i + 1:i + 6], x[i:min(i + 5, x.shape[0] - 1)])
+                              for i in range(0, x.shape[0] - 1, 5)])
+        temporal = evaluate_temporal(nets["arcface"], small, flow.cpu().numpy(), device="cuda")
+        torch.cuda.synchronize()
+        temporal_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("eval", images=EVAL_PAIRS, **{k: f"{v:.6g}" for k, v in report.items()},
+        **{f"{k}_s": f"{v:.3f}" for k, v in timings.items()}, wall_s=f"{wall:.3f}", peak_gib=f"{peak:.2f}")
+    log("eval_card_vs_cpu", images=EVAL_CHECK, tol=1e-4, tf32_on_around_the_call=True,
+        **{f"{k}_max_rel": f"{v:.3e}" for k, v in errs.items()})
+    log("eval_temporal", frames=int(small.shape[0]), hw="360x640", raft_iters=20, seconds=f"{temporal_s:.3f}",
+        **{k: f"{v:.6g}" for k, v in temporal.items()}, phase_s=f"{time.perf_counter() - t_phase:.3f}")
+    want_keys = {"fid", "id_top1", "id_top5", "id_mean_cosine", "pose_l2", "expression_l2"}
+    finite = all(math.isfinite(v) for v in (*report.values(), *temporal.values()))
+    if set(report) != want_keys or not finite or set(temporal) != {"tl_id", "tg_id", "warp_error"}:
+        raise SystemExit(f"chip_smoke: evaluate_all / evaluate_temporal gave {report} / {temporal}")
+    bad = [k for k, v in errs.items() if not v <= 1e-4]
+    if bad:
+        raise SystemExit(f"chip_smoke: the eval features of {bad} on the card are over 1e-4 from the CPU's: {errs}")
+
+
+def _seeded_copy(net):
+    """A CPU copy of a seeded eval net."""
+    import copy
+
+    return copy.deepcopy(net).cpu().eval()
+
+
 def kernels_line(rows: dict, launches: dict) -> dict:
     """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
 
@@ -3785,6 +4403,7 @@ def main() -> int:
     if args.previous:
         PREVIOUS.update(read_previous(args.previous))
     t_script = time.perf_counter()
+    clock = lambda after: log("clock", after=after, t_s=f"{time.perf_counter() - t_script:.1f}")
 
     import torch
 
@@ -3793,6 +4412,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     phase_build()
+    clock("build")
     rows = phase_kernels(batch=2 * FRAMES, vae_batch=FRAMES)
     rows.update(phase_train_kernels())
     rows.update(phase_f32_kernels())
@@ -3804,28 +4424,38 @@ def main() -> int:
     for name, more in phase_image_kernels().items():  # and at the image test bench's
         rows[name] += more
     bench_launches = phase_bench(args.bench_reps)
+    clock("kernels")
     model = build_model(SEED)
     launches = phase_swap(model, FRAMES, DDIM_STEPS, INVERSION_STEPS, SEED)
     phase_reference(model, FRAMES, SEED)
     phase_small_reference(SEED)
     phase_small_video_reference(SEED)
     ops_launches = phase_ops(model, FRAMES, SEED)
+    clock("swap_references_ops")
     if args.profile:
         phase_profile(model, FRAMES, SEED, args.profile)
     del model  # serving's swap_window needs no conditioner; the video path and training do
     torch.cuda.empty_cache()
     f32_launches = phase_fp32_unet(smi, FRAMES, SEED)
+    clock("fp32_unet")
     model = build_model(SEED, conditioner=True)
     phase_video(model, SEED)
+    clock("video")
     torch.cuda.empty_cache()
     base = phase_sched(model, SEED)
+    clock("sched")
     torch.cuda.empty_cache()
     phase_opts(model, SEED, base)
+    clock("opts")
     torch.cuda.empty_cache()
     phase_multiface(model, SEED, base)
+    clock("multiface")
+    phase_eval(SEED, base)
+    clock("eval")
     del base
     torch.cuda.empty_cache()
     phase_image(model, SEED)
+    clock("image")
     torch.cuda.empty_cache()
     train_launches = phase_train(model, SEED)
     phase_train_reference(model, SEED)
@@ -3833,13 +4463,21 @@ def main() -> int:
         phase_profile_train(model, SEED, args.profile_train)
     phase_train_terms(model, SEED)
     phase_vae_train(model, SEED)
+    clock("train_phases")
     del model  # the training CLI, the fp32 gate and the video CLI build their own models
     torch.cuda.empty_cache()
-    phase_train_cli(SEED)
+    phase_train_cli(SEED, phase_mesh_train(SEED))  # the CLI resumes the ranks' last
+    clock("mesh_train_train_cli")
     phase_racecheck()
+    clock("racecheck")
     phase_sched_gate(SEED)
+    clock("sched_gate")
+    phase_mesh_gate(SEED)
+    clock("mesh_gate")
     phase_cli(SEED)
+    clock("cli")
     phase_image_cli(SEED)
+    clock("image_cli")
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     launches.update({k: ops_launches[k] for k in OPS_KERNELS})
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})

@@ -157,9 +157,14 @@ def test_two_chunk_replace_matches_jax(mode):
 
 
 def test_frame_sharded_form_is_refused():
+    """The frame-sharded ``flow_axis`` form is ported (``tests/test_torch_mesh.py``);
+    what stays refused, as in JAX, is its 2-chunk donor copy, which would discard the blend."""
+    from vface_torch.parallel.mesh import bind_axis, single_device_mesh
+
     q = t(_rand(2 * F, 64, 32, seed=40))
-    with pytest.raises(ValueError, match="flow_axis"):
-        O.fuse_qkv(q, q, q, O.FusionConfig("flow_fix", flow_axis="data"), chunks=2)
+    flow = t(_rand(F, 8, 8, 2, seed=46))
+    with bind_axis("data", single_device_mesh("cpu")), pytest.raises(ValueError, match="flow_axis"):
+        O.fuse_qkv(q, q, q, O.FusionConfig("flow_fix", flow_tokens=64, flow_axis="data"), chunks=2, flow=flow)
 
 
 def test_cross_window_carry_is_refused_by_the_unet():

@@ -183,9 +183,15 @@ def test_finished_videos_are_skipped(runs, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--mesh_data", "2"], ["--mesh_frames", "2"]])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli.main(["--config", str(tmp_path / "none.yaml"), "--tiny", *flag])
+def test_unported_flags_raise(tmp_path, flag, monkeypatch, capsys):
+    """The mesh flags are ported (``tests/test_torch_mesh_cli.py``); a mesh of 2
+    in a process started without torchrun is refused with exit code 2, naming
+    torchrun, before any work."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("VFACE_PLATFORM", "cpu")
+    assert port_cli.main(["--config", str(tmp_path / "none.yaml"), "--tiny", *flag]) == 2
+    assert "torchrun --nproc_per_node 2" in capsys.readouterr().err
 
 
 def test_cli_runs_on_cuda_unless_asked_for_the_cpu(tmp_path, monkeypatch):

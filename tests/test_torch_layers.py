@@ -415,7 +415,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'vface_torch.scripts.train', 'vface_torch.utils.ema', 'vface_torch.utils.logging',\n"
         "        'vface_torch.utils.profiling', 'vface_torch.pipelines.image_swap', 'vface_torch.samplers.plms',\n"
         "        'vface_torch.samplers.guided', 'vface_torch.utils.watermark',\n"
-        "        'vface_torch.scripts.inference_test_bench', 'vface_torch.scripts.one_inference'} <= set(mods), mods\n"
+        "        'vface_torch.scripts.inference_test_bench', 'vface_torch.scripts.one_inference',\n"
+        "        'vface_torch.parallel.mesh', 'vface_torch.parallel.frame_sharded', 'vface_torch.eval.backbones',\n"
+        "        'vface_torch.eval.fid', 'vface_torch.eval.id_retrieval', 'vface_torch.eval.pose',\n"
+        "        'vface_torch.eval.expression', 'vface_torch.eval.temporal', 'vface_torch.eval.bfm',\n"
+        "        'vface_torch.eval.harness'} <= set(mods), mods\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'vface_tpu') and sys.modules[k] is not None\n"
         "               for k in list(sys.modules))\n"
         "print(len(mods))\n"

@@ -2,8 +2,9 @@
 
 Port of ``vface_tpu/ops/attention.py``: ``fuse_qkv`` in every mode (replace,
 temporal, adain, mix, fft, flow_fix, fft_vfixed), with 2 or 3 chunks, the
-bystander rows, and the cross-window FGATS carry in (``prev_qk``/``flow0``)
-and out. The frame-sharded ``flow_axis`` form is multi-GPU work and raises.
+bystander rows, the cross-window FGATS carry in (``prev_qk``/``flow0``)
+and out, and the frame-sharded ``flow_axis`` form (frames sharded over ranks,
+the blend's previous frame for a shard's first from the left neighbour).
 
 Batch layout: frames are the batch dim; with guidance the leading axis is
 ``chunks * F`` in the order [uncond, cond(swap), recon]. The fusion donor is
@@ -67,7 +68,11 @@ class FusionConfig:
     # trailing batch rows that neither give nor take fusion (a pipelined pack's
     # inversion rows riding the same UNet eval)
     bystander: int = 0
-    # the frame-sharded FGATS form (multi-GPU); not ported, raises when set
+    # the frame-sharded FGATS form: the name of the mesh axis (parallel/mesh.py
+    # resolves it to its group) that shards the frames; flow and pair_mask
+    # then take the left-padded per-frame layout (f_local, Hq, Wq, 2) /
+    # (f_local,), slot i = pair (prev, i), global frame 0's mask entry 0. No
+    # cross-window carry in this form.
     flow_axis: Optional[str] = None
 
     @property
@@ -103,8 +108,6 @@ def fuse_qkv(
     """
     if not cfg.active:
         return q, k, v, None
-    if cfg.flow_axis is not None:
-        raise ValueError("fuse_qkv: the frame-sharded flow_axis form is not ported")
     if cfg.bystander:
         by = cfg.bystander
         inner = dataclasses.replace(cfg, bystander=0)
@@ -142,6 +145,17 @@ def fuse_qkv(
             # FGATS on the swap chunk (index 1): one channel-concatenated warp of q and k
             q_sw = qn[1].reshape(f, side, side, d)
             k_sw = kn[1].reshape(f, side, side, d)
+            if cfg.flow_axis is not None:
+                # frame-sharded: the halo blend on the left-padded layout, no
+                # carry; the 2-chunk donor copy below would discard the blend
+                if chunks == 2 and cfg.two_chunk_replace:
+                    raise ValueError("flow_axis (frame-sharded FGATS) requires the recon-free 2-chunk semantics "
+                                     "(two_chunk_replace=False) or 3 chunks")
+                qk = W.align_by_flow_halo(torch.cat([q_sw, k_sw], dim=-1), flow, cfg.flow_alpha, pair_mask,
+                                          cfg.flow_axis)
+                qn = torch.stack([qn[0], qk[..., :d].reshape(f, n, d), *qn[2:]])
+                kn = torch.stack([kn[0], qk[..., d:].reshape(f, n, d), *kn[2:]])
+                return qn.reshape(b, n, d).to(q.dtype), kn.reshape(b, n, d).to(k.dtype), v, None
             # the carry out: the last frame after FSAI, before the blend (the
             # blend warps the original previous frame, not its blended one)
             carry = {"q": q_sw[-1:].reshape(1, n, d), "k": k_sw[-1:].reshape(1, n, d)}

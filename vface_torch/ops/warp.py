@@ -9,8 +9,8 @@ and ``warp_from_video``. Flow is in pixel units with channels (dx, dy);
 
 ``grid_sample`` keeps one path, the four row gathers: JAX's small-C form (one
 gather over an edge-replicated 4-tap channel stack) is a TPU gather trick
-with bit-identical taps. Not ported: the frame-sharded ``align_by_flow_halo``
-(multi-GPU work).
+with bit-identical taps. ``align_by_flow_halo`` is the blend on frames
+sharded over ranks (the 1-frame halo from the left neighbour).
 """
 
 from __future__ import annotations
@@ -114,6 +114,36 @@ def align_by_flow(x: torch.Tensor, flow: torch.Tensor, alpha: float = 0.8, prev0
     else:
         first = x[:1]
     return torch.cat([first, blended.to(x.dtype)], dim=0)
+
+
+def align_by_flow_halo(x: torch.Tensor, flow: torch.Tensor, alpha: float = 0.8, pair_mask: torch.Tensor = None,
+                       axis_name="data") -> torch.Tensor:
+    """:func:`align_by_flow` on a frame-sharded batch: this rank's f_local frames.
+
+    x (f_local, H, W, C); flow (f_local, H, W, 2) in the LEFT-PADDED layout:
+    flow[i] maps local frame i's pixels back to the previous global frame, so
+    the shard-boundary pair rides slot 0 (global frame 0's slot is dead);
+    pair_mask (f_local,) per frame in the same layout, whose global frame 0
+    entry the caller sets to 0. The previous frame of local frame 0 is the
+    left neighbour's last (:func:`vface_torch.parallel.mesh.frame_halo_exchange`).
+
+    out[i] = m[i] * (alpha * x[i] + (1 - alpha) * warp(prev(i), flow[i])) + (1 - m[i]) * x[i].
+    Without a mask, global frame 0 alone passes through unchanged.
+    """
+    from vface_torch.parallel.mesh import Mesh, axis_mesh, frame_halo_exchange
+
+    mesh = axis_name if isinstance(axis_name, Mesh) else axis_mesh(axis_name)
+    halo = frame_halo_exchange(x, mesh)
+    prev = torch.cat([halo[None].to(x.dtype), x[:-1]], dim=0)
+    blended = alpha * x + (1.0 - alpha) * warp_by_flow(prev, flow)
+    if pair_mask is None:
+        m = torch.ones((x.shape[0],), dtype=blended.dtype, device=x.device)
+        if mesh.rank == 0:
+            m[0] = 0.0
+    else:
+        m = pair_mask.to(blended.dtype)
+    m = m[:, None, None, None]
+    return (m * blended + (1.0 - m) * x).to(x.dtype)
 
 
 def align_by_flow_chain(x: torch.Tensor, flow: torch.Tensor, alpha: float = 0.5) -> torch.Tensor:

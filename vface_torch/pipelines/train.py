@@ -20,7 +20,13 @@ Port of ``vface_tpu/pipelines/train.py`` (``TrainConfig``, ``trainable_mask``,
   UNet or only its attn2/norm2 parameters (``partial_unet``).
 
 Randomness comes from an explicit ``torch.Generator`` on the model's device;
-``fixed`` overrides the draws (tests share them with the JAX package). Memory
+``fixed`` overrides the draws (tests share them with the JAX package).
+Data-parallel over a :mod:`vface_torch.parallel.mesh` mesh (``mesh=``), each
+rank holds its rows of the global batch: it makes every draw at the global
+batch's shape from the shared seeded generator and takes its rows, gathers
+the reference batch for the flip, and averages the gradients over the ranks
+before the optimizer step, whose AdamW moments are sharded (ZeRO-1), so that
+the n-rank step is the one-rank step on the global batch. Memory
 for back-propagating through the sampler comes from the UNet's ``use_remat``.
 ``loss_parts`` "eps" / "recon" compute one part's terms while making every
 draw of the fused loss, so that from one generator state the two parts'
@@ -38,6 +44,7 @@ from vface_torch.models.arcface import arcface_preprocess, safe_l2_normalize
 from vface_torch.models.clip import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, clip_preprocess
 from vface_torch.ops.pooling import adaptive_avg_pool
 from vface_torch.ops.warp import resize_bilinear
+from vface_torch.parallel.mesh import all_gather_rows, all_reduce_grads, shard_rows, single_device_mesh, zero1
 from vface_torch.samplers.ddim import ddim_sample_train
 from vface_torch.utils.lr_schedules import lambda_linear_schedule
 
@@ -88,16 +95,18 @@ def trainable_mask(model, partial_unet: bool = False) -> dict:
     return mask
 
 
-def make_optimizer(cfg: TrainConfig, model, partial_unet: bool = False):
+def make_optimizer(cfg: TrainConfig, model, partial_unet: bool = False, mesh=None):
     """AdamW (betas 0.9/0.999, eps 1e-8, ``cfg.weight_decay``) over the
     trainable set (:func:`trainable_mask`), with ``LambdaLR`` over the
     reference's warm-up multiplier. Returns ``(optimizer, scheduler)``; step
     the scheduler after each optimizer step, so that the first step runs at
-    multiplier f(0) as optax's count 0 does."""
+    multiplier f(0) as optax's count 0 does. On a mesh of more than one rank
+    the AdamW moments are sharded over the ranks (ZeRO-1,
+    :func:`vface_torch.parallel.mesh.zero1`)."""
     trainable_mask(model, partial_unet)
     params = [p for p in model.parameters() if p.requires_grad]
-    opt = torch.optim.AdamW(params, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+    opt = zero1(params, mesh if mesh is not None else single_device_mesh(model.device), lr=cfg.learning_rate,
+                betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda_linear_schedule(warm_up_steps=cfg.warmup_steps))
     return opt, sched
 
@@ -116,7 +125,7 @@ def vlb_weights(model) -> torch.Tensor:
 
 def p_losses_face(model, batch: dict, generator: Optional[torch.Generator] = None,
                   cfg: TrainConfig = TrainConfig(), fixed: Optional[dict] = None,
-                  perceptual_fn: Optional[Callable] = None):
+                  perceptual_fn: Optional[Callable] = None, mesh=None):
     """The REFace face loss; returns ``(loss, logs)``. ``batch`` holds tensors on
     the model's device:
 
@@ -131,34 +140,43 @@ def p_losses_face(model, batch: dict, generator: Optional[torch.Generator] = Non
     t, noise, whatever ``cfg.loss_parts`` is. ``perceptual_fn(a, b) -> (B,)``
     (LPIPS, :func:`vface_torch.eval.lpips.make_lpips_fn`) adds the perceptual
     term at ``cfg.lpips_loss_weight``.
+
+    ``batch`` is this rank's rows of the global batch over the ranks of
+    ``mesh`` (default: one rank, the whole batch): every draw is made at the
+    global batch's shape and this rank's rows taken, ``fixed`` holds the
+    global batch's draws, and the reference batch is gathered for the flip.
+    The loss is this rank's mean; the mean over the ranks is the global
+    batch's.
     """
-    fixed = fixed or {}
     gt = batch["gt_image"]
     b, hh, ww = gt.shape[:3]
     dev = gt.device
+    mesh = mesh if mesh is not None else single_device_mesh(dev)
+    rows = shard_rows(mesh, b * mesh.size)
+    fixed = {k: v[rows] for k, v in (fixed or {}).items()}
     eps_part = cfg.loss_parts in ("all", "eps")
     recon_part = cfg.reconstruct and cfg.loss_parts in ("all", "recon")
+    # a draw at the global batch's shape, this rank's rows
+    glob = lambda fn, shape, *a, **kw: fn(*a, (shape[0] * mesh.size,) + tuple(shape[1:]), generator=generator,
+                                            device=dev, **kw)[rows]
 
     # latents: sampled posteriors, as the reference trains
-    if "enc_eps0" in fixed:
-        z0 = model.encode_first_stage_given_eps(gt, fixed["enc_eps0"])
-        z_inpaint = model.encode_first_stage_given_eps(batch["inpaint"], fixed["enc_eps1"])
-    else:
-        z0 = model.encode_first_stage_sample(gt, generator)
-        z_inpaint = model.encode_first_stage_sample(batch["inpaint"], generator)
+    posts = [model.vae.encode(x) for x in (gt, batch["inpaint"])]
+    z0, z_inpaint = [(p.mean + p.std * (fixed[k] if k in fixed else glob(torch.randn, p.mean.shape, dtype=p.mean.dtype)))
+                     * model.cfg.scale_factor for p, k in zip(posts, ("enc_eps0", "enc_eps1"))]
     hl = z0.shape[1]
     mask_lat = resize_bilinear(batch["mask"], hl, hl, antialias=False)
 
     # the draws of the epsilon loss, made for either part
     drop = fixed.get("drop")
     if drop is None:
-        drop = torch.rand((b, 1, 1), generator=generator, device=dev) < cfg.u_cond_percent
+        drop = glob(torch.rand, (b, 1, 1)) < cfg.u_cond_percent
     t = fixed.get("t")
     if t is None:
-        t = torch.randint(0, model.schedule.num_timesteps, (b,), generator=generator, device=dev)
+        t = glob(torch.randint, (b,), 0, model.schedule.num_timesteps)
     noise = fixed.get("noise")
     if noise is None:
-        noise = torch.randn(z0.shape, generator=generator, device=dev)
+        noise = glob(torch.randn, z0.shape)
 
     # the GT image feeds the conditioner's target branch
     tar_clip = clip_preprocess((gt + 1.0) * 0.5, size=model.cfg.cond.clip.image_size)
@@ -194,8 +212,9 @@ def p_losses_face(model, batch: dict, generator: Optional[torch.Generator] = Non
         # the eps loss's noise draw again, re-noised to T-1
         z_hi = model.q_sample(z0, torch.full((b,), t_max, dtype=torch.long, device=dev), noise)
         # the flipped reference batch, without dropout, un-flipped landmarks and target
-        ref_clip_f = torch.flip(batch["ref_clip"], dims=[0])
-        ref_face01_f = torch.flip(batch["ref_face01"], dims=[0]) if "ref_face01" in batch else None
+        flip = lambda x: torch.flip(all_gather_rows(x, mesh), dims=[0])[rows]  # the global batch's, this rank's rows
+        ref_clip_f = flip(batch["ref_clip"])
+        ref_face01_f = flip(batch["ref_face01"]) if "ref_face01" in batch else None
         cond_rec = model.conditioning(ref_clip_f, batch.get("landmarks"), tar_clip, ref_face01_f)
         _, inters = ddim_sample_train(model, z_hi, t_max, cfg.reconstruct_steps, cond_rec, z_inpaint, mask_lat)
         k = inters.shape[0]
@@ -241,15 +260,19 @@ def _backward(loss: torch.Tensor) -> None:
 
 
 def make_train_step(model, optimizer, scheduler=None, cfg: TrainConfig = TrainConfig(),
-                    perceptual_fn: Optional[Callable] = None):
+                    perceptual_fn: Optional[Callable] = None, mesh=None):
     """Returns ``train_step(batch, generator) -> logs``: the loss and its
     gradient, one optimizer step, one scheduler step; the logs are detached
-    tensors (no host sync)."""
+    tensors (no host sync), this rank's. With ``mesh`` the batch is this
+    rank's rows (:func:`p_losses_face`) and the gradients are averaged over
+    the ranks before the optimizer step."""
+    mesh = mesh if mesh is not None else single_device_mesh(model.device)
 
     def train_step(batch: dict, generator: torch.Generator) -> dict:
         optimizer.zero_grad(set_to_none=True)
-        loss, logs = p_losses_face(model, batch, generator, cfg, perceptual_fn=perceptual_fn)
+        loss, logs = p_losses_face(model, batch, generator, cfg, perceptual_fn=perceptual_fn, mesh=mesh)
         _backward(loss)
+        all_reduce_grads(list(model.parameters()), mesh)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -259,25 +282,29 @@ def make_train_step(model, optimizer, scheduler=None, cfg: TrainConfig = TrainCo
 
 
 def make_split_train_step(model, optimizer, scheduler=None, cfg: TrainConfig = TrainConfig(),
-                          perceptual_fn: Optional[Callable] = None):
+                          perceptual_fn: Optional[Callable] = None, mesh=None):
     """:func:`make_train_step`'s step as two backward passes, the eps / VLB /
     landmark part and the reconstruction / ID / LPIPS part, whose gradients
     add up in ``.grad`` before the one optimizer step. Each part starts from
     the generator state the step was given, so both make the fused loss's
     draws and their gradients sum to the fused gradient; the generator ends
-    where the fused step leaves it. The logs are both parts', ``loss`` their sum."""
+    where the fused step leaves it. The logs are both parts', ``loss`` their
+    sum. With ``mesh`` the summed gradients are averaged over the ranks once,
+    before the optimizer step."""
     cfg_eps = dataclasses.replace(cfg, loss_parts="eps")
     cfg_rec = dataclasses.replace(cfg, loss_parts="recon")
+    mesh = mesh if mesh is not None else single_device_mesh(model.device)
 
     def train_step(batch: dict, generator: Optional[torch.Generator]) -> dict:
         optimizer.zero_grad(set_to_none=True)
         state = None if generator is None else generator.get_state()
-        loss_a, logs_a = p_losses_face(model, batch, generator, cfg_eps, perceptual_fn=perceptual_fn)
+        loss_a, logs_a = p_losses_face(model, batch, generator, cfg_eps, perceptual_fn=perceptual_fn, mesh=mesh)
         _backward(loss_a)
         if generator is not None:
             generator.set_state(state)
-        loss_b, logs_b = p_losses_face(model, batch, generator, cfg_rec, perceptual_fn=perceptual_fn)
+        loss_b, logs_b = p_losses_face(model, batch, generator, cfg_rec, perceptual_fn=perceptual_fn, mesh=mesh)
         _backward(loss_b)
+        all_reduce_grads(list(model.parameters()), mesh)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

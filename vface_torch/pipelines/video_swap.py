@@ -1,6 +1,6 @@
 """The VFace video face swap: align, parse, flow, conditionings, windows, paste-back.
 
-Port of ``vface_tpu/pipelines/video_swap.py``'s single-device paths:
+Port of ``vface_tpu/pipelines/video_swap.py``:
 
 * :class:`SwapOptions`, the operating point;
 * :class:`VideoSwapPipeline`, the diffusion model with the aux nets (BiSeNet,
@@ -10,7 +10,12 @@ Port of ``vface_tpu/pipelines/video_swap.py``'s single-device paths:
   ``compute_flow_superpack``, ``window_conditionings``, ``swap_window`` (the
   window core: ``_swap_window_impl``'s semantics), ``swap_window_pasted``
   with ``decode_with_background``, and ``swap_video_frames``, the window loop
-  with its schedulers.
+  with its schedulers;
+* the multi-GPU paths over a :mod:`vface_torch.parallel.mesh` mesh (one
+  process per rank): ``swap_windows_batched`` and
+  ``swap_video_frames_sharded`` deal whole windows to the ranks;
+  ``swap_video_frames_frame_sharded`` shards each window's frames, the FGATS
+  blend crossing ranks through the 1-frame halo.
 
 The window core: VAE encode of the target crops and of the masked inpaint
 image; DDIM inversion (``skip_last=1`` in the recon-free mode: only the t=961
@@ -787,6 +792,175 @@ class VideoSwapPipeline:
             st, prev_quad = finish_prep(upload_and_begin(s0, min(s0 + w, n)), prev_quad)
             emit(s0, self._swap_pack(st["fr"], st["coeffs"], st["p"], src, timings))
             clock.reset()
+
+    # ------------------------------------------------------------ multi-GPU
+    def _gather_round(self, mesh, mine: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+        """One round of the deal: every rank's window (``mine``, or zeros like
+        ``like`` where the rank has none this round) gathered in rank order."""
+        from vface_torch.parallel.mesh import all_gather_rows
+
+        part = torch.zeros_like(like) if mine is None else mine.to(like.dtype)
+        if mine is not None and mine.shape[0] < like.shape[0]:  # a short window, padded to the round's width
+            part = torch.cat([part, torch.zeros_like(like[: like.shape[0] - mine.shape[0]])])
+        return all_gather_rows(part[None], mesh)
+
+    @torch.inference_mode()
+    def swap_windows_batched(self, crops_w, keep_w, cond_w, uncond_w, inv_cond_w, cond_src_w, src_crop_w,
+                             src_keep_w, flow_w, mesh=None) -> torch.Tensor:
+        """W independent windows: crops_w (W, F, S, S, 3) in [-1, 1], keep_w (W,
+        F, S, S, 1), the conditionings (W, F, 1, D), src_crop_w (W, 1, S, S,
+        3), src_keep_w (W, 1, S, S, 1), flow_w (W, F-1, S, S, 2) -> swapped
+        crops (W, F, S, S, 3) in [0, 1], on every rank. The windows are dealt
+        over the ranks of ``mesh`` in contiguous blocks (no padding) and
+        gathered back; each is :meth:`swap_window` (windows carry no state
+        across each other). Without a mesh, one rank runs them all."""
+        from vface_torch.parallel.mesh import all_gather_rows
+
+        n_w = crops_w.shape[0]
+        size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+        per = -(-n_w // size)
+        mine = range(rank * per, min((rank + 1) * per, n_w))
+        outs = [self.swap_window(crops_w[i], keep_w[i], cond_w[i], uncond_w[i], inv_cond_w[i], cond_src_w[i],
+                                 src_crop_w[i], src_keep_w[i], flow_w[i]) for i in mine]
+        block = torch.zeros((per,) + tuple(crops_w.shape[1:4]) + (3,), dtype=torch.float32, device=self.device)
+        if outs:
+            block[: len(outs)] = torch.stack(outs)
+        return block[:n_w] if size == 1 else all_gather_rows(block, mesh)[:n_w]
+
+    @torch.inference_mode()
+    def swap_video_frames_sharded(self, frames01, source01, mesh, remove_classes=None, manifest=None,
+                                  window_sink=None, frame_keep=None, source_keep=None) -> Optional[torch.Tensor]:
+        """The multi-GPU throughput path: :meth:`swap_video_frames`'s windows
+        dealt over the ranks of ``mesh`` (window i to rank i % size, the
+        trailing short window too, which takes the single-window path as in
+        the loop). Every rank aligns and parses the whole clip, as the loop
+        does, so that the crops and masks are the loop's; each then runs the
+        flow, conditionings, window, background trick and paste-back of its
+        own windows. The pasted windows are gathered to rank 0 round by round;
+        rank 0 hands them to ``window_sink`` and marks them in ``manifest``
+        (in window order, on its worker thread, as the loop does; like the JAX
+        package's sharded path, done windows are recomputed, not read back).
+        Rank 0 returns the frames (N, H, W, 3) float32 in [0, 1] on the CPU,
+        the sequential loop's; the other ranks return None. ``frame_keep`` /
+        ``source_keep`` are :meth:`swap_video_frames`'s. The window is
+        ``opts.window`` (``batch_windows`` is not read, as in the JAX package)."""
+        opts = self.opts
+        if self.model.conditioner is None:
+            raise ValueError("VideoSwapPipeline: the video path needs a model built with conditioner=True")
+        remove_classes = remove_classes or TRAIN_REMOVE
+        clock = StageClock(None, self.device)
+        frames01 = self._on(frames01)
+        n = int(frames01.shape[0])
+        w = opts.window
+        crops01, inv_coeffs = self.align_crops(frames01)
+        if frame_keep is not None:
+            keep_mask = self._coerce_keep(frame_keep, crops01.shape).to(self.device)
+        else:
+            _, keep_mask = inpaint_inputs(crops01 * 2 - 1, self.parse_masks(crops01), remove_classes)
+        src = self._source_inputs(source01, source_keep, remove_classes, clock)
+        starts = list(range(0, n, w))
+        lead = mesh.rank == 0
+        persist = _WindowPersist(manifest, window_sink) if lead and manifest is not None and window_sink else None
+        out = []
+        try:
+            for r0 in range(0, len(starts), mesh.size):
+                mine = None
+                i = r0 + mesh.rank
+                if i < len(starts):
+                    sl = slice(starts[i], min(starts[i] + w, n))
+                    p = self._pack_inputs(crops01[sl], keep_mask[sl], src, clock)
+                    p["pm"] = None  # one window, whatever batch_windows says
+                    mine = self._swap_pack(frames01[sl], inv_coeffs[sl], p, src, None).float()
+                got = self._gather_round(mesh, mine, frames01[:w])
+                if not lead:
+                    continue
+                for j in range(min(mesh.size, len(starts) - r0)):
+                    s0 = starts[r0 + j]
+                    pasted = got[j][: min(w, n - s0)]
+                    out.append(pasted.cpu() if persist is None else persist.submit(s0, pasted))
+        finally:
+            if persist is not None:
+                persist.shutdown()
+        if persist is not None:
+            persist.raise_error()
+        return torch.cat(out, dim=0) if lead else None
+
+    def _fs_post(self, z0, frames01_w, inv_coeffs_w, keep_mask) -> torch.Tensor:
+        """The frame-sharded epilogue on a rank's frames: decode, the background
+        trick and the paste-back (all frame-local)."""
+        return paste_back(self.decode_with_background(self._on(frames01_w) * 2.0 - 1.0), self._decode01(z0),
+                          self._on(inv_coeffs_w), 1.0 - keep_mask)
+
+    @torch.inference_mode()
+    def swap_video_frames_frame_sharded(self, frames01, source01, mesh, remove_classes=None,
+                                        axis_name: str = "data") -> Optional[torch.Tensor]:
+        """The multi-GPU latency path: windows one at a time, each window's F
+        frames sharded over the ranks of ``mesh`` (F / size a rank), the FGATS
+        blend crossing the shard boundaries through the 1-frame halo
+        (:mod:`vface_torch.parallel.frame_sharded`). Use it when cards >=
+        windows; the throughput path for long clips is
+        :meth:`swap_video_frames_sharded`.
+
+        Every rank aligns and parses the whole clip and computes each window's
+        flow and conditionings (as the loop does, in the loop's batches); the
+        encode, inversion, sampling, decode and paste-back run on the rank's
+        own frames, which are gathered to rank 0. A trailing short window runs
+        the single-window path on rank 0. Rank 0 returns the frames (N, H, W,
+        3) float32 in [0, 1] on the CPU, the sequential loop's; the other
+        ranks return None.
+
+        Eligibility, checked in the JAX package's order: the recon-free
+        operating point (``keep_recon_chunk=False``) without
+        ``cross_window_carry``, ``batch_windows == 1`` and
+        ``encoder_interval == 1``, a window the mesh size divides, window >= 2."""
+        from vface_torch.parallel.frame_sharded import vface_sample_frame_sharded
+        from vface_torch.parallel.mesh import all_gather_rows, shard_rows
+
+        opts = self.opts
+        n_mesh = mesh.shape[axis_name]
+        if opts.keep_recon_chunk or opts.cross_window_carry:
+            raise ValueError("frame-sharded swapping requires the recon-free operating point "
+                             "(keep_recon_chunk=False) without cross_window_carry")
+        if opts.batch_windows != 1 or opts.encoder_interval != 1:
+            raise ValueError("frame-sharded swapping runs one window per program (batch_windows=1) with exact "
+                             "encoders (encoder_interval=1)")
+        if opts.window % n_mesh:
+            raise ValueError(f"window ({opts.window}) must divide over the {axis_name} axis ({n_mesh})")
+        if opts.window < 2:
+            raise ValueError("frame-sharded swapping is the flow-on path; window >= 2")
+        if self.model.conditioner is None:
+            raise ValueError("VideoSwapPipeline: the video path needs a model built with conditioner=True")
+
+        remove_classes = remove_classes or TRAIN_REMOVE
+        clock = StageClock(None, self.device)
+        frames01 = self._on(frames01)
+        n = int(frames01.shape[0])
+        w = opts.window
+        n_full = n // w
+        crops01, inv_coeffs = self.align_crops(frames01)
+        _, keep_mask = inpaint_inputs(crops01 * 2 - 1, self.parse_masks(crops01), remove_classes)
+        src = self._source_inputs(source01, None, remove_classes, clock)
+        rows = shard_rows(mesh, w)
+        lead = mesh.rank == 0
+        out = []
+        for wi in range(n_full):
+            sl = slice(wi * w, (wi + 1) * w)
+            p = self._pack_inputs(crops01[sl], keep_mask[sl], src, clock)
+            loc = lambda t: t[rows]
+            x_T, z_inpaint, mask_lat = self._invert_pack(loc(p["c"]), loc(p["km"]), loc(p["inv_c"]))
+            z0 = vface_sample_frame_sharded(
+                self.model, x_T, loc(p["cond"]), loc(p["uncond"]), loc(p["inv_c"]), z_inpaint, mask_lat,
+                self.injection, flow=self._latent_flow(p["flow"]), mesh=mesh, num_steps=opts.ddim_steps,
+                cfg_scale=opts.cfg_scale, eta=opts.eta, axis_name=axis_name, noise=self.noise)
+            pasted = self._fs_post(z0, loc(frames01[sl]), loc(inv_coeffs[sl]), loc(p["km"]))
+            got = all_gather_rows(pasted.float(), mesh)
+            if lead:
+                out.append(got.cpu())
+        if n > n_full * w and lead:
+            s0 = n_full * w
+            p = self._pack_inputs(crops01[s0:], keep_mask[s0:], src, clock)
+            out.append(self._swap_pack(frames01[s0:], inv_coeffs[s0:], p, src, None).float().cpu())
+        return torch.cat(out, dim=0) if lead else None
 
 
 @torch.inference_mode()

@@ -9,8 +9,16 @@ is CLIP-preprocessed for the conditioner and kept at 224^2 for ArcFace, the
 landmarks are zeros. The model starts from the seeded init (``--seed``), or
 with ``--resume`` from the parameters in ``<logdir>/checkpoints/last``: as in
 the JAX CLI, the optimizer starts afresh at step 0, so its warm-up restarts.
-The batch is ``--batch_size`` on one device. Runs on CUDA; ``VFACE_PLATFORM=cpu``
-runs it on the CPU. Exits 1 when the dataset directory holds no image.
+The batch is ``--batch_size``. Under ``torchrun`` the run is data-parallel
+over every rank, as the JAX CLI is over every device: each rank takes its
+rows of the batch (which the world size divides), the gradients are averaged
+and the AdamW moments sharded (ZeRO-1); ``--scale_lr`` counts the ranks, and
+rank 0 writes the logdir:
+
+    torchrun --nproc_per_node 2 -m vface_torch.scripts.train --dataset_dir D --batch_size 2
+
+Runs on CUDA (``cuda:LOCAL_RANK`` under torchrun, NCCL); ``VFACE_PLATFORM=cpu``
+runs it on the CPU (gloo). Exits 1 when the dataset directory holds no image.
 """
 
 from __future__ import annotations
@@ -80,7 +88,16 @@ def main(argv=None) -> int:
             init_params = state["state"]["params"]
             print(f"[train] resumed from step {state['step']}", flush=True)
 
-    train(model_cfg, train_cfg, driver_cfg, batches(), init_params=init_params, device=device)
+    import torch.distributed as dist
+
+    from vface_torch.parallel.mesh import destroy
+
+    owned = not dist.is_initialized()  # train() forms the group under torchrun; this call ends it
+    try:
+        train(model_cfg, train_cfg, driver_cfg, batches(), init_params=init_params, device=device)
+    finally:
+        if owned:
+            destroy()
     return 0
 
 

@@ -17,8 +17,17 @@ replaces the frames' BiSeNet parse.
     python -m vface_torch.scripts.vface_video_swap --config pairs.yaml --outdir results/video_swap
 
 Runs on CUDA, and raises without a card, unless ``VFACE_PLATFORM=cpu``. The
-flags are the JAX CLI's; ``--mesh_data`` / ``--mesh_frames`` other than 0
-(multi-GPU, ROADMAP A13) raise ``NotImplementedError``. Without ``--params`` /
+flags are the JAX CLI's. ``--mesh_data N`` deals each video's windows over N
+ranks (``swap_video_frames_sharded``); ``--mesh_frames N`` shards each
+window's frames over N ranks (``swap_video_frames_frame_sharded``; no
+``masks:``). Either runs one process per rank, N the world size:
+
+    torchrun --nproc_per_node N -m vface_torch.scripts.vface_video_swap --mesh_data N --config pairs.yaml
+
+(NCCL on the cards, gloo with ``VFACE_PLATFORM=cpu``); rank 0 prints the
+lines and writes the files. Over more than one rank a failure inside a
+video's swap, where the ranks meet in collectives, ends the run instead of
+skipping the video (the other ranks could not skip in step). Without ``--params`` /
 ``--aux_params`` the weights are the port's seeded init (``--seed``), which is
 not the JAX package's; the npz files the JAX package's ``save_params_npz``
 writes load as they are.
@@ -68,9 +77,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--fps", type=int, default=10)
     ap.add_argument("--tiny", action="store_true", help="tiny config smoke mode")
     ap.add_argument("--mesh_data", type=int, default=0,
-                    help="shard full windows over N devices (not ported: ROADMAP A13)")
+                    help="deal whole windows over N ranks under torchrun (swap_video_frames_sharded; "
+                         "0 = the single-device loop)")
     ap.add_argument("--mesh_frames", type=int, default=0,
-                    help="shard each window's frames over N devices (not ported: ROADMAP A13)")
+                    help="latency path: shard each window's frames over N ranks under torchrun (the FGATS halo, "
+                         "parallel/frame_sharded.py); use when cards >= windows. Eligibility: recon-free operating "
+                         "point, no --cross_window_carry, --batch_windows 1, window divisible by N. Mutually "
+                         "exclusive with --mesh_data")
     ap.add_argument("--batch_windows", type=int, default=1,
                     help="pack N consecutive windows into one call (equal to separate windows through "
                          "boundary-masked FGATS; larger UNet batches)")
@@ -85,9 +98,34 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.mesh_data or args.mesh_frames:
-        raise NotImplementedError("--mesh_data / --mesh_frames (multi-GPU windows and frames) are ROADMAP A13")
 
+    from vface_torch.utils.platform import device_from_env
+
+    device = device_from_env()
+    mesh = None
+    owned = False  # the process group this call forms, and ends
+    if args.mesh_data or args.mesh_frames:
+        import torch.distributed as dist
+
+        from vface_torch.parallel.mesh import make_mesh
+
+        owned = not dist.is_initialized()
+        try:
+            mesh = make_mesh(n_data=args.mesh_data or args.mesh_frames, device=device)
+        except ValueError as e:
+            print(f"vface_video_swap: {e}", file=sys.stderr)
+            return 2
+        device = mesh.device
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if owned:
+            from vface_torch.parallel.mesh import destroy
+
+            destroy()
+
+
+def _run(args, device, mesh) -> int:
     import torch
 
     from vface_torch.data.datasets import _load_mask
@@ -99,9 +137,9 @@ def main(argv=None) -> int:
     from vface_torch.runtime.checkpoint import VideoProgressManifest, load_params_npz
     from vface_torch.utils.config import load_yaml
     from vface_torch.utils.convert import init_aux_params, init_params
-    from vface_torch.utils.platform import device_from_env
 
-    device = device_from_env()
+    lead = mesh is None or mesh.rank == 0
+    say = (lambda *a, **kw: print(*a, **kw)) if lead else (lambda *a, **kw: None)
     cfg = ModelConfig.tiny(image_size=32) if args.tiny else ModelConfig.sd_v1_inpaint()
     model = VFaceModel(cfg, device=device, conditioner=True)
     if args.params:
@@ -119,19 +157,22 @@ def main(argv=None) -> int:
     pipe = VideoSwapPipeline(model, opts, device=device, aux_params=aux)
 
     pairs = load_yaml(args.config)
-    os.makedirs(args.outdir, exist_ok=True)
+    if lead:
+        os.makedirs(args.outdir, exist_ok=True)
     failed = 0
     for pair in pairs:
         name = os.path.splitext(os.path.basename(pair["video"]))[0]
         out_base = os.path.join(args.outdir, name)
         if os.path.exists(out_base + ".avi"):
-            print(f"[skip] {name}: output exists", flush=True)
+            say(f"[skip] {name}: output exists", flush=True)
             continue
-        manifest = VideoProgressManifest(out_base + ".manifest.json", meta={
-            "window": opts.window, "ddim_steps": opts.ddim_steps, "inversion_steps": opts.inversion_steps,
-            "cfg_scale": opts.cfg_scale, "image_size": opts.image_size, "seed": args.seed})
+        manifest = None
         frame_dir = out_base + "_frames"
-        os.makedirs(frame_dir, exist_ok=True)
+        if lead:
+            manifest = VideoProgressManifest(out_base + ".manifest.json", meta={
+                "window": opts.window, "ddim_steps": opts.ddim_steps, "inversion_steps": opts.inversion_steps,
+                "cfg_scale": opts.cfg_scale, "image_size": opts.image_size, "seed": args.seed})
+            os.makedirs(frame_dir, exist_ok=True)
         sink_s = [0.0]
 
         def window_sink(s0, pasted01, frame_dir=frame_dir, sink_s=sink_s):
@@ -149,6 +190,7 @@ def main(argv=None) -> int:
             sink_s[0] += time.perf_counter() - t0
             return paths
 
+        swapping = False  # inside the swap's collectives
         try:
             frames01, _ = load_frames(pair["video"])
             source01 = read_png(pair["source"], mode="RGB").astype(np.float32) / 255.0
@@ -158,10 +200,24 @@ def main(argv=None) -> int:
                               for i in range(len(frames01))])
                 face = region_mask(torch.from_numpy(m), TRAIN_REMOVE).numpy()
                 frame_keep = (1.0 - face)[..., None].astype(np.float32)
+            if args.mesh_frames and frame_keep is not None:
+                raise ValueError("--mesh_frames does not support precomputed masks: drop the pair's `masks:` "
+                                 "key or use --mesh_data")
             t0 = time.perf_counter()
-            swapped = pipe.swap_video_frames(frames01, source01, manifest=manifest, window_sink=window_sink,
-                                             frame_keep=frame_keep)
+            swapping = mesh is not None and mesh.size > 1
+            if args.mesh_data:
+                swapped = pipe.swap_video_frames_sharded(frames01, source01, mesh, manifest=manifest,
+                                                         window_sink=window_sink if lead else None,
+                                                         frame_keep=frame_keep)
+            elif args.mesh_frames:
+                swapped = pipe.swap_video_frames_frame_sharded(frames01, source01, mesh)
+            else:
+                swapped = pipe.swap_video_frames(frames01, source01, manifest=manifest, window_sink=window_sink,
+                                                 frame_keep=frame_keep)
             swap_s = time.perf_counter() - t0
+            swapping = False
+            if not lead:  # rank 0 holds the frames and writes the outputs
+                continue
             u8 = (np.clip(swapped.numpy(), 0, 1) * 255).astype(np.uint8)
             # audio passthrough: a `.wav` beside the video, or the pair's `audio:`, goes into the AVI
             audio = sr = None
@@ -174,9 +230,13 @@ def main(argv=None) -> int:
             print(f"[done] {name}: {len(u8)} frames, swap {swap_s:.3f} s ({len(u8) / swap_s:.4f} frames/s), "
                   f"sink {sink_s[0]:.3f} s", flush=True)
         except Exception as e:  # one video's failure skips it, as the reference does
+            if swapping:
+                print(f"[fail] {name}: rank {mesh.rank}: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+                raise
             failed += 1
-            print(f"[fail] {name}: {type(e).__name__}: {e}", flush=True)
-            traceback.print_exc()
+            say(f"[fail] {name}: {type(e).__name__}: {e}", flush=True)
+            if lead:
+                traceback.print_exc()
     return 1 if failed else 0
 
 

@@ -29,6 +29,10 @@ Other trees convert with the same walk: an ``EncoderUNetModel`` tree
 (``concat_feat_proj``, ``other_learnable_vector``) inside "cond", and the
 safety checker's tree with :func:`from_flax_safety`.
 
+The evaluation nets (``{"inception", "arcface", "hopenet", "facerecon"}``:
+``InceptionV3Pool3``, ``IRSE50``, ``Hopenet``, ``FaceReconNet`` of
+:mod:`vface_torch.eval`) follow it too: :func:`from_flax_eval`.
+
 The video swap's aux nets (``{"bisenet", "raft", "landmark", "detector"}``)
 follow the same walk (the detector's Flax ``nn.GroupNorm`` ``scale`` is a
 ``weight`` too): :func:`from_flax_aux` converts their Flax trees, and
@@ -122,6 +126,16 @@ def from_flax_aux(tree) -> dict:
     """``{"bisenet": ..., "raft": ..., "landmark": ..., "detector": ...}`` Flax trees (any subset)
     -> the same keys as state dicts of the port's aux modules."""
     return {part: flax_tree_to_state_dict(tree[part]) for part in AUX_PARTS if part in tree}
+
+
+EVAL_PARTS = ("inception", "arcface", "hopenet", "facerecon")
+
+
+def from_flax_eval(tree) -> dict:
+    """``{"inception": ..., "arcface": ..., "hopenet": ..., "facerecon": ...}`` Flax trees
+    (any subset; the JAX package's ``evaluate_all`` ``eval_params``) -> the same
+    keys as state dicts of the port's eval nets."""
+    return {part: flax_tree_to_state_dict(tree[part]) for part in EVAL_PARTS if part in tree}
 
 
 def init_aux_params(generator: torch.Generator) -> dict:
