@@ -116,7 +116,7 @@ Phases, one line each:
  11b. sched (the window schedules of the video path; ``phase_sched_kernels``
      adds K1, K2 and K9 rows at b = 18 and 24 to the kernels phase): (b) on
      the video phase's model, a seeded 12-frame 720x1280 clip at the
-     reference operating point but for the depth (15 + 15 steps, cut for
+     reference operating point but for the depth (8 + 8 steps, cut for
      time) through the sequential loop, pipelined packs,
      the super-pack, its streaming form (numpy frames), merged sampling and
      the cross-window carry (on the clip's first 8 frames, cut from 12 for
@@ -134,7 +134,7 @@ Phases, one line each:
      clip, against its exact sequential run): a warm-up holds one cached
      sampling eval and one CFG inversion eval (b = 12) to the plain kernels;
      the sequential loop at ``encoder_interval`` 2 and 3, the super-pack with
-     merged sampling at 2 and the loop at eta = 0.5 (sched's 15 + 15): seconds,
+     merged sampling at 2 and the loop at eta = 0.5 (sched's 8 + 8): seconds,
      frames/s, invert and sample seconds, K1/K2/K9 launches (the cached runs
      gated to fewer K1s than the exact run), peak memory, the uint8 difference
      (reported); then the tiny fp32 samplers with the cache, eta (an explicit
@@ -144,8 +144,26 @@ Phases, one line each:
      frames; the face detector (shipped weights) on the card against the CPU
      (boxes 0.5 px, scores 1e-4, every face found in every frame), then
      ``swap_video_frames_multiface`` at the reference operating point but for
-     the depth (12 + 12 steps): seconds (per face), frames/s, peak memory,
+     the depth (8 + 8 steps): seconds (per face), frames/s, peak memory,
      launches;
+ 11f. dift_vq (``phase_dift_kernels`` adds K1, K2 and K9 rows at b = 2 and
+     K3 rows at DIFT's bf16 and VQ's fp32 VAE shapes to the kernels phase):
+     ``make_prior`` (DIFT) at 512^2 on the video phase's bf16 model, every
+     K1, K2, K9 and K3 call of a warm-up held to its plain version, then
+     one timed call between a counter reset and a read (seconds, peak
+     memory, launches, each of the four launched), its features within
+     3e-2 relative L2 of the plain path's and the share of equal
+     correspondences; ``VQModel(VQConfig())`` (fp32, seeded) on one 512^2
+     image: seconds, peak memory, K3's launches; the tiny fp32 DIFT and VQ,
+     card against CPU within 1e-4;
+ 11g. aux_clis: ``CLIPTextEncoder(CLIPTextConfig())`` (fp32) on a 2 x 77
+     batch from the port's tokenizer (synthetic vocabulary), card against
+     CPU within 1e-4; the ``driven_demo`` CLI at ``FV2VConfig()`` on an
+     8-frame 256^2 Y4M with a seeded ``--params`` npz (seconds a frame, peak
+     memory) and one generator frame card against CPU within 1e-4;
+     ``crop_and_mask`` on 4 rendered 1024^2 faces at ``--size 512``, card
+     against CPU: masks equal but at class ties (top two logits within
+     1e-3), crops within 1 uint8 level;
  11e. image (on the video phase's model; ``phase_image_kernels`` adds K1, K2
      and K9 rows at b = 8, the test bench's 4 pairs under CFG, to the kernels
      phase): a 2-step warm-up of ``swap_image_batch`` at b = 4 and of
@@ -161,7 +179,7 @@ Phases, one line each:
      CPU within 1e-4 of each output's peak;
  12. cli: the video-swap CLI (``vface_torch.scripts.vface_video_swap.main``)
      at its defaults but for the depth (SD-v1 inpainting with its
-     conditioner, seeded; 15 + 15 steps, cut for time; window 6, scale 3.0,
+     conditioner, seeded; 8 + 8 steps, cut for time; window 6, scale 3.0,
      fps 10) on inputs written with the port's
      writers to a temporary directory: pair A, a 12-frame 720x1280 Y4M with a
      WAV beside it; pair B, 3 frames with precomputed parse maps. A 2 + 2-step
@@ -638,7 +656,6 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
     import torch
 
     from vface_torch.ops import geglu_ff as FF
-    from vface_torch.ops import gn_sums as GN
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -660,22 +677,30 @@ def phase_kernels(batch: int, vae_batch: int) -> dict:
     # K3 at the VAE's largest and smallest eligible GroupNorm sites on the
     # crops, and at the largest on the video path's HD frames (the background
     # trick): 16384-element rows (one CTA each), 262,144 and 921,600 (a
-    # cluster of 8 CTAs each); the event time holds the wrapper's host time,
-    # device_ms the kernel's alone
-    gn_rows = []
-    for c, hh, ww in ((128, 512, 512), (512, 128, 128), (128, 720, 1280)):
-        x = randn(vae_batch, c, hh, ww)
-        errs, tol = kernel_errs("gn_sums", (x,), GN.gn_sums(x))
-        ms = cuda_ms(lambda: GN.gn_sums(x))
-        plain_ms = cuda_ms(lambda: GN.gn_sums_ref(x))
-        lib_ms = cuda_ms(lambda: torch.var_mean(x, dim=(2, 3)))
-        bnd = bound(2.0 * x.numel(), x.numel() * 2 + 2 * vae_batch * c * 4, PEAK_FP32_FLOPS)
-        dev_ms = device_ms(lambda: GN.gn_sums(x), "gn_sums")
-        gn_rows.append(_row("gn_sums", "cuda", "vface_torch/csrc/gn_sums.cu",
-                            "vface_tpu/models/layers.py:45", errs, tol, ms, plain_ms, lib_ms, bnd,
-                            f"({vae_batch},{c},{hh},{ww})", extra={"device_ms": f"{dev_ms:.4f}"}))
-    rows["gn_sums"] = gn_rows
+    # cluster of 8 CTAs each)
+    rows["gn_sums"] = [gn_row(randn(vae_batch, c, hh, ww))
+                       for c, hh, ww in ((128, 512, 512), (512, 128, 128), (128, 720, 1280))]
     return rows
+
+
+def gn_row(x, **extra) -> dict:
+    """K3's row on ``x`` (NCHW; a float32 ``x`` is marked so in the shape):
+    against its plain version, timed (the event time holds the wrapper's host
+    time, ``device_ms`` the kernel's alone); the library column is
+    ``torch.var_mean``."""
+    import torch
+
+    from vface_torch.ops import gn_sums as GN
+
+    b, c, hh, ww = x.shape
+    errs, tol = kernel_errs("gn_sums", (x,), GN.gn_sums(x))
+    bnd = bound(2.0 * x.numel(), x.numel() * x.element_size() + 2 * b * c * 4, PEAK_FP32_FLOPS)
+    dev_ms = device_ms(lambda: GN.gn_sums(x), "gn_sums")
+    return _row("gn_sums", "cuda", "vface_torch/csrc/gn_sums.cu", "vface_tpu/models/layers.py:45", errs, tol,
+                cuda_ms(lambda: GN.gn_sums(x)), cuda_ms(lambda: GN.gn_sums_ref(x)),
+                cuda_ms(lambda: torch.var_mean(x, dim=(2, 3))), bnd,
+                f"({b},{c},{hh},{ww}){'fp32' if x.dtype == torch.float32 else ''}",
+                extra={**extra, "device_ms": f"{dev_ms:.4f}"})
 
 
 SWAP_KERNELS = ("flash_attention", "geglu_ff", "geglu_ff_wide", "gn_sums")  # K9: the UNet's wide sites
@@ -1667,7 +1692,7 @@ SCHED_RUNS = {
 SCHED_PROGRAMS = ("_pipelined_step", "_final_pack", "_superpack", "_swap_frames_superpacked_streaming")
 SCHED_FRAMES = 12  # (b): two 6-frame windows of 720x1280
 SCHED_CARRY_FRAMES = 8  # (b)'s carry run: a window and a 2-frame one to carry into (cut from 12 for time)
-SCHED_STEPS = 15  # (b) and phase opts: cut from the reference's 50 + 50 steps for time (25 + 25 before the mesh phases)
+SCHED_STEPS = 8  # (b) and phase opts: cut from the reference's 50 + 50 steps for time (25 + 25 before the mesh phases, 15 + 15 before DIFT's)
 GATE_FRAMES, GATE_WINDOW, GATE_STEPS, GATE_HW = 10, 3, 4, (512, 512)  # (a): three packs and a remainder
 GATE_TOL = 1e-3  # (a): max abs on frames in [0, 1], fp32
 LANDSCAPE = (12, 18, 24, 36, 48)  # (c): sampling eval batches (2 chunks x frames)
@@ -2097,7 +2122,7 @@ def phase_opts_gate(seed: int) -> None:
 MULTIFACE_FRAMES, MULTIFACE_SIZE = 12, 720  # a 720^2 two-face scene rolled 2 px a frame
 # the multi-face run's depth: cut from the reference's 50 + 50 steps for time
 # (the script's whole run stays near 600 s); its widths are the reference's
-MULTIFACE_STEPS = 12  # cut from 50 for time (20 before the mesh phases)
+MULTIFACE_STEPS = 8  # cut from 50 for time (20 before the mesh phases, 12 before DIFT's)
 
 
 def phase_multiface(model, seed: int, base: dict) -> None:
@@ -2631,7 +2656,7 @@ def phase_profile_train(model, seed: int, path: str) -> None:
 
 
 CLI_FRAMES, CLI_SHORT = 12, 3  # pair A: two windows (one pack of two); pair B: one short window
-CLI_STEPS = 15  # the CLI's 50 + 50 steps cut for the script's time (25 before the mesh phases)
+CLI_STEPS = 8  # the CLI's 50 + 50 steps cut for the script's time (25 before the mesh phases, 15 before DIFT's)
 _DONE = re.compile(r"\[done\] (\S+): (\d+) frames, swap ([\d.]+) s \(([\d.]+) frames/s\), sink ([\d.]+) s")
 
 
@@ -3645,18 +3670,18 @@ def phase_image_gate(seed: int) -> None:
 
 def flax_npz_arrays(prefix: str, state: dict) -> dict:
     """A module's state dict as the flat ``<prefix>/<Flax path>`` arrays of a JAX
-    params npz (``save_params_npz``'s layout): Dense and Conv ``weight`` ->
-    ``kernel`` (transposed to (in, out) / HWIO), a norm's 1-D ``weight`` ->
-    ``scale``, the rest as they are."""
+    params npz (``save_params_npz``'s layout; no prefix when it is empty):
+    Dense and Conv ``weight`` -> ``kernel`` (transposed to (in, out) / HWIO /
+    DHWIO), a norm's 1-D ``weight`` -> ``scale``, the rest as they are."""
     out = {}
     for key, value in state.items():
         *mods, leaf = key.split(".")
         a = value.detach().float().cpu().numpy()
-        if leaf == "weight" and a.ndim in (2, 4):
-            leaf, a = "kernel", (a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0))
+        if leaf == "weight" and a.ndim in (2, 4, 5):
+            leaf, a = "kernel", (a.T if a.ndim == 2 else a.transpose(*range(2, a.ndim), 1, 0))
         elif leaf == "weight":
             leaf = "scale"
-        out["/".join([prefix, *mods, leaf])] = a
+        out["/".join(p for p in [prefix, *mods, leaf] if p)] = a
     return out
 
 
@@ -4236,9 +4261,12 @@ def _seeded_eval(module, generator, gain: float = 1.0):
     """An eval net's seeded weights in place: conv / dense kernels N(0,
     gain / fan_in) (gain 2, He-normal, keeps a deep plain ReLU chain such as
     InceptionV3 at activations of order 1; the residual nets take 1, since
-    each residual add grows them), biases N(0, 0.02^2), frozen-BN scales 1 +
-    N(0, 0.05^2), biases and means N(0, 0.05^2), variances U(0.5, 1.5);
-    returns the module."""
+    each residual add grows them: IR-SE-50 at gain 2 grows them ~10^4-fold
+    and amplifies fp32 round-off until a +-1e-7 input change moves its
+    embedding by 2.4e-2 of the peak on the CPU alone,
+    ``tests/test_torch_irse50_scale.py``, so the card gate holds it at gain
+    1), biases N(0, 0.02^2), frozen-BN scales 1 + N(0, 0.05^2), biases and
+    means N(0, 0.05^2), variances U(0.5, 1.5); returns the module."""
     import torch
 
     from vface_torch.models.arcface import _FrozenBNParams
@@ -4268,7 +4296,9 @@ def phase_eval(seed: int, base: dict) -> None:
     nets at 224^2): seconds per metric and peak memory. The features of 4
     images from each net, card against CPU, within 1e-4 of each output's
     peak, with TF32 switched on around the card's call (the eval entry
-    points turn it off for their own work). ``evaluate_temporal`` on the
+    points turn it off for their own work); IR-SE-50 at He scale (gain 2),
+    card against CPU and the CPU's own motion under a +-1e-7 input change,
+    reported (see :func:`_seeded_eval`). ``evaluate_temporal`` on the
     sched phase's sequential 12-frame 720p swap at 360x640 with RAFT's flow
     (20 iterations) between its frames."""
     import shutil
@@ -4333,6 +4363,7 @@ def phase_eval(seed: int, base: dict) -> None:
                 torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
             want = fn(cpu[name], imgs)
             errs[name] = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        he_scale_report(seed, imgs, errs["arcface"])
         # the temporal metrics of the sched phase's sequential swap
         frames = torch.from_numpy(base["u8"]).cuda().float() / 255.0
         small = resize_bilinear(frames, 360, 640)
@@ -4364,11 +4395,347 @@ def phase_eval(seed: int, base: dict) -> None:
         raise SystemExit(f"chip_smoke: the eval features of {bad} on the card are over 1e-4 from the CPU's: {errs}")
 
 
+def he_scale_report(seed: int, imgs, lecun_err: float) -> None:
+    """IR-SE-50 at He scale (gain 2), reported and not gated: the card's
+    embeddings of ``imgs`` against the CPU's, beside the CPU's own motion
+    under a +-1e-7 change of the input (:func:`_seeded_eval`)."""
+    import numpy as np
+    import torch
+
+    from vface_torch.models.arcface import IRSE50
+
+    embed_faces = importlib.import_module("vface_torch.eval.id_retrieval").embed_faces
+    rel = lambda a, b: float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    with torch.device("cuda"):
+        he = _seeded_eval(IRSE50(), torch.Generator(device="cuda").manual_seed(seed + 61), gain=2.0)
+    he_cpu = _seeded_copy(he)
+    want = embed_faces(he_cpu, imgs, device="cpu")
+    sign = np.random.default_rng(seed + 62).choice([-1.0, 1.0], size=imgs.shape).astype(np.float32)
+    log("eval_he_scale", net="IR-SE-50 at gain 2", images=len(imgs),
+        card_vs_cpu_max_rel=f"{rel(embed_faces(he, imgs, device='cuda'), want):.3e}",
+        cpu_motion_1e7_max_rel=f"{rel(embed_faces(he_cpu, imgs + 1e-7 * sign, device='cpu'), want):.3e}",
+        lecun_card_vs_cpu_max_rel=f"{lecun_err:.3e}")
+
+
 def _seeded_copy(net):
     """A CPU copy of a seeded eval net."""
     import copy
 
     return copy.deepcopy(net).cpu().eval()
+
+
+DIFT_SIZE = 512  # make_prior on 512^2 crops: one b = 2 UNet forward at SD-v1 widths
+DIFT_TOL = 3e-2  # relative L2 of the features, kernel path against the plain one at bf16
+AUX_GATE_TOL = 1e-4  # the tiny fp32 DIFT and VQ, CLIP text, a face-vid2vid frame: card vs CPU, of the peak
+AUX_FRAMES = 8  # driven_demo's driving Y4M
+CROP_FACES, CROP_FRAME, CROP_SIZE = 4, 1024, 512  # crop_and_mask: 4 rendered 1024^2 faces at --size 512
+# a mask pixel of crop_and_mask may differ between the card and the CPU only
+# where the CPU's top two BiSeNet logits are this close (the card's landmarks,
+# crops and convolutions round otherwise; the maps hold >= 0.9999 equal): over
+# 10x the widest tie that flipped on an H100 (8.46e-6), ~1000x below the
+# median margin (0.104)
+CROP_TIE = 1e-4
+
+
+def phase_dift_kernels() -> dict:
+    """K1, K2 and K9 at DIFT's batch (b = 2: target and source at 512^2), K3 at
+    DIFT's VAE encode (bf16, b = 2) and at VQ's round trip (fp32, b = 1),
+    against their plain versions, timed; returns the rows, which join each
+    kernel's row list."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    randn = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(torch.bfloat16)
+    return {"flash_attention": k1_rows(2, randn), "geglu_ff": ff_rows("geglu_ff", 2, randn),
+            "geglu_ff_wide": ff_rows("geglu_ff_wide", 2, randn),
+            "gn_sums": [gn_row(randn(2, 128, 512, 512), path="dift"), gn_row(randn(2, 512, 128, 128), path="dift"),
+                        gn_row(torch.randn((1, 256, 512, 512), generator=gen, device=dev), path="vq"),
+                        gn_row(torch.randn((1, 512, 128, 128), generator=gen, device=dev), path="vq")]}
+
+
+def _gate(name: str, got, want, tol: float = AUX_GATE_TOL) -> dict:
+    """{name_max_abs, name_peak}; fails when ``got`` is over ``tol`` of ``want``'s peak (at least 1) from it."""
+    err = float((got.float().cpu() - want.float().cpu()).abs().max())
+    peak = max(1.0, float(want.float().abs().max()))
+    if not err <= tol * peak:
+        raise SystemExit(f"chip_smoke: {name} on the card is {err:.3e} from the CPU's (limit {tol} of {peak:.3f})")
+    return {f"{name}_max_abs": f"{err:.3e}", f"{name}_peak": f"{peak:.3f}"}
+
+
+def phase_dift_vq(model, seed: int) -> None:
+    """Phase dift_vq. DIFT (``vface_torch.preprocess.dift``) at full width on
+    the ``video`` phase's bf16 SD-v1 model: ``make_prior`` on two seeded
+    ``render_face`` faces at 512^2 with the null conditioning (the learnable
+    uncond vector), after a warm-up that holds every K1, K2, K9 and K3 call at
+    its signature to its plain version; counters reset just before the timed
+    call and read after it (each of the four launched); the features
+    (``dift_features``, block -4) with the kernels against the plain versions
+    within ``DIFT_TOL`` relative L2, and the share of equal correspondences
+    (reported). ``VQModel(VQConfig())`` (fp32, seeded, a standard-normal
+    codebook): a warm-up round trip that holds every K3 call at its signature
+    to its plain version, then one 512^2 image encoded, quantised and decoded, seconds, peak
+    memory, K3's launches, the share of the codebook used. The tiny fp32 DIFT
+    and VQ, card against CPU within ``AUX_GATE_TOL`` of each output's peak."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vface_torch.models.ldm import ModelConfig, VFaceModel
+    from vface_torch.models.vq import VQConfig, VQModel
+    from vface_torch.preprocess.dift import correspondences, dift_features, make_prior
+    from vface_torch.preprocess.synthetic_faces import render_face
+    from vface_torch.utils.convert import init_params
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 80)
+    tar, src = (torch.from_numpy(render_face(rng, DIFT_SIZE)[0] * 2 - 1).float().cuda() for _ in range(2))
+    cond = model.uncond(2)
+    with checked_sites("dift"):
+        make_prior(model, tar, src, cond)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    prior = make_prior(model, tar, src, cond)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    both = torch.stack([tar, src])
+    feats = dift_features(model, both, cond)
+    with plain_kernels():
+        feats_plain = dift_features(model, both, cond)
+    rel = _rel_l2(feats.float(), feats_plain.float())
+    same = float((correspondences(feats[0], feats[1]) == correspondences(feats_plain[0], feats_plain[1]))
+                 .all(dim=-1).float().mean())
+    log("dift", size=DIFT_SIZE, batch=2, block=-4, feature_hw=f"{feats.shape[1]}x{feats.shape[2]}",
+        channels=int(feats.shape[-1]), wall_s=f"{wall:.3f}", peak_gib=f"{peak:.2f}",
+        **{k: launches[k] for k in SWAP_KERNELS}, feature_rel_l2_vs_plain=f"{rel:.3e}", tol=DIFT_TOL,
+        equal_correspondences=f"{same:.4f}")
+    if not (tuple(prior.shape) == (DIFT_SIZE, DIFT_SIZE, 3) and bool(torch.isfinite(prior).all())
+            and float(prior.abs().max()) <= 1.0):
+        raise SystemExit("chip_smoke: the DIFT prior has the wrong shape, is not finite or leaves [-1, 1]")
+    missing = [k for k in SWAP_KERNELS if launches[k] == 0]
+    if missing or not rel <= DIFT_TOL:
+        raise SystemExit(f"chip_smoke: make_prior launched no {missing}, or its features are {rel:.3e} "
+                         f"from the plain path's (limit {DIFT_TOL})")
+    del feats, feats_plain, prior, both
+
+    # VQ: the full first stage at 512^2, fp32
+    g = torch.Generator(device="cuda").manual_seed(seed + 81)
+    with torch.device("cuda"):
+        vq = _seeded_(VQModel(VQConfig()), g).eval()
+    with torch.no_grad():
+        vq.quantize.embedding.copy_(torch.randn(vq.quantize.embedding.shape, generator=g, device="cuda"))
+    x = (torch.from_numpy(render_face(rng, DIFT_SIZE)[0] * 2 - 1).float().cuda())[None]
+    with torch.inference_mode():
+        with checked_sites("vq", expect=("gn_sums",)):
+            vq(x)  # warm-up: every K3 signature of the round trip against its plain version
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        h = vq.encode(x)
+        quant, loss, idx = vq.quantize(h)
+        rec = vq.decode(quant, force_not_quantize=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gn = kernel_counts()["gn_sums"]
+    log("vq", size=DIFT_SIZE, n_embed=vq.cfg.n_embed, dtype="float32", wall_s=f"{wall:.3f}",
+        peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", gn_sums=gn,
+        codes_used=int(idx.unique().numel()), loss=f"{float(loss):.4f}")
+    if gn == 0 or tuple(rec.shape) != (1, DIFT_SIZE, DIFT_SIZE, 3) or not bool(torch.isfinite(rec).all()):
+        raise SystemExit("chip_smoke: the VQ round trip launched no K3, or its output has the wrong shape or is not finite")
+    del vq, x, h, quant, rec
+    torch.cuda.empty_cache()
+
+    # the tiny fp32 DIFT and VQ, card against CPU
+    cfg = ModelConfig.tiny(image_size=32)
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    gt = torch.Generator().manual_seed(seed + 82)
+    imgs = torch.rand((2, 32, 32, 3), generator=gt) * 2 - 1
+    tcond = torch.randn((2, 1, cfg.unet.context_dim), generator=gt)
+    noise = torch.randn((2, cfg.latent_size, cfg.latent_size, 4), generator=gt)
+    vq_cpu = _seeded_(VQModel(VQConfig.tiny()), torch.Generator().manual_seed(seed + 83)).eval()
+    with torch.no_grad():
+        vq_cpu.quantize.embedding.copy_(torch.randn(vq_cpu.quantize.embedding.shape, generator=gt))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = VFaceModel(cfg, device=dev)
+        m.load_params(params)
+        f = dift_features(m, imgs.to(dev), tcond.to(dev), noise=noise.to(dev), block=-1)
+        v = vq_cpu if dev == "cpu" else copy.deepcopy(vq_cpu).to(dev)
+        with torch.inference_mode():
+            hq = v.encode(imgs.to(dev))
+            rec, _ = v(imgs.to(dev))
+            idx = v.quantize(hq)[2]
+        outs[dev] = dict(features=f.cpu(), corr=correspondences(f[0], f[1]).cpu(), latent=hq.cpu(), rec=rec.cpu(),
+                         idx=idx.cpu())
+    c, g_ = outs["cuda"], outs["cpu"]
+    fields = {**_gate("dift_features", c["features"], g_["features"]), **_gate("vq_latent", c["latent"], g_["latent"]),
+              **_gate("vq_reconstruction", c["rec"], g_["rec"])}
+    log("dift_vq_gate", config="tiny fp32 (ModelConfig.tiny(32), VQConfig.tiny())", **fields, tol=AUX_GATE_TOL,
+        equal_correspondences=f"{float((c['corr'] == g_['corr']).all(dim=-1).float().mean()):.4f}",
+        equal_codes=f"{float((c['idx'] == g_['idx']).float().mean()):.4f}")
+    log("dift_vq_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
+
+
+def _text_tokenizer():
+    """The port's tokenizer on a synthetic vocabulary (the byte alphabet and its
+    ``</w>`` forms, a few merges, BOS / EOS last), as the CPU tests build it."""
+    from vface_torch.models.clip_tokenizer import BOS, EOS, CLIPBPETokenizer, byte_alphabet
+
+    alpha = list(byte_alphabet().values())
+    merges = [("h", "e"), ("l", "l"), ("he", "ll"), ("o", "</w>"), ("hell", "o</w>"), ("t", "h"), ("th", "e</w>"),
+              ("a", "</w>"), ("f", "a"), ("fa", "c"), ("fac", "e</w>")]
+    vocab = {}
+    for tok in alpha + [a + "</w>" for a in alpha]:
+        vocab.setdefault(tok, len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vocab[BOS] = len(vocab)
+    vocab[EOS] = len(vocab)
+    return CLIPBPETokenizer(vocab, merges)
+
+
+def phase_aux_clis(seed: int) -> None:
+    """Phase aux_clis: the modules and CLIs the port added last, on the card.
+    CLIP text: ``CLIPTextEncoder(CLIPTextConfig())`` (ViT-L/14 text geometry,
+    fp32, seeded; EOS at the synthetic vocabulary's id) on a 2 x 77 batch from
+    the port's tokenizer (synthetic vocabulary, padded to 77), card against
+    CPU within ``AUX_GATE_TOL``. face-vid2vid: the ``driven_demo`` CLI in
+    process at ``FV2VConfig()`` (256^2, 15 keypoints, depth 16) on a written
+    8-frame 256^2 Y4M of ``render_face`` faces with a seeded ``--params``
+    npz: wall seconds, seconds a frame (load and build included), peak
+    memory; one generator frame on the card against the CPU within
+    ``AUX_GATE_TOL``. ``crop_and_mask`` in process on 4 rendered 1024^2 faces
+    at ``--size 512`` on the card and on the CPU: crops within 1 uint8 level,
+    masks equal but at pixels where the CPU's top two BiSeNet logits lie
+    within ``CROP_TIE`` (at least 0.9999 of each map equal)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vface_torch.io.image import read_png, write_png
+    from vface_torch.io.video import write_y4m
+    from vface_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+    from vface_torch.models.bisenet import parsing_preprocess
+    from vface_torch.models.face_vid2vid import FV2VConfig, OcclusionAwareGenerator, init_params as fv2v_init
+    from vface_torch.preprocess.align import compute_quad, quad_crop
+    from vface_torch.preprocess.synthetic_faces import render_face
+    from vface_torch.scripts import crop_and_mask, driven_demo
+
+    t_phase = time.perf_counter()
+    # CLIP text at ViT-L/14 text geometry
+    t0 = time.perf_counter()
+    tok = _text_tokenizer()
+    batch = tok(["a photo of the face", "naïve café 中文 — hello, hello!"], max_length=77, padding="max_length")
+    tok_s = time.perf_counter() - t0
+    cfg = CLIPTextConfig(eos_token_id=tok.eos_id)
+    g = torch.Generator().manual_seed(seed + 90)
+    enc = _seeded_(CLIPTextEncoder(cfg), g).eval()
+    with torch.no_grad():
+        for p in (enc.text.token_embedding, enc.text.position_embedding):
+            p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+    ids, mask = torch.from_numpy(batch["input_ids"]), torch.from_numpy(batch["attention_mask"])
+    with torch.inference_mode():
+        want = enc(ids, pad_mask=mask)
+        card = copy.deepcopy(enc).cuda()
+        card(ids.cuda(), pad_mask=mask.cuda())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card(ids.cuda(), pad_mask=mask.cuda())
+        torch.cuda.synchronize()
+        text_s = time.perf_counter() - t0
+    fields = {}
+    for name, a, b in zip(("hidden", "pooled", "projected"), got, want):
+        fields.update(_gate(f"clip_text_{name}", a, b))
+    log("clip_text", config="CLIPTextConfig() fp32 (ViT-L/14 text)", batch="2x77", tokenizer_s=f"{tok_s:.3f}",
+        tokens=",".join(str(int(m.sum())) for m in mask), forward_s=f"{text_s:.4f}", **fields, tol=AUX_GATE_TOL)
+    del card, enc
+
+    root = tempfile.mkdtemp(prefix="vface_aux_")
+    try:
+        # face-vid2vid through its CLI at full size
+        fcfg = FV2VConfig()
+        gen = fv2v_init(OcclusionAwareGenerator(fcfg), torch.Generator().manual_seed(seed + 91)).eval()
+        np.savez(os.path.join(root, "fv2v.npz"), **flax_npz_arrays("", gen.state_dict()))
+        rng = np.random.default_rng(seed + 92)
+        s = fcfg.image_size
+        frames = np.stack([(np.clip(render_face(rng, s)[0], 0, 1) * 255).astype(np.uint8) for _ in range(AUX_FRAMES)])
+        write_y4m(os.path.join(root, "drive.y4m"), frames, fps=10)
+        src_u8 = (np.clip(render_face(rng, s)[0], 0, 1) * 255).astype(np.uint8)
+        write_png(os.path.join(root, "src.png"), src_u8)
+        run = run_image_cli(driven_demo, ["--source", os.path.join(root, "src.png"), "--driving",
+                                          os.path.join(root, "drive.y4m"), "--out", os.path.join(root, "d.avi"),
+                                          "--params", os.path.join(root, "fv2v.npz"), "--size", str(s)])
+        avi = os.path.getsize(os.path.join(root, "d.avi"))
+        if f"{AUX_FRAMES} frames" not in run["out"] or avi < AUX_FRAMES * s * s * 3:
+            raise SystemExit(f"chip_smoke: driven_demo wrote {avi} bytes: {run['out'][-200:]}")
+        src01 = torch.from_numpy(src_u8.astype(np.float32) / 255.0)[None]
+        drv01 = torch.from_numpy(frames[3].astype(np.float32) / 255.0)[None]
+        with torch.inference_mode():
+            want = gen(src01, drv01)
+            card = copy.deepcopy(gen).cuda()
+            got = card(src01.cuda(), drv01.cuda())
+            kp = card.extract_kp(src01.cuda())
+            kp_cpu = gen.extract_kp(src01)
+        log("fv2v", config="FV2VConfig() (256^2, 15 keypoints, depth 16)", frames=AUX_FRAMES,
+            wall_s=f"{run['wall_s']:.3f}", s_per_frame=f"{run['wall_s'] / AUX_FRAMES:.4f}",
+            peak_gib=f"{run['peak_gib']:.2f}", avi_bytes=avi, **_gate("fv2v_frame", got, want),
+            **_gate("fv2v_keypoints", kp, kp_cpu), tol=AUX_GATE_TOL, note="wall: the CLI's whole run, build and load included")
+        del card, gen
+
+        # crop_and_mask on rendered faces, card against CPU
+        faces = os.path.join(root, "faces")
+        os.makedirs(faces)
+        for i in range(CROP_FACES):
+            write_png(os.path.join(faces, f"f{i}.png"),
+                      (np.clip(render_face(rng, CROP_FRAME)[0], 0, 1) * 255).astype(np.uint8))
+        argv = ["--indir", faces, "--size", str(CROP_SIZE)]
+        card_run = run_image_cli(crop_and_mask, argv + ["--outdir", os.path.join(root, "card")])
+        os.environ["VFACE_PLATFORM"] = "cpu"
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(_Tee()):
+                if crop_and_mask.main(argv + ["--outdir", os.path.join(root, "cpu")]) != 0:
+                    raise SystemExit("chip_smoke: crop_and_mask on the CPU failed")
+            cpu_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("VFACE_PLATFORM", None)
+        # the CPU's BiSeNet logits on its own crops: a mask pixel may differ only at a class tie
+        nets = crop_and_mask.aux_nets(("landmark", "bisenet"), device="cpu")
+        files = crop_and_mask.image_files(faces)
+        with torch.inference_mode():
+            imgs = crop_and_mask.load_batch(faces, files, "cpu")
+            crops = quad_crop(imgs, compute_quad(nets["landmark"](imgs))[0], CROP_SIZE)
+            top2 = nets["bisenet"](parsing_preprocess(crops, CROP_SIZE)).topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).numpy()
+        mask_same, crop_diff, tie = [], 0, 0.0
+        for i, f in enumerate(files):
+            rd = lambda side, kind: read_png(os.path.join(root, side, kind, f)).astype(np.int32)
+            differ = rd("card", "masks") != rd("cpu", "masks")
+            mask_same.append(float(1.0 - differ.mean()))
+            tie = max(tie, float(margin[i][differ].max()) if differ.any() else 0.0)
+            crop_diff = max(crop_diff, int(np.abs(rd("card", "crops") - rd("cpu", "crops")).max()))
+        log("crop_and_mask", faces=CROP_FACES, frame=f"{CROP_FRAME}^2", size=CROP_SIZE, wall_s=f"{card_run['wall_s']:.3f}",
+            cpu_s=f"{cpu_s:.3f}", peak_gib=f"{card_run['peak_gib']:.2f}",
+            equal_mask_share=",".join(f"{v:.6f}" for v in mask_same), differing_max_logit_margin=f"{tie:.3e}",
+            tie_tol=CROP_TIE, logit_margin_median=f"{float(np.median(margin)):.3e}", crop_max_levels=crop_diff)
+        if min(mask_same) < 0.9999 or tie > CROP_TIE or crop_diff > 1:
+            raise SystemExit(f"chip_smoke: crop_and_mask on the card: masks {mask_same} equal to the CPU's (pixels "
+                             f"that differ within {tie:.3e} of a class tie, limit {CROP_TIE}), crops {crop_diff} "
+                             "levels apart")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("aux_clis_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
 
 
 def kernels_line(rows: dict, launches: dict) -> dict:
@@ -4423,6 +4790,8 @@ def main() -> int:
         rows[name] += more
     for name, more in phase_image_kernels().items():  # and at the image test bench's
         rows[name] += more
+    for name, more in phase_dift_kernels().items():  # and at DIFT's b = 2, K3 at DIFT's and VQ's VAEs
+        rows[name] += more
     bench_launches = phase_bench(args.bench_reps)
     clock("kernels")
     model = build_model(SEED)
@@ -4450,6 +4819,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_multiface(model, SEED, base)
     clock("multiface")
+    torch.cuda.empty_cache()
+    phase_dift_vq(model, SEED)
+    clock("dift_vq")
+    phase_aux_clis(SEED)
+    clock("aux_clis")
     phase_eval(SEED, base)
     clock("eval")
     del base

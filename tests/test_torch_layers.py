@@ -396,13 +396,13 @@ def test_init_params_is_seeded_and_fills_zero_init_convs():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of vface_torch imports with jax, flax and vface_tpu blocked
+    """Every module of vface_torch imports with jax, flax, vface_tpu and regex blocked
     (the walk reaches every subpackage: one without an ``__init__.py`` would
     hide its modules from it, so modules of each subpackage are named), and
     chip_smoke.py names none of them in an import."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'vface_tpu'): sys.modules[m] = None\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'vface_tpu', 'regex'): sys.modules[m] = None\n"
         "import vface_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(vface_torch.__path__, 'vface_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
@@ -419,8 +419,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'vface_torch.parallel.mesh', 'vface_torch.parallel.frame_sharded', 'vface_torch.eval.backbones',\n"
         "        'vface_torch.eval.fid', 'vface_torch.eval.id_retrieval', 'vface_torch.eval.pose',\n"
         "        'vface_torch.eval.expression', 'vface_torch.eval.temporal', 'vface_torch.eval.bfm',\n"
-        "        'vface_torch.eval.harness'} <= set(mods), mods\n"
-        "assert not any(k.split('.')[0] in ('jax', 'flax', 'vface_tpu') and sys.modules[k] is not None\n"
+        "        'vface_torch.eval.harness', 'vface_torch.utils.torch_convert', 'vface_torch.utils.sd_convert',\n"
+        "        'vface_torch.models.clip_tokenizer', 'vface_torch.models.vq', 'vface_torch.models.face_vid2vid',\n"
+        "        'vface_torch.preprocess.dift', 'vface_torch.scripts.driven_demo',\n"
+        "        'vface_torch.scripts.generate_config', 'vface_torch.scripts.create_square_gt_for_fid',\n"
+        "        'vface_torch.scripts.process_celeba_masks', 'vface_torch.scripts.crop_and_mask',\n"
+        "        'vface_torch.scripts.estimate_masks'} <= set(mods), mods\n"
+        "import vface_torch.models.clip_tokenizer as T; T.word_pattern()\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'vface_tpu', 'regex') and sys.modules[k] is not None\n"
         "               for k in list(sys.modules))\n"
         "print(len(mods))\n"
     )
@@ -430,6 +436,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert not [m for m in names if m.split(".")[0] in ("jax", "flax", "vface_tpu")]
+
+
+def test_every_jax_module_and_user_cli_has_a_port_counterpart():
+    """The module lists of the two packages: every JAX module but the Pallas
+    files (whose kernels are csrc/'s) has a port module of the same path,
+    and every user-facing script of ``scripts/`` (swap, train, evaluate the
+    image path, drive a comparison video, prepare data) a port CLI; no port
+    module names a path under ``scripts/`` outside its docstrings."""
+    jax_mods = {p.relative_to(REPO / "vface_tpu").as_posix() for p in (REPO / "vface_tpu").rglob("*.py")}
+    port_mods = {p.relative_to(REPO / "vface_torch").as_posix() for p in (REPO / "vface_torch").rglob("*.py")}
+    assert sorted(jax_mods - port_mods) == ["ops/pallas_attention.py", "ops/pallas_ff.py"]
+    clis = {"vface_video_swap", "train", "inference_test_bench", "one_inference", "driven_demo", "generate_config",
+            "create_square_gt_for_fid", "process_celeba_masks", "crop_and_mask", "estimate_masks"}
+    assert all((REPO / "scripts" / f"{c}.py").exists() and (REPO / "vface_torch" / "scripts" / f"{c}.py").exists()
+               for c in clis)
+    for path in (REPO / "vface_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef)) and n.body
+                and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)}
+        strings = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)
+                   and id(n) not in docs]
+        assert not [v for v in strings if v == "scripts" or "scripts/" in v], path
 
 
 if __name__ == "__main__":

@@ -38,10 +38,11 @@ class _FrozenBNParams(nn.Module):
 
 
 class FrozenBN(_FrozenBNParams):
-    """BatchNorm2d on frozen statistics (scale/bias/mean/var), NCHW."""
+    """BatchNorm on frozen statistics (scale/bias/mean/var) over dim 1: NCHW,
+    or NCDHW (face-vid2vid's 3-D blocks)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._apply_last(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return self._apply_last(x.movedim(1, -1)).movedim(-1, 1)
 
 
 class FrozenBN1D(_FrozenBNParams):

@@ -1,6 +1,6 @@
-"""CLIP ViT-L/14 vision tower and the REFace conditioning mapper, PyTorch.
+"""CLIP ViT-L/14 vision and text towers and the REFace conditioning mapper, PyTorch.
 
-Port of ``vface_tpu/models/clip.py`` (vision side only): the HF
+Port of ``vface_tpu/models/clip.py``. Vision side: the HF
 ``CLIPVisionModel`` pooled output (post-LN CLS token) -> ``visual_projection``
 (width -> 768, no bias) -> ``mapper2``, five width-768 single-head pre-LN
 transformer blocks on the one token -> ``final_ln2``. Output: one float32
@@ -9,8 +9,13 @@ conditioning token per image, (B, 1, 768).
 Quick-GELU in the tower, exact (erf) GELU in the mapper; LayerNorms reduce and
 apply in float32; the matmuls run in ``cfg.dtype`` (float32 by default, as
 the JAX config's). Parameter names mirror the Flax tree (``vision.layer_3.
-attn.q.weight`` is ``vision/layer_3/attn/q/kernel``). The text tower is not
-ported.
+attn.q.weight`` is ``vision/layer_3/attn/q/kernel``).
+
+Text side (:class:`CLIPTextTower`, :class:`CLIPTextEncoder`, the HF
+``CLIPTextModel`` of REFace's ``FrozenCLIPTextEmbedder``): token + position
+embeddings, a causally masked pre-LN transformer, the final LN; the pooled
+state is each row's first EOS token. Its ids come from
+:class:`vface_torch.models.clip_tokenizer.CLIPBPETokenizer`.
 """
 
 from __future__ import annotations
@@ -65,8 +70,8 @@ class MHA(nn.Module):
         self.v = Dense(width, width, dtype=dtype)
         self.out = Dense(width, width, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        o = multi_head_attention(self.q(x), self.k(x), self.v(x), self.heads, dtype=self.dtype)
+    def forward(self, x: torch.Tensor, bias: torch.Tensor = None) -> torch.Tensor:
+        o = multi_head_attention(self.q(x), self.k(x), self.v(x), self.heads, dtype=self.dtype, bias=bias)
         return self.out(o)
 
 
@@ -79,8 +84,8 @@ class EncoderLayer(nn.Module):
         self.fc1 = Dense(width, width * mlp_ratio, dtype=dtype)
         self.fc2 = Dense(width * mlp_ratio, width, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x: torch.Tensor, bias: torch.Tensor = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), bias=bias)
         return x + self.fc2(quick_gelu(self.fc1(self.ln2(x))))
 
 
@@ -158,3 +163,104 @@ def clip_preprocess(images01: torch.Tensor, size: int = 224) -> torch.Tensor:
     mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=x.dtype, device=x.device)
     std = torch.tensor(CLIP_IMAGE_STD, dtype=x.dtype, device=x.device)
     return (x - mean) / std
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """HF ``CLIPTextModel`` geometry (ViT-L/14 text tower defaults)."""
+
+    vocab_size: int = 49408
+    max_length: int = 77
+    width: int = 768
+    layers: int = 12
+    heads: int = 12
+    mlp_ratio: int = 4
+    projection_dim: int = 768
+    eos_token_id: int = 49407
+    dtype: torch.dtype = torch.float32
+
+    @classmethod
+    def tiny(cls):
+        return cls(vocab_size=64, max_length=16, width=32, layers=2, heads=2, projection_dim=24, eos_token_id=63)
+
+
+class CLIPTextTower(nn.Module):
+    """ids (B, L) int -> (last_hidden_state (B, L, width), pooled (B, width)), float32.
+
+    ``pad_mask`` (B, L) marks real tokens with 1 (the tokenizer's
+    ``attention_mask``): padded keys are masked out of every attention row, on
+    top of the causal mask (both additive -1e9 on the float32 logits, as
+    JAX's). ``pooled`` is the final-LN state at each row's first EOS token."""
+
+    def __init__(self, cfg: CLIPTextConfig = CLIPTextConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.width))
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.max_length, cfg.width))
+        for i in range(cfg.layers):
+            self.add_module(f"layer_{i}", EncoderLayer(cfg.width, cfg.heads, cfg.mlp_ratio, dtype=cfg.dtype))
+        self.final_ln = LayerNormF32(cfg.width)
+
+    def forward(self, ids: torch.Tensor, pad_mask: torch.Tensor = None):
+        cfg = self.cfg
+        dt = cfg.dtype
+        ids = ids.to(device=self.token_embedding.device, dtype=torch.long)
+        b, n = ids.shape
+        x = self.token_embedding[ids].to(dt) + self.position_embedding[:n].to(dt)[None]
+        ar = torch.arange(n, device=ids.device)
+        neg = torch.tensor(-1e9, dtype=torch.float32, device=ids.device)
+        zero = torch.zeros((), dtype=torch.float32, device=ids.device)
+        bias = torch.where(ar[:, None] >= ar[None, :], zero, neg)[None, None]
+        if pad_mask is not None:
+            pad = torch.as_tensor(pad_mask, device=ids.device)
+            bias = bias + torch.where(pad > 0, zero, neg)[:, None, None, :]
+        for i in range(cfg.layers):
+            x = getattr(self, f"layer_{i}")(x, bias=bias)
+        x = self.final_ln(x)
+        eos_pos = torch.argmax((ids == cfg.eos_token_id).to(torch.int32), dim=1)  # the first EOS
+        pooled = x[torch.arange(b, device=ids.device), eos_pos]
+        return x.to(torch.float32), pooled.to(torch.float32)
+
+
+class CLIPTextEncoder(nn.Module):
+    """:class:`CLIPTextTower` plus the bias-free ``text_projection`` into the
+    shared CLIP space: ids -> (hidden, pooled, projected), float32."""
+
+    def __init__(self, cfg: CLIPTextConfig = CLIPTextConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.text = CLIPTextTower(cfg)
+        self.text_projection = Dense(cfg.width, cfg.projection_dim, bias=False, dtype=cfg.dtype)
+
+    def forward(self, ids: torch.Tensor, pad_mask: torch.Tensor = None):
+        hidden, pooled = self.text(ids, pad_mask=pad_mask)
+        return hidden, pooled, self.text_projection(pooled.to(self.cfg.dtype)).to(torch.float32)
+
+
+def clip_similarity_logits(text_embeds: torch.Tensor, image_embeds: torch.Tensor, logit_scale) -> torch.Tensor:
+    """Cosine-similarity logits, exp(logit_scale) * (v / |v|) @ (t / |t|)^T:
+    logits_per_image (B_img, B_txt)."""
+    t = text_embeds / torch.linalg.vector_norm(text_embeds, dim=-1, keepdim=True)
+    v = image_embeds / torch.linalg.vector_norm(image_embeds, dim=-1, keepdim=True)
+    return torch.exp(torch.as_tensor(logit_scale, dtype=v.dtype, device=v.device)) * (v @ t.T)
+
+
+class CLIPImageEmbedderLegacy(nn.Module):
+    """The 1024-d variant (REFace's ``FrozenCLIPImageEmbedder``): the pooled
+    vision feature -> 5 width-1024 mapper blocks -> ``final_ln``, with no
+    ``visual_projection``; (B, 1, width) float32."""
+
+    def __init__(self, cfg: CLIPVisionConfig = CLIPVisionConfig(), mapper_layers: int = 5):
+        super().__init__()
+        self.cfg = cfg
+        self.mapper_layers = mapper_layers
+        self.vision = CLIPVisionTower(cfg)
+        for i in range(mapper_layers):
+            self.add_module(f"mapper_{i}", MapperBlock(cfg.width, heads=1, dtype=cfg.dtype))
+        self.final_ln = LayerNormF32(cfg.width)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        z = self.vision(pixels)[:, None, :]
+        for i in range(self.mapper_layers):
+            z = getattr(self, f"mapper_{i}")(z)
+        return self.final_ln(z).to(torch.float32)

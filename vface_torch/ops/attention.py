@@ -181,13 +181,16 @@ def fuse_qkv(
 
 
 def multi_head_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, dtype=None
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, dtype=None,
+    bias: torch.Tensor = None,
 ) -> torch.Tensor:
     """Softmax attention over (B, N, D), D = num_heads * d_head.
 
     Both products take the operands in ``dtype`` and accumulate in float32
     (written as float32 products of the rounded operands); the softmax runs in
     float32 and its probabilities are rounded to ``dtype`` before the P·V product.
+    ``bias``: an additive float32 logit bias broadcastable to (B, H, Nq, Nk)
+    (the CLIP text tower's causal and padding masks).
     """
     dtype = dtype or q.dtype
     b, nq, d = q.shape
@@ -199,6 +202,8 @@ def multi_head_attention(
     kh = k.reshape(b, nk, h, dh).transpose(1, 2).to(torch.float32)
     vh = v.reshape(b, nk, h, dh).transpose(1, 2).to(torch.float32)
     sim = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    if bias is not None:
+        sim = sim + bias.to(torch.float32)
     attn = torch.softmax(sim, dim=-1).to(dtype).to(torch.float32)
     out = torch.matmul(attn, vh).to(dtype)
     return out.transpose(1, 2).reshape(b, nq, d)

@@ -13,8 +13,11 @@ Port of ``vface_tpu/runtime/checkpoint.py``:
   Same JSON layout as the JAX package's (``{"windows": {"<start>": {"frames",
   "outputs", "ts"}}, "created", "meta"}``), written atomically (tmp + rename);
   a ``meta`` fingerprint that differs from the file's discards its progress.
-* :func:`load_params_npz`: a flat npz that the JAX package's
-  ``save_params_npz`` wrote (``/``-joined Flax paths, e.g.
+* :func:`save_params_npz`: a tree of arrays under the Flax paths (what the
+  converters of :mod:`vface_torch.utils.torch_convert` and
+  :mod:`vface_torch.utils.sd_convert` give) -> the flat npz of the JAX
+  package's ``save_params_npz``, which both packages' ``load_params_npz`` read;
+* :func:`load_params_npz`: a flat npz that ``save_params_npz`` wrote (``/``-joined Flax paths, e.g.
   ``unet/in_0_0_res/in_conv/Conv_0/kernel``) -> the port's state dicts,
   through :func:`vface_torch.utils.convert.from_flax_params` and
   :func:`~vface_torch.utils.convert.from_flax_aux`.
@@ -116,6 +119,26 @@ class VideoProgressManifest:
 
     def completed_frames(self) -> int:
         return sum(w["frames"] for w in self.data.get("windows", {}).values())
+
+
+def save_params_npz(path: str, params) -> None:
+    """A parameter tree (nested mappings, lists or tuples of arrays) -> a flat npz
+    with one array per leaf under its ``/``-joined path (a sequence's index
+    as its name), as the JAX package's ``save_params_npz`` writes it."""
+    arrays = {}
+
+    def walk(node, path):
+        if hasattr(node, "items"):
+            for key, sub in node.items():
+                walk(sub, path + [str(key)])
+        elif isinstance(node, (list, tuple)):
+            for i, sub in enumerate(node):
+                walk(sub, path + [str(i)])
+        else:
+            arrays["/".join(path)] = node.detach().cpu().numpy() if isinstance(node, torch.Tensor) else np.asarray(node)
+
+    walk(params, [])
+    np.savez(path, **arrays)
 
 
 def read_flat_npz(path) -> dict:

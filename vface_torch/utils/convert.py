@@ -8,11 +8,12 @@ naming the auto-named ``GroupNorm32_0`` of the VAE attention ``norm``, and
 renaming the leaf:
 
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in);
-* Conv ``kernel`` HWIO -> ``weight`` OIHW;
+* Conv ``kernel`` HWIO -> ``weight`` OIHW (a 3-D conv's DHWIO -> OIDHW);
 * GroupNorm / LayerNorm / frozen-BN ``scale`` -> ``weight``; ``bias`` stays
   ``bias``, and so do the conditioner's other leaves (CLIP's
-  ``class_embedding`` and ``position_embedding``, the ``learnable_vector``,
-  PReLU ``alpha``, frozen-BN ``mean`` and ``var``).
+  ``class_embedding``, ``position_embedding`` and the text tower's
+  ``token_embedding``, the ``learnable_vector``, PReLU ``alpha``, frozen-BN
+  ``mean`` and ``var``) and the VQ codebook's ``embedding``.
 
 The training nets convert with the same walk: the bundle's optional
 ``landmark_head`` (:class:`~vface_torch.preprocess.landmarks.UNetLandmarkHead`)
@@ -51,7 +52,7 @@ import torch
 _DROP = {"Conv_0", "Dense_0", "GroupNorm_0", "LayerNorm_0"}
 _RENAME = {"GroupNorm32_0": "norm"}
 _KEEP = {"bias", "mean", "var", "alpha", "class_embedding", "position_embedding", "learnable_vector",
-         "other_learnable_vector"}
+         "other_learnable_vector", "token_embedding", "embedding"}
 PARTS = ("unet", "vae", "cond", "landmark_head")
 AUX_PARTS = ("bisenet", "raft", "landmark", "detector")
 
@@ -62,6 +63,8 @@ def _leaf(name: str, arr: np.ndarray):
             return "weight", arr.T
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:  # Conv3d: DHWIO -> OIDHW
+            return "weight", arr.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"kernel of rank {arr.ndim}")
     if name == "scale":
         return "weight", arr
