@@ -79,7 +79,8 @@ Phases, one line each:
   9. train: the REFace training step (``make_optimizer`` / ``make_train_step``)
      at full width, batch 1 at 512^2, the reference operating point (4-step
      DDIM reconstruction with the ArcFace ID loss, LPIPS off), CLIP ViT-L/14
-     and IRSE50 in the conditioner: one warm-up step and 5 timed steps, ms per
+     and IRSE50 in the conditioner: one warm-up step and 3 timed steps (cut
+     from 5 for time), ms per
      step, peak memory, the loss terms and the kernels' launches per step;
  10. train_reference: one full-width step's UNet gradients with the kernels
      and with their plain versions, relative L2 error, and every trainable
@@ -98,8 +99,8 @@ Phases, one line each:
  10d. train_cli: the training CLI (``vface_torch.scripts.train.main``) in
      process at full width on a synthetic CelebA-HQ-layout directory the
      script writes (6 renders of ``synthetic_faces.render_face`` at 512^2 with
-     class maps): 4 steps (log_every 1, image_log_every 2, ckpt_every 4: one
-     save, cut from two for time; the ``--resume`` run that followed is cut
+     class maps): 3 steps (log_every 1, image_log_every 2, ckpt_every 3: one
+     save, cut from two for time, and from 4 steps; the ``--resume`` run that followed is cut
      for time and disk writes, and mesh_train reads a ``last`` back instead): ms per
      step (the first step and those after an image log or a save left out),
      peak memory, the loss terms, launches per step, checkpoint bytes and
@@ -107,8 +108,9 @@ Phases, one line each:
      state's numel) against what the temporary directory has; frozen
      parameters as the seeded init made them;
  10e. racecheck: K2's fused kernel's a*g barrier: copies of ``geglu_ff.cu``
-     without it (and one warp's epilogue delayed) and with the delay alone,
-     against the shipped kernel; ``compute-sanitizer --tool racecheck`` where
+     without it (and one warp's epilogue delayed) and with the delay alone
+     (built beside the kernels in phase build), against the shipped kernel,
+     one launch each at once; ``compute-sanitizer --tool racecheck`` where
      the toolkit ships it;
  11. (``--profile PATH``, ``--profile-train PATH``) CUDA time by kernel of one
      sampling UNet eval (and the device time of its feed-forwards: K2's sites,
@@ -221,8 +223,24 @@ Phases, one line each:
      reads it;
  12f. mesh_cli (inside cli): the video CLI under ``torchrun --standalone
      --nproc_per_node 1`` with ``--mesh_data 1`` and with ``--mesh_frames 1``
-     on pair A, its frames against run A's (1 level in the PNGs, 2 in the
-     Y4M), frames/s and peak memory;
+     on pair A, the two at once, its frames against run A's (1 level in the
+     PNGs, 2 in the Y4M), frames/s and peak memory;
+ 12g. hires (after image, on its model; ``phase_hires_kernels`` adds the
+     attention kernels' rows at ds4's head width 160 to the kernels phase: K1
+     at (2, 1024), (8, 1024), (6, 576), (12, 576); K4, K6, K5 at (1, 576)
+     and (1, 1024); K7 at (1, 1024); K8, K4, K6 and K7 on fp32 at (1, 1024)
+     and (12, 576), equal bit for bit; K5 on fp32 at (1, 576) and (1, 1024)): SD-v1
+     above 512^2, where the ds4 self-attention takes the kernels at dh 160,
+     counts reset before each run and launches at dh 160 read after it:
+     ``swap_image_batch`` at 1024^2, b = 1, 10 steps, against the plain
+     versions within 3e-2 relative L2; ``swap_window`` on 6 frames at 768^2,
+     8 + 8 steps, every kernel call site held to its plain version; one bf16
+     train step at 768^2 (b = 1; it peaks near 58 GiB, and 1024^2's 1.8x the
+     pixels would pass 80 GB), its UNet
+     gradients within 3e-2 of the plain path's; and, in phase fp32_unet,
+     one fp32 UNet eval at 768^2 (b = 2) and one fp32 loss + backward there
+     (b = 1, K5's fp32 kernels at dh 160), each within 1e-3 of the plain
+     path; seconds, peak memory;
  13. the card line, the ``kernels`` JSON line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (the port's float32 ops,
@@ -387,6 +405,7 @@ def phase_build() -> None:
     from vface_torch.ops import _native
 
     t0 = time.perf_counter()
+    _RACECHECK_BUILDS["builds"] = _start_racecheck_builds()
     built = _native.build()
     log("build", sources=",".join(_native.SOURCES), built=",".join(built) or "none",
         seconds=f"{time.perf_counter() - t0:.1f}")
@@ -413,11 +432,11 @@ def phase_build() -> None:
             if "arning" in line or "Performance Loss" in line:
                 log("ptxas_warning", source=name, line=line.strip())
     smem = _native.function("flash_attention", "vface_flash_attention_smem_bytes", [ctypes.c_int] * 2)
-    log("k1_dynamic_smem", **{f"dh{dh}_nc{nc}": smem(dh, nc) for dh in (8, 40, 80) for nc in (2, 3)})
+    log("k1_dynamic_smem", **{f"dh{dh}_nc{nc}": smem(dh, nc) for dh in (8, 40, 80, 160) for nc in (2, 3)})
     smem = _native.function("flash_attention_bwd", "vface_flash_attention_bwd_smem_bytes", [ctypes.c_int])
-    log("k5_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (8, 40, 80)})
+    log("k5_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (8, 40, 80, 160)})
     smem = _native.function("flash_attention_f32", "vface_flash_attention_f32_smem_bytes", [ctypes.c_int])
-    log("k8_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (16, 32, 40, 80)})
+    log("k8_dynamic_smem", **{f"dh{dh}": smem(dh) for dh in (16, 32, 40, 80, 160)})
     smem = _native.function("geglu_ff", "vface_geglu_ff_smem_bytes", [ctypes.c_int] * 3)
     log("geglu_dynamic_smem", **{f"fused_c{c}_tm{tm}": smem(c, tm, 0) for c, tm in ((64, 128), (320, 64), (320, 128))},
         **{f"gemm{gm}": smem(0, 128, gm) for gm in (1, 2)})
@@ -590,15 +609,16 @@ def checked_sites(phase: str, expect=None):
         raise SystemExit(f"chip_smoke: the {phase} path called no {missing} kernel")
 
 
-def k1_rows(batch: int, randn) -> list:
-    """K1 at the two self-attention sites it serves, ds1 (dh 40) and ds2 (dh 80),
-    at ``batch``: its rows (the library column is SDPA)."""
+def k1_rows(batch: int, randn, sites=((4096, 320), (1024, 640))) -> list:
+    """K1 at ``batch`` at the self-attention sites ``sites`` ((tokens, channels),
+    8 heads; by default ds1, dh 40, and ds2, dh 80): its rows (the library
+    column is SDPA)."""
     import torch.nn.functional as F
 
     from vface_torch.ops import flash_attention as FA
 
     out = []
-    for n, c in ((4096, 320), (1024, 640)):
+    for n, c in sites:
         h = 8
         dh = c // h
         q, k, v = randn(batch, n, c), randn(batch, n, c), randn(batch, n, c)
@@ -725,8 +745,7 @@ def kernel_counts() -> dict:
 def reset_counts() -> None:
     from vface_torch.ops import flash_attention as FA, geglu_ff as FF, gn_sums as GN
 
-    for name in FA.LAUNCHES:
-        FA.LAUNCHES[name] = 0
+    FA.DH_LAUNCHES.clear()
     FF.LAUNCHES = 0
     FF.WIDE_LAUNCHES = 0
     FF.SPLIT_LAUNCHES = 0
@@ -1053,95 +1072,103 @@ def phase_train_kernels() -> dict:
     one SDPA forward (K4), the autograd backward of SDPA's output (K5), SDPA
     on fp32 inputs (K6)."""
     import torch
-    import torch.nn.functional as F
-
-    from vface_torch.ops import flash_attention as FA
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
     rows = {"flash_attention_stats": [], "flash_attention_bwd": [], "flash_attention_fp32": []}
-    fwd_src = "vface_torch/csrc/flash_attention.cu"
     for nq, nk, c in ((4096, 4096, 320), (1024, 1024, 640), (RAGGED_NQ, RAGGED_NK, 320)):
-        h, b = 8, 1
-        dh = c // h
-        q, do = randn(b, nq, c), randn(b, nq, c)
-        k, v = randn(b, nk, c), randn(b, nk, c)
-        shape = _shape(b, nq, nk, c, h)
-        split = lambda t: t.view(b, -1, h, dh).transpose(1, 2)
-        n2dh = float(b * h * nq * nk * dh)
-        act_q, act_k = q.numel() * 2, k.numel() * 2  # bytes of one bf16 query-side / key-side tensor
-        stat = b * h * nq * 4  # bytes of one fp32 (B*H, Nq) statistic
-
-        out, m, l = FA.flash_attention_stats(q, k, v, h)
-        want, wm, wl = FA.flash_attention_stats_ref(q, k, v, h)
-        torch.cuda.synchronize()
-        rel_ml = max(((m - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(),
-                     ((l - wl).abs() / wl).max().item())
-        if not rel_ml <= 1e-5:
-            raise SystemExit(f"chip_smoke: flash_attention_stats m/l disagree: {rel_ml} > 1e-5")
-        if not torch.equal(out, FA.flash_attention(q, k, v, h)):
-            raise SystemExit("chip_smoke: flash_attention_stats's output is not K1's bit for bit")
-        if nq == nk:  # K4's rows: the training sites
-            rows["flash_attention_stats"].append(_row(
-                "flash_attention_stats", "cuda", fwd_src, "vface_tpu/ops/pallas_attention.py:658", _errs(out, want),
-                ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
-                cuda_ms(lambda: FA.flash_attention_stats(q, k, v, h)),
-                cuda_ms(lambda: FA.flash_attention_stats_ref(q, k, v, h), reps=3, warmup=1),
-                cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))),
-                bound(4.0 * n2dh, 2 * act_q + 2 * act_k + 2 * stat), shape, exp_floor(b * h * nq * nk)))
-        log("kernel_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05",
-            equals_k1="bitwise")
-
-        o6 = FA.flash_attention_fp32(q, k, v, h)
-        want6 = FA.flash_attention_fp32_ref(q, k, v, h)
-        torch.cuda.synchronize()
-        # the yardstick: K4's plain version, which rounds P to bf16 alone
-        precision_gate("flash_attention_fp32", shape, o6, want6, want)
-        qf, kf, vf = (split(t).float() for t in (q, k, v))
-        rows["flash_attention_fp32"].append(_row(
-            "flash_attention_fp32", "cuda", fwd_src, "vface_tpu/ops/pallas_attention.py:143", _errs(o6, want6),
-            ("abs", 2 * bf16_ulp(want6.float().abs().max().item())),
-            cuda_ms(lambda: FA.flash_attention_fp32(q, k, v, h)),
-            cuda_ms(lambda: FA.flash_attention_fp32_ref(q, k, v, h), reps=3, warmup=1),
-            cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
-            bound(4.0 * n2dh, 2 * act_q + 2 * act_k), shape))
-        del qf, kf, vf
-
-        dd = FA.rowsum_do_o(do, o6, h)
-        got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
-        again = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
-        want5 = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, g) for a, g in zip(again, got))
-        # each gradient against 2 ulps of its own peak; the row reports the worst margin
-        ratios = [_errs(gi, wi)[0] / (2 * bf16_ulp(wi.float().abs().max().item())) for gi, wi in zip(got, want5)]
-        worst = max(range(3), key=lambda i: ratios[i])
-        errs = _errs(got[worst], want5[worst])
-        dq_ms = cuda_ms(lambda: FA._launch_bwd("flash_attention_bwd_dq", "vface_flash_attention_bwd_dq_bf16",
-                                               FA._DQ_ARGS, q, k, v, do, h, (m, l, dd), (again[0],)))
-        dkv_ms = cuda_ms(lambda: FA._launch_bwd("flash_attention_bwd_dkv", "vface_flash_attention_bwd_dkv_bf16",
-                                                FA._DKV_ARGS, q, k, v, do, h, (m, l, dd), again[1:]))
-        log("kernel_bwd_check", shape=shape, dq_dk_dv_err_over_tol=",".join(f"{r:.3f}" for r in ratios),
-            two_launches="bitwise" if same else "differ", dq_ms=f"{dq_ms:.4f}", dkv_ms=f"{dkv_ms:.4f}")
-        if not same:
-            raise SystemExit("chip_smoke: two launches of flash_attention_bwd differ")
-        yard = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h, round_p=True)
-        for gname, gi, wi, yi in zip(("dq", "dk", "dv"), got, want5, yard):
-            precision_gate(f"flash_attention_bwd.{gname}", shape, gi, wi, yi)
-        leaves = [split(t).detach().requires_grad_(True) for t in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves)
-        dsplit = split(do)
-        rows["flash_attention_bwd"].append(_row(
-            "flash_attention_bwd", "cuda", "vface_torch/csrc/flash_attention_bwd.cu",
-            "vface_tpu/ops/pallas_attention.py:444", errs,
-            ("abs", 2 * bf16_ulp(want5[worst].float().abs().max().item())),
-            cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)),
-            cuda_ms(lambda: FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h), reps=3, warmup=1),
-            cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
-            bound(10.0 * n2dh, 3 * act_q + 4 * act_k + 3 * stat), shape))
-        del leaves, sdpa_out, got, again, want5, yard
+        _train_rows(rows, 1, nq, nk, c, 8, randn)
     return rows
+
+
+def _train_rows(rows: dict, b: int, nq: int, nk: int, c: int, h: int, randn) -> None:
+    """K4 (where Nq = Nk), K6 and K5 at (b, nq over nk, c) with h heads on
+    bf16 ``randn`` inputs, gated as :func:`phase_train_kernels` says; their
+    rows go into ``rows``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vface_torch.ops import flash_attention as FA
+
+    fwd_src = "vface_torch/csrc/flash_attention.cu"
+    dh = c // h
+    q, do = randn(b, nq, c), randn(b, nq, c)
+    k, v = randn(b, nk, c), randn(b, nk, c)
+    shape = _shape(b, nq, nk, c, h)
+    split = lambda t: t.view(b, -1, h, dh).transpose(1, 2)
+    n2dh = float(b * h * nq * nk * dh)
+    act_q, act_k = q.numel() * 2, k.numel() * 2  # bytes of one bf16 query-side / key-side tensor
+    stat = b * h * nq * 4  # bytes of one fp32 (B*H, Nq) statistic
+
+    out, m, l = FA.flash_attention_stats(q, k, v, h)
+    want, wm, wl = FA.flash_attention_stats_ref(q, k, v, h)
+    torch.cuda.synchronize()
+    rel_ml = max(((m - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(),
+                 ((l - wl).abs() / wl).max().item())
+    if not rel_ml <= 1e-5:
+        raise SystemExit(f"chip_smoke: flash_attention_stats m/l disagree: {rel_ml} > 1e-5")
+    if not torch.equal(out, FA.flash_attention(q, k, v, h)):
+        raise SystemExit("chip_smoke: flash_attention_stats's output is not K1's bit for bit")
+    if nq == nk:  # K4's rows: the training sites
+        rows["flash_attention_stats"].append(_row(
+            "flash_attention_stats", "cuda", fwd_src, "vface_tpu/ops/pallas_attention.py:658", _errs(out, want),
+            ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
+            cuda_ms(lambda: FA.flash_attention_stats(q, k, v, h)),
+            cuda_ms(lambda: FA.flash_attention_stats_ref(q, k, v, h), reps=3, warmup=1),
+            cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v))),
+            bound(4.0 * n2dh, 2 * act_q + 2 * act_k + 2 * stat), shape, exp_floor(b * h * nq * nk)))
+    log("kernel_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05",
+        equals_k1="bitwise")
+
+    o6 = FA.flash_attention_fp32(q, k, v, h)
+    want6 = FA.flash_attention_fp32_ref(q, k, v, h)
+    torch.cuda.synchronize()
+    # the yardstick: K4's plain version, which rounds P to bf16 alone
+    precision_gate("flash_attention_fp32", shape, o6, want6, want)
+    qf, kf, vf = (split(t).float() for t in (q, k, v))
+    rows["flash_attention_fp32"].append(_row(
+        "flash_attention_fp32", "cuda", fwd_src, "vface_tpu/ops/pallas_attention.py:143", _errs(o6, want6),
+        ("abs", 2 * bf16_ulp(want6.float().abs().max().item())),
+        cuda_ms(lambda: FA.flash_attention_fp32(q, k, v, h)),
+        cuda_ms(lambda: FA.flash_attention_fp32_ref(q, k, v, h), reps=3, warmup=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
+        bound(4.0 * n2dh, 2 * act_q + 2 * act_k), shape))
+    del qf, kf, vf
+
+    dd = FA.rowsum_do_o(do, o6, h)
+    got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+    again = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+    want5 = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, g) for a, g in zip(again, got))
+    # each gradient against 2 ulps of its own peak; the row reports the worst margin
+    ratios = [_errs(gi, wi)[0] / (2 * bf16_ulp(wi.float().abs().max().item())) for gi, wi in zip(got, want5)]
+    worst = max(range(3), key=lambda i: ratios[i])
+    errs = _errs(got[worst], want5[worst])
+    dq_ms = cuda_ms(lambda: FA._launch_bwd("flash_attention_bwd_dq", "vface_flash_attention_bwd_dq_bf16",
+                                           FA._DQ_ARGS, q, k, v, do, h, (m, l, dd), (again[0],)))
+    dkv_ms = cuda_ms(lambda: FA._launch_bwd("flash_attention_bwd_dkv", "vface_flash_attention_bwd_dkv_bf16",
+                                            FA._DKV_ARGS, q, k, v, do, h, (m, l, dd), again[1:]))
+    log("kernel_bwd_check", shape=shape, dq_dk_dv_err_over_tol=",".join(f"{r:.3f}" for r in ratios),
+        two_launches="bitwise" if same else "differ", dq_ms=f"{dq_ms:.4f}", dkv_ms=f"{dkv_ms:.4f}")
+    if not same:
+        raise SystemExit("chip_smoke: two launches of flash_attention_bwd differ")
+    yard = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h, round_p=True)
+    for gname, gi, wi, yi in zip(("dq", "dk", "dv"), got, want5, yard):
+        precision_gate(f"flash_attention_bwd.{gname}", shape, gi, wi, yi)
+    leaves = [split(t).detach().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    dsplit = split(do)
+    rows["flash_attention_bwd"].append(_row(
+        "flash_attention_bwd", "cuda", "vface_torch/csrc/flash_attention_bwd.cu",
+        "vface_tpu/ops/pallas_attention.py:444", errs,
+        ("abs", 2 * bf16_ulp(want5[worst].float().abs().max().item())),
+        cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)),
+        cuda_ms(lambda: FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h), reps=3, warmup=1),
+        cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
+        bound(10.0 * n2dh, 3 * act_q + 4 * act_k + 3 * stat), shape))
+    del leaves, sdpa_out, got, again, want5, yard
 
 
 def phase_f32_kernels() -> dict:
@@ -1164,9 +1191,7 @@ def phase_f32_kernels() -> dict:
     on the log line. Library: SDPA's autograd backward on fp32 inputs (K5), the
     unfused route on fp32 (two cuBLAS SGEMMs, TF32 off; K2, K9)."""
     import torch
-    import torch.nn.functional as F
 
-    from vface_torch.ops import flash_attention as FA
     from vface_torch.ops import geglu_ff as FF
 
     dev = torch.device("cuda")
@@ -1174,45 +1199,7 @@ def phase_f32_kernels() -> dict:
     randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
     rows = {"flash_attention_bwd_f32": [], "geglu_ff_f32": [], "geglu_ff_wide_f32": []}
     for nq, nk, c in ((4096, 4096, 320), (1024, 1024, 640), (RAGGED_NQ, RAGGED_NK, 320)):
-        h, b = 8, 1
-        dh = c // h
-        q, do = randn(b, nq, c), randn(b, nq, c)
-        k, v = randn(b, nk, c), randn(b, nk, c)
-        shape = _shape(b, nq, nk, c, h) + " fp32"
-        _, m, l = FA.flash_attention_stats(q, k, v, h)
-        dd = FA.rowsum_do_o(do, FA.flash_attention_fp32(q, k, v, h), h)
-        got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
-        again = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
-        want = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, g) for a, g in zip(again, got))
-        rels = [_errs(gi, wi)[1] for gi, wi in zip(got, want)]
-        worst = max(range(3), key=lambda i: rels[i])
-        planes = FA._bwd_f32_planes(q, k, v, do, h)
-        split_ms = cuda_ms(lambda: FA._bwd_f32_planes(q, k, v, do, h))
-        dq_ms = cuda_ms(lambda: FA._launch_bwd_f32("flash_attention_bwd_dq_f32", planes, q, k, h, (m, l, dd),
-                                                   (again[0],)))
-        dkv_ms = cuda_ms(lambda: FA._launch_bwd_f32("flash_attention_bwd_dkv_f32", planes, q, k, h, (m, l, dd),
-                                                    again[1:]))
-        log("kernel_bwd_f32_check", shape=shape.replace(" ", "_"), dq_dk_dv_rel_err=",".join(f"{r:.3e}" for r in rels),
-            tol="1e-05", two_launches="bitwise" if same else "differ", split_ms=f"{split_ms:.4f}",
-            dq_ms=f"{dq_ms:.4f}", dkv_ms=f"{dkv_ms:.4f}")
-        if not same:
-            raise SystemExit("chip_smoke: two launches of the fp32 flash_attention_bwd differ")
-        split = lambda t: t.view(b, -1, h, dh).transpose(1, 2)
-        leaves = [split(t).detach().requires_grad_(True) for t in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves)
-        dsplit = split(do)
-        flops = 10.0 * b * h * nq * nk * dh  # S, dP, dQ, dK, dV
-        nbytes = (3 * q.numel() + 4 * k.numel()) * 4 + 3 * b * h * nq * 4
-        rows["flash_attention_bwd_f32"].append(_row(
-            "flash_attention_bwd_f32", "cuda", "vface_torch/csrc/flash_attention_bwd_f32.cu",
-            "vface_tpu/ops/pallas_attention.py:444", _errs(got[worst], want[worst]), ("rel", 1e-5),
-            cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)),
-            cuda_ms(lambda: FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h), reps=3, warmup=1),
-            cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
-            tf32x3_bound(flops, nbytes, 2 * b * h * nq * nk), shape, ffma=ffma_ms(flops)))
-        del q, k, v, do, got, again, want, planes, leaves, sdpa_out
+        _bwd_f32_row(rows, 1, nq, nk, c, 8, randn)
 
     for name, fn, line, sites in (("geglu_ff_f32", FF.geglu_ff, 70, ((12 * 4096, 320), (12 * 1024, 640))),
                                   ("geglu_ff_wide_f32", FF.geglu_ff_wide, 120, ((12 * 256, 1280), (12 * 64, 1280)))):
@@ -1235,6 +1222,54 @@ def phase_f32_kernels() -> dict:
             del args, got, again, want
     torch.cuda.empty_cache()
     return rows
+
+
+def _bwd_f32_row(rows: dict, b: int, nq: int, nk: int, c: int, h: int, randn) -> None:
+    """K5 on fp32 at (b, nq over nk, c), h heads, on fp32 ``randn`` inputs,
+    gated as :func:`phase_f32_kernels` says; its row goes into ``rows``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vface_torch.ops import flash_attention as FA
+
+    dh = c // h
+    q, do = randn(b, nq, c), randn(b, nq, c)
+    k, v = randn(b, nk, c), randn(b, nk, c)
+    shape = _shape(b, nq, nk, c, h) + " fp32"
+    _, m, l = FA.flash_attention_stats(q, k, v, h)
+    dd = FA.rowsum_do_o(do, FA.flash_attention_fp32(q, k, v, h), h)
+    got = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+    again = FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)
+    want = FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, g) for a, g in zip(again, got))
+    rels = [_errs(gi, wi)[1] for gi, wi in zip(got, want)]
+    worst = max(range(3), key=lambda i: rels[i])
+    planes = FA._bwd_f32_planes(q, k, v, do, h)
+    split_ms = cuda_ms(lambda: FA._bwd_f32_planes(q, k, v, do, h))
+    dq_ms = cuda_ms(lambda: FA._launch_bwd_f32("flash_attention_bwd_dq_f32", planes, q, k, h, (m, l, dd),
+                                               (again[0],)))
+    dkv_ms = cuda_ms(lambda: FA._launch_bwd_f32("flash_attention_bwd_dkv_f32", planes, q, k, h, (m, l, dd),
+                                                again[1:]))
+    log("kernel_bwd_f32_check", shape=shape.replace(" ", "_"), dq_dk_dv_rel_err=",".join(f"{r:.3e}" for r in rels),
+        tol="1e-05", two_launches="bitwise" if same else "differ", split_ms=f"{split_ms:.4f}",
+        dq_ms=f"{dq_ms:.4f}", dkv_ms=f"{dkv_ms:.4f}")
+    if not same:
+        raise SystemExit("chip_smoke: two launches of the fp32 flash_attention_bwd differ")
+    split = lambda t: t.view(b, -1, h, dh).transpose(1, 2)
+    leaves = [split(t).detach().requires_grad_(True) for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves)
+    dsplit = split(do)
+    flops = 10.0 * b * h * nq * nk * dh  # S, dP, dQ, dK, dV
+    nbytes = (3 * q.numel() + 4 * k.numel()) * 4 + 3 * b * h * nq * 4
+    rows["flash_attention_bwd_f32"].append(_row(
+        "flash_attention_bwd_f32", "cuda", "vface_torch/csrc/flash_attention_bwd_f32.cu",
+        "vface_tpu/ops/pallas_attention.py:444", _errs(got[worst], want[worst]), ("rel", 1e-5),
+        cuda_ms(lambda: FA.flash_attention_bwd(q, k, v, do, m, l, dd, h)),
+        cuda_ms(lambda: FA.flash_attention_bwd_ref(q, k, v, do, m, l, dd, h), reps=3, warmup=1),
+        cuda_ms(lambda: torch.autograd.grad(sdpa_out, leaves, dsplit, retain_graph=True)),
+        tf32x3_bound(flops, nbytes, 2 * b * h * nq * nk), shape, ffma=ffma_ms(flops)))
+    del q, k, v, do, got, again, want, planes, leaves, sdpa_out
 
 
 def phase_k1_tiles() -> None:
@@ -1264,6 +1299,39 @@ def phase_k1_tiles() -> None:
                 picks_k6=FA.k1_consumers(b * h, n, dev, True, dh), **times)
             del q, k, v, out, m, l
     reset_counts()
+
+
+def _k7_bf16_row(rows: dict, b: int, nq: int, nk: int, c: int, h: int, randn) -> None:
+    """K7 at bf16 (K6's kernel with the stats epilogue) at (b, nq over nk, c),
+    h heads, on bf16 ``randn`` inputs, gated as :func:`phase_ops_kernels`
+    says (output equal to K6's bit for bit, m and l within 1e-5 relative, 2
+    bf16 ulps, the precision gate); its row goes into ``rows``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vface_torch.ops import flash_attention as FA
+
+    dh = c // h
+    q, k, v = randn(b, nq, c), randn(b, nk, c), randn(b, nk, c)
+    shape = _shape(b, nq, nk, c, h)
+    out, m, l = FA.flash_attention_v2_stats(q, k, v, h)
+    want, wm, wl = FA.flash_attention_v2_stats_ref(q, k, v, h)
+    torch.cuda.synchronize()
+    rel_ml = max(((m - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(), ((l - wl).abs() / wl).max().item())
+    bitwise = torch.equal(out, FA.flash_attention_fp32(q, k, v, h))
+    log("kernel_v2_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05", equals_k6=bitwise)
+    if not (rel_ml <= 1e-5 and bitwise):
+        raise SystemExit(f"chip_smoke: flash_attention_v2_stats's m/l disagree or its output is not K6's at {shape}")
+    precision_gate("flash_attention_v2_stats", shape, out, want, FA.flash_attention_stats_ref(q, k, v, h)[0])
+    split = lambda t: t.view(b, -1, h, dh).transpose(1, 2).float()
+    qf, kf, vf = split(q), split(k), split(v)
+    rows["flash_attention_v2_stats"].append(_row(
+        "flash_attention_v2_stats", "cuda", "vface_torch/csrc/flash_attention.cu",
+        "vface_tpu/ops/pallas_attention.py:302", _errs(out, want), ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
+        cuda_ms(lambda: FA.flash_attention_v2_stats(q, k, v, h)),
+        cuda_ms(lambda: FA.flash_attention_v2_stats_ref(q, k, v, h), reps=3, warmup=1),
+        cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
+        bound(4.0 * b * h * nq * nk * dh, (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * h * nq * 4), shape))
 
 
 def phase_ops_kernels() -> dict:
@@ -1300,30 +1368,7 @@ def phase_ops_kernels() -> dict:
     randn = lambda *s, dtype=torch.bfloat16, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(dtype)
     rows = {"flash_attention_v2_stats": [], "flash_attention_v1": [], "geglu_ff_wide": []}
     for nq, nk, c in ((4096, 4096, 320), (1024, 1024, 640), (RAGGED_NQ, RAGGED_NK, 320)):
-        h, b = 8, 1
-        dh = c // h
-        q, k, v = randn(b, nq, c), randn(b, nk, c), randn(b, nk, c)
-        shape = _shape(b, nq, nk, c, h)
-        out, m, l = FA.flash_attention_v2_stats(q, k, v, h)
-        want, wm, wl = FA.flash_attention_v2_stats_ref(q, k, v, h)
-        torch.cuda.synchronize()
-        rel_ml = max(((m - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(), ((l - wl).abs() / wl).max().item())
-        bitwise = torch.equal(out, FA.flash_attention_fp32(q, k, v, h))
-        log("kernel_v2_stats_check", shape=shape, m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05", equals_k6=bitwise)
-        if not (rel_ml <= 1e-5 and bitwise):
-            raise SystemExit("chip_smoke: flash_attention_v2_stats's m/l disagree or its output is not K6's")
-        precision_gate("flash_attention_v2_stats", shape, out, want, FA.flash_attention_stats_ref(q, k, v, h)[0])
-        split = lambda t: t.view(b, -1, h, dh).transpose(1, 2).float()
-        qf, kf, vf = split(q), split(k), split(v)
-        rows["flash_attention_v2_stats"].append(_row(
-            "flash_attention_v2_stats", "cuda", "vface_torch/csrc/flash_attention.cu",
-            "vface_tpu/ops/pallas_attention.py:302", _errs(out, want),
-            ("abs", 2 * bf16_ulp(want.float().abs().max().item())),
-            cuda_ms(lambda: FA.flash_attention_v2_stats(q, k, v, h)),
-            cuda_ms(lambda: FA.flash_attention_v2_stats_ref(q, k, v, h), reps=3, warmup=1),
-            cuda_ms(lambda: F.scaled_dot_product_attention(qf, kf, vf)),
-            bound(4.0 * b * h * nq * nk * dh, (2 * q.numel() + 2 * k.numel()) * 2 + 2 * b * h * nq * 4), shape))
-        del qf, kf, vf
+        _k7_bf16_row(rows, 1, nq, nk, c, 8, randn)
 
     for nq, nk in ((4096, 4096), (RAGGED_NQ, RAGGED_NK)):  # K7 on fp32 operands: the tf32 kernel
         h, b, c = 8, 1, 320
@@ -2376,7 +2421,11 @@ def phase_fp32_unet(smi: str, frames: int, seed: int) -> dict:
     latents) and one loss (MSE of epsilon against a seeded target) + backward
     at batch 1, counters reset before each; each held to the same call under
     :func:`plain_kernels` in relative L2 (epsilon; all UNet parameters'
-    gradients together). Returns the launches of both runs."""
+    gradients together). Then phase hires's fp32 part: one eval at
+    ``HIRES_WINDOW``^2 (b = 2) and one loss + backward there (b = 1), where
+    ds4's attention runs the tf32 kernel and K5's fp32 kernels at dh 160,
+    each within ``HIRES_F32_TOL`` of the plain path, with its launches at dh
+    160. Returns the launches of the two 512^2 runs."""
     import torch
 
     from vface_torch.models.ldm import ModelConfig, VFaceModel
@@ -2395,9 +2444,9 @@ def phase_fp32_unet(smi: str, frames: int, seed: int) -> dict:
     target = torch.randn((1, hl, hl, 4), generator=g, device="cuda")
     rel = lambda a, w: float((a - w).norm() / w.norm())
 
-    def loss_grads():
+    def loss_grads(x=x9[:1], tgt=target):
         unet.zero_grad(set_to_none=True)
-        loss = ((unet(x9[:1], ts[:1], ctx[:1]) - target) ** 2).mean()
+        loss = ((unet(x, ts[:1], ctx[:1]) - tgt) ** 2).mean()
         loss.backward()
         return float(loss), [torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
                              for p in unet.parameters()]
@@ -2440,12 +2489,60 @@ def phase_fp32_unet(smi: str, frames: int, seed: int) -> dict:
         grad_rel_l2_vs_plain=f"{e_grad:.3e}", tol=tol, finite=finite)
     log("fp32_unet_launches", run="eval", **{k: v for k, v in eval_launches.items() if v})
     log("fp32_unet_launches", run="loss_backward", **{k: v for k, v in train_launches.items() if v})
-    del unet, model, eps_k, eps_p, grads_k, grads_p
+    del eps_k, eps_p, grads_k, grads_p
+
+    # phase hires (e): one eval without a gradient at HIRES_WINDOW^2 (96^2
+    # latents), b = 2, and one loss + backward at b = 1: ds4's self-attention
+    # at dh 160 on the tf32 kernel, its gradient on K5's fp32 kernels
+    hh = HIRES_WINDOW // 8
+    x9h = torch.randn((2, hh, hh, 9), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        eps_h = unet(x9h, ts[:2], ctx[:2])
+    torch.cuda.synchronize()
+    hires_s, hires_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    hires_launches = kernel_counts()
+    wide = _check_wide("fp32 eval", hires_launches, ("flash_attention_v1",))
+    with torch.inference_mode(), plain_kernels():
+        eps_hp = unet(x9h, ts[:2], ctx[:2])
+    e_hires = rel(eps_h, eps_hp)
+    log("hires_fp32_eval", image=f"{HIRES_WINDOW}^2", latent=f"{hh}^2", batch=2, eval_s=f"{hires_s:.3f}",
+        peak_gib=f"{hires_peak:.2f}", eps_rel_l2_vs_plain=f"{e_hires:.3e}", tol=HIRES_F32_TOL,
+        finite=bool(torch.isfinite(eps_h).all()), **{k: v for k, v in hires_launches.items() if v}, **wide)
+    target_h = torch.randn((1, hh, hh, 4), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss_hk, grads_hk = loss_grads(x9h[:1], target_h)
+    torch.cuda.synchronize()
+    hires_train_s, hires_train_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    hires_train_launches = kernel_counts()
+    wide_t = _check_wide("fp32 loss + backward", hires_train_launches,
+                         ("flash_attention_stats_f32", "flash_attention_fp32_f32", "flash_attention_bwd_dq_f32",
+                          "flash_attention_bwd_dkv_f32"))
+    with plain_kernels():
+        loss_hp, grads_hp = loss_grads(x9h[:1], target_h)
+    unet.zero_grad(set_to_none=True)
+    e_hires_grad = math.sqrt(sum(float((a - w).norm()) ** 2 for a, w in zip(grads_hk, grads_hp))) / math.sqrt(
+        sum(float(w.norm()) ** 2 for w in grads_hp))
+    finite_h = bool(torch.isfinite(eps_h).all()) and all(bool(torch.isfinite(a).all()) for a in grads_hk)
+    log("hires_fp32_train", image=f"{HIRES_WINDOW}^2", latent=f"{hh}^2", batch=1, train_s=f"{hires_train_s:.3f}",
+        peak_gib=f"{hires_train_peak:.2f}", loss_kernels=f"{loss_hk:.7f}", loss_plain=f"{loss_hp:.7f}",
+        grad_rel_l2_vs_plain=f"{e_hires_grad:.3e}", tol=HIRES_F32_TOL, finite=finite_h,
+        **{k: v for k, v in hires_train_launches.items() if v}, **wide_t)
+    del unet, model, eps_h, eps_hp, grads_hk, grads_hp
     torch.cuda.empty_cache()
-    if not (finite and e_eps <= tol and e_grad <= tol):
+    if not (finite and e_eps <= tol and e_grad <= tol and finite_h and e_hires <= HIRES_F32_TOL
+            and e_hires_grad <= HIRES_F32_TOL):
         raise SystemExit("chip_smoke: the fp32 UNet's kernel path disagrees with its plain path")
     for run, launched, wanted in (("eval", eval_launches, F32_EVAL_KERNELS),
-                                  ("loss_backward", train_launches, F32_TRAIN_KERNELS)):
+                                  ("loss_backward", train_launches, F32_TRAIN_KERNELS),
+                                  ("hires_eval", hires_launches, F32_EVAL_KERNELS),
+                                  ("hires_loss_backward", hires_train_launches, F32_TRAIN_KERNELS)):
         missing = [k for k in wanted if launched[k] == 0]
         stray = [k for k in launched if k not in wanted and launched[k]]
         if missing or stray:
@@ -2472,7 +2569,7 @@ def train_batch(model, batch: int, seed: int, device="cuda") -> dict:
     }
 
 
-TRAIN_STEPS = 5  # timed steps after one warm-up step
+TRAIN_STEPS = 3  # timed steps after one warm-up step (cut from 5 for time)
 
 
 def phase_train(model, seed: int) -> dict:
@@ -2959,7 +3056,7 @@ def phase_cli(seed: int) -> None:
     log("cli_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
 
 
-TRAIN_CLI_STEPS, TRAIN_CLI_IMAGES = 4, 6  # steps, synthetic pairs
+TRAIN_CLI_STEPS, TRAIN_CLI_IMAGES = 3, 6  # steps (cut from 4 for time), synthetic pairs
 _STAGES = re.compile(r"^\[train\] stages (\{.*\})$", re.M)
 
 
@@ -2993,8 +3090,8 @@ def phase_train_cli(seed: int, resume: dict) -> dict:
     synthetic CelebA-HQ-layout directory: ``--resume`` from the ``last`` that
     phase mesh_train's two ranks saved (``resume``: its logdir and rank 0's
     parameter digest at exit), which the resumed model must hold bit for bit
-    as loaded, then 4 steps (log_every 1, image_log_every 2, ckpt_every 4:
-    one save). The frozen set must still be the seeded init's. Removes the
+    as loaded, then 3 steps (log_every 1, image_log_every 2, ckpt_every 3:
+    one save; cut from 4 for time). The frozen set must still be the seeded init's. Removes the
     logdir. Returns the launches per step."""
     import shutil
     import tempfile
@@ -3329,21 +3426,17 @@ _AG_BARRIER = "bar_sync(2 + rw, 128);  // the chunk's whole a*g is in place"
 _EPILOGUE = "__nv_bfloat16* hbuf = &sm.h[rw][ch & 1][0][0][0];"
 
 
-def phase_racecheck() -> None:
-    """K2's fused kernel's a*g barrier (the named barrier between a
-    warpgroup's epilogue writes of a*g and its second product's reads).
-    Builds copies of ``geglu_ff.cu``: one with the barrier removed and the
-    epilogue of each warpgroup's last warp delayed 50 us, one with the delay
-    alone. A launch of each at C = 320 (M = 4096, 128-row tiles) against the
-    shipped kernel: the delay alone must leave the output bit for bit, and
-    the phase reports whether the copy without the barrier differs (the check
-    fails that copy) or not. Then ``compute-sanitizer --tool racecheck`` on one
-    launch of the shipped kernel and of the copy, where the toolkit ships it
-    and it runs."""
+_RACECHECK_BUILDS: dict = {}  # phase_build starts racecheck's copies beside the kernels' builds
+
+
+def _start_racecheck_builds() -> tuple:
+    """Write :func:`phase_racecheck`'s two copies of ``geglu_ff.cu`` into a new
+    temporary directory and start their ``nvcc`` builds, each logging to a
+    file there; returns (directory, {copy: process}). At exit any build still
+    running is stopped and the directory removed."""
+    import atexit
     import shutil
     import tempfile
-
-    import torch
 
     from vface_torch.ops import _native
 
@@ -3354,30 +3447,71 @@ def phase_racecheck() -> None:
     variants = {"delay": src.replace(_EPILOGUE, delay),
                 "no_barrier": src.replace(_EPILOGUE, delay).replace(_AG_BARRIER, "// a*g barrier removed")}
     root = tempfile.mkdtemp(prefix="vface_racecheck_")
+    shutil.copy(_native.CSRC / "hopper.cuh", root)
+    procs = {}
+    for name, text in variants.items():
+        path = os.path.join(root, f"geglu_{name}.cu")
+        with open(path, "w") as fh:
+            fh.write(text)
+        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-o", os.path.join(root, f"lib{name}.so"), path]
+        with open(os.path.join(root, f"{name}.log"), "w") as out:
+            procs[name] = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+
+    def stop():
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+    atexit.register(stop)
+    return root, procs
+
+
+def phase_racecheck() -> None:
+    """K2's fused kernel's a*g barrier (the named barrier between a
+    warpgroup's epilogue writes of a*g and its second product's reads).
+    Builds copies of ``geglu_ff.cu`` (started in phase build, beside the
+    kernels' builds): one with the barrier removed and the
+    epilogue of each warpgroup's last warp delayed 50 us, one with the delay
+    alone. A launch of each at C = 320 (M = 4096, 128-row tiles) against the
+    shipped kernel, the three in processes of their own at once: the delay
+    alone must leave the output bit for bit, and
+    the phase reports whether the copy without the barrier differs (the check
+    fails that copy) or not. Then ``compute-sanitizer --tool racecheck`` on one
+    launch of the shipped kernel and of the copy, where the toolkit ships it
+    and it runs."""
+    import shutil
+
+    import torch
+
+    from vface_torch.ops import _native
+
+    root, procs = _RACECHECK_BUILDS.pop("builds", None) or _start_racecheck_builds()
     try:
-        shutil.copy(_native.CSRC / "hopper.cuh", root)
-        procs = {}
-        for name, text in variants.items():
-            path = os.path.join(root, f"geglu_{name}.cu")
-            with open(path, "w") as fh:
-                fh.write(text)
-            cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-o", os.path.join(root, f"lib{name}.so"), path]
-            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for name, proc in procs.items():
-            text = proc.communicate()[0].decode(errors="replace")
-            if proc.returncode:
+            if proc.wait():
+                text = open(os.path.join(root, f"{name}.log"), errors="replace").read()
                 raise SystemExit(f"chip_smoke: racecheck's {name} copy did not build:\n{text[-2000:]}")
         libs = {"shipped": str(_native.lib_path("geglu_ff")),
-                **{n: os.path.join(root, f"lib{n}.so") for n in variants}}
+                **{n: os.path.join(root, f"lib{n}.so") for n in procs}}
         script = os.path.join(root, "one_launch.py")
         with open(script, "w") as fh:
             fh.write(_ONE_LAUNCH)
+        runs = {name: subprocess.Popen([sys.executable, script, lib, "4096", os.path.join(root, f"{name}.pt")],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for name, lib in libs.items()}
         outs = {}
-        for name, lib in libs.items():
-            res = subprocess.run([sys.executable, script, lib, "4096", os.path.join(root, f"{name}.pt")],
-                                 capture_output=True, text=True, timeout=120)
-            if res.returncode:
-                raise SystemExit(f"chip_smoke: racecheck's launch of {name} failed:\n{res.stderr[-2000:]}")
+        for name, run in runs.items():
+            try:
+                err = run.communicate(timeout=120)[1]
+            except subprocess.TimeoutExpired:
+                for other in runs.values():
+                    other.kill()
+                    other.wait()
+                raise SystemExit(f"chip_smoke: racecheck's launch of {name} took over 120 s")
+            if run.returncode:
+                raise SystemExit(f"chip_smoke: racecheck's launch of {name} failed:\n{err[-2000:]}")
             outs[name] = torch.load(os.path.join(root, f"{name}.pt"))
         delay_equal = torch.equal(outs["delay"], outs["shipped"])
         nb_diff = (outs["no_barrier"].float() - outs["shipped"].float()).abs()
@@ -3400,6 +3534,8 @@ def phase_racecheck() -> None:
                 lines = [x.strip("= ").strip() for x in text.splitlines() if x.startswith("=========")]
                 log("racecheck_sanitizer", copy=name, rc=res.returncode, hazards=hazards[-1] if hazards else "n/a",
                     sanitizer_says=" | ".join(x for x in lines if x)[:1200] or text.strip()[-600:])
+                if "Device not supported" in text:  # it runs on no copy here: skip the second start
+                    break
             except subprocess.TimeoutExpired:
                 log("racecheck_sanitizer", copy=name, status="timed out after 300 s")
     finally:
@@ -3577,8 +3713,7 @@ def phase_image(model, seed: int) -> None:
         return g
 
     with torch.inference_mode():
-        src_emb = guided.safe_l2_normalize(model.conditioner.arcface(
-            guided.arcface_preprocess(x["src01"][:1] * (1 - x["keep"][:1]))))
+        src_emb = guided.id_embedding(model.conditioner.arcface, x["src01"][:1] * (1 - x["keep"][:1]))
     src_emb = src_emb.clone()
     guided.id_loss_grad = spied
     try:
@@ -4210,12 +4345,13 @@ finally:
 def phase_mesh_cli(root: str, config_a: str, base: list, frames_a, y4m_a) -> None:
     """Phase mesh_cli (inside phase cli, on its inputs): the video CLI under
     ``torchrun --standalone --nproc_per_node 1`` (NCCL, world size 1) with
-    ``--mesh_data 1`` and then ``--mesh_frames 1`` on pair A at the cli
-    phase's steps; the module runs through ``runpy`` in a wrapper that sets
-    the script's precision flags and prints the process's peak memory at its exit. The ``--mesh_data`` sink's PNGs
-    within 1 uint8 level of run A's and the ``--mesh_frames`` Y4M within 2
-    of run A's (its path keeps no sink, as the JAX package's); frames/s and
-    peak memory."""
+    ``--mesh_data 1`` and with ``--mesh_frames 1`` on pair A at the cli
+    phase's steps, the two torchruns at once (each holds ~24 GiB of the card;
+    their frames/s share it); the module runs through ``runpy`` in a wrapper
+    that sets the script's precision flags and prints the process's peak
+    memory at its exit. The ``--mesh_data`` sink's PNGs within 1 uint8 level
+    of run A's and the ``--mesh_frames`` Y4M within 2 of run A's (its path
+    keeps no sink, as the JAX package's); frames/s and peak memory."""
     import numpy as np
 
     from vface_torch.io.video import read_y4m
@@ -4225,26 +4361,47 @@ def phase_mesh_cli(root: str, config_a: str, base: list, frames_a, y4m_a) -> Non
         f.write(MESH_CLI_WRAPPER)
     env = dict(os.environ, PYTHONPATH=os.getcwd() + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("VFACE_PLATFORM", None)
+    runs = {}
     for flag in ("--mesh_data", "--mesh_frames"):
         outdir = os.path.join(root, "mesh" + flag.split("_")[1])
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", wrapper,
                "--config", config_a, "--outdir", outdir, *base, flag, "1"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        done = _DONE.search(proc.stdout)
-        peak = re.search(r"\[mesh_cli\] peak_gib=([\d.]+) (.*)", proc.stdout)
+        logs = tuple(open(f"{outdir}.{kind}.txt", "w+") for kind in ("out", "err"))
+        runs[flag] = (outdir, logs, subprocess.Popen(cmd, env=env, stdout=logs[0], stderr=logs[1], text=True))
+    t0 = time.perf_counter()
+    walls = {}
+    try:
+        while len(walls) < len(runs):
+            for flag, (_, _, proc) in runs.items():
+                if flag not in walls and proc.poll() is not None:
+                    walls[flag] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 600:
+                raise SystemExit(f"chip_smoke: the torchruns {sorted(set(runs) - set(walls))} took over 600 s")
+            time.sleep(0.2)
+    finally:
+        for _, _, proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for flag, (outdir, logs, proc) in runs.items():
+        for f in logs:
+            f.seek(0)
+        stdout, stderr = (f.read() for f in logs)
+        for f in logs:
+            f.close()
+        done = _DONE.search(stdout)
+        peak = re.search(r"\[mesh_cli\] peak_gib=([\d.]+) (.*)", stdout)
         launches = dict(kv.split("=") for kv in peak[2].split()) if peak else {}
-        if proc.returncode != 0 or done is None or "[fail]" in proc.stdout:
+        if proc.returncode != 0 or done is None or "[fail]" in stdout:
             raise SystemExit(f"chip_smoke: torchrun {flag} 1 failed (rc {proc.returncode}):\n"
-                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+                             + stdout[-3000:] + stderr[-3000:])
         y4m = read_y4m(os.path.join(outdir, "pair_a.y4m"))[0].astype(np.int16)
         y4m_diff = int(np.abs(y4m - y4m_a).max())
         png_diff = None
         if flag == "--mesh_data":
             png_diff = int(np.abs(_read_frames(os.path.join(outdir, "pair_a_frames"), CLI_FRAMES) - frames_a).max())
-        log("mesh_cli", flag=flag, world=1, backend="nccl", frames=int(done[2]), swap_s=done[3],
-            frames_per_s=done[4], peak_gib=peak[1] if peak else "not read", wall_s=f"{wall:.3f}",
+        log("mesh_cli", flag=flag, world=1, backend="nccl", at_once=len(runs), frames=int(done[2]), swap_s=done[3],
+            frames_per_s=done[4], peak_gib=peak[1] if peak else "not read", wall_s=f"{walls[flag]:.3f}",
             y4m_max_level_diff=y4m_diff, png_max_level_diff=png_diff, **launches)
         missing = [k for k in SWAP_KERNELS if int(launches.get(k, 0)) == 0]
         if missing:
@@ -4738,6 +4895,230 @@ def phase_aux_clis(seed: int) -> None:
     log("aux_clis_phase", wall_s=f"{time.perf_counter() - t_phase:.3f}")
 
 
+# ---- phase hires: SD-v1 above 512^2, where the ds4 self-attention (C 1280,
+# 8 heads: dh 160) has N >= 576 tokens and takes the attention kernels
+HIRES_DH = 160
+HIRES_IMAGE = 1024  # the image swap: ds4 has 1024 tokens
+HIRES_WINDOW = 768  # the video window and the train step: ds4 has 576 tokens
+HIRES_IMAGE_STEPS = 10
+HIRES_WINDOW_STEPS = 8  # inversion and sampling, cut from 50 + 50 for time
+HIRES_TOL = 3e-2  # relative L2, kernel path against the plain one at bf16 (as train_reference and dift_vq)
+HIRES_F32_TOL = 1e-3  # the fp32 UNet eval, kernel path against the plain one (as phase fp32_unet)
+
+
+def wide_launches() -> dict:
+    """The attention kernels' launches at ``HIRES_DH`` since the last reset,
+    as {kernel@dh160: count}."""
+    from vface_torch.ops import flash_attention as FA
+
+    return {f"{k}@dh{dh}": v for (k, dh), v in sorted(FA.DH_LAUNCHES.items()) if dh == HIRES_DH}
+
+
+def _f32_fwd_rows(rows: dict, b: int, n: int, c: int, h: int, randn) -> None:
+    """The tf32 kernel's forms on fp32 operands at (b, n, c), h heads: K8
+    (``flash_attention_v1``), K4 (``flash_attention_stats``), K6
+    (``flash_attention_fp32``) and K7 (``flash_attention_v2_stats``). All four
+    compute one function at fp32 (K4's P rounding is a no-op there) on one
+    kernel: their outputs are equal bit for bit, within 1e-5 of the peak of
+    the plain version (three tf32 terms per product, other sums), m and l
+    (K4, K7) within 1e-5 relative. Bound: the 3xTF32 line
+    (:func:`tf32x3_bound`), the FFMA line on the log line; library: SDPA on
+    fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from vface_torch.ops import flash_attention as FA
+
+    dh = c // h
+    q, k, v = (randn(b, n, c, dtype=torch.float32) for _ in range(3))
+    shape = _shape(b, n, n, c, h) + " fp32"
+    want, wm, wl = FA.flash_attention_stats_ref(q, k, v, h)
+    outs = {"flash_attention_v1": (FA._flash_attention_v1(q, k, v, h),),
+            "flash_attention_stats_f32": FA.flash_attention_stats(q, k, v, h),
+            "flash_attention_fp32_f32": (FA.flash_attention_fp32(q, k, v, h),),
+            "flash_attention_v2_stats": FA.flash_attention_v2_stats(q, k, v, h)}
+    torch.cuda.synchronize()
+    first = outs["flash_attention_v1"][0]
+    same = all(torch.equal(o[0], first) for o in outs.values())
+    rel_ml = max(max(((o[1] - wm).abs() / wm.abs().clamp(min=1e-30)).max().item(),
+                     ((o[2] - wl).abs() / wl).max().item()) for o in outs.values() if len(o) == 3)
+    log("kernel_f32_forms_check", shape=shape.replace(" ", "_"), equal_bitwise=same,
+        m_l_max_rel_err=f"{rel_ml:.3e}", tol="1e-05")
+    if not (same and rel_ml <= 1e-5):
+        raise SystemExit(f"chip_smoke: the tf32 kernel's forms disagree at {shape}")
+    calls = {"flash_attention_v1": lambda: FA._flash_attention_v1(q, k, v, h),
+             "flash_attention_stats_f32": lambda: FA.flash_attention_stats(q, k, v, h),
+             "flash_attention_fp32_f32": lambda: FA.flash_attention_fp32(q, k, v, h),
+             "flash_attention_v2_stats": lambda: FA.flash_attention_v2_stats(q, k, v, h)}
+    replaces = {"flash_attention_v1": 44, "flash_attention_stats_f32": 658, "flash_attention_fp32_f32": 143,
+                "flash_attention_v2_stats": 302}
+    split = lambda t: t.view(b, n, h, dh).transpose(1, 2)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_stats_ref(q, k, v, h), reps=3, warmup=1)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)))
+    flops = 4.0 * b * h * n * n * dh
+    for name, call in calls.items():
+        stats = len(outs[name]) == 3
+        nbytes = 4 * q.numel() * 4 + (2 * b * h * n * 4 if stats else 0)
+        rows.setdefault(name, []).append(_row(
+            name, "cuda", "vface_torch/csrc/flash_attention_f32.cu", f"vface_tpu/ops/pallas_attention.py:{replaces[name]}",
+            _errs(outs[name][0], want), ("rel", 1e-5), cuda_ms(call), plain_ms, lib_ms,
+            tf32x3_bound(flops, nbytes, b * h * n * n), shape, ffma=ffma_ms(flops)))
+    del q, k, v, outs, want, wm, wl
+
+
+def phase_hires_kernels() -> dict:
+    """The attention kernels at SD-v1's ds4 head width (C 1280, 8 heads: dh
+    160) against their plain versions, at the shapes phase hires gives them;
+    returns the rows. K1 at (2, 1024) and (8, 1024) (the 1024^2 image swap at
+    b = 1 and the test bench's b = 4, CFG doubling both) and at (6, 576) and
+    (12, 576) (the 768^2 window's inversion and sampling), 2 bf16 ulps as
+    :func:`k1_rows`; K4, K6 and K5 at b = 1 over 576 and 1024 tokens (the
+    train step), gated as :func:`phase_train_kernels`; K7 at bf16 at (1,
+    1024), gated as :func:`phase_ops_kernels` (m and l, K6's output bit for
+    bit, 2 ulps, the precision gate); the fp32 forms (K8, K4, K6, K7 on the
+    tf32 kernel) at (1, 1024) and (12, 576), :func:`_f32_fwd_rows`; K5 on fp32
+    at b = 1 over 576 and 1024 tokens (an fp32 train step's), :func:`_bwd_f32_row`."""
+    import torch
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    randn = lambda *s, dtype=torch.bfloat16: torch.randn(s, generator=gen, device=dev).to(dtype)
+    c, h = 1280, 8
+    rows = {"flash_attention": [], "flash_attention_stats": [], "flash_attention_fp32": [],
+            "flash_attention_bwd": [], "flash_attention_v2_stats": []}
+    for b, n in ((2, 1024), (8, 1024), (6, 576), (12, 576)):
+        rows["flash_attention"] += k1_rows(b, randn, ((n, c),))
+    for n in (576, 1024):
+        _train_rows(rows, 1, n, n, c, h, randn)
+    _k7_bf16_row(rows, 1, 1024, 1024, c, h, randn)  # K7 at bf16: K6's kernel with the stats epilogue
+    for b, n in ((1, 1024), (12, 576)):
+        _f32_fwd_rows(rows, b, n, c, h, randn)
+    rows["flash_attention_bwd_f32"] = []
+    for n in (576, 1024):
+        _bwd_f32_row(rows, 1, n, n, c, h, lambda *s: randn(*s, dtype=torch.float32))
+    log("hires_kernels", wall_s=f"{time.perf_counter() - t0:.1f}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def at_image_size(model, size: int):
+    """The model with its config's image size (and so its latent size) set to ``size``."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, image_size=size)
+    try:
+        yield model
+    finally:
+        model.cfg = cfg
+
+
+def _check_wide(name: str, launches: dict, kernels: tuple) -> dict:
+    """The launches at dh 160 of ``kernels`` in a run; fails if one has none."""
+    wide = wide_launches()
+    missing = [k for k in kernels if not wide.get(f"{k}@dh{HIRES_DH}")]
+    if missing:
+        raise SystemExit(f"chip_smoke: phase hires's {name} launched no {missing} at dh {HIRES_DH}")
+    return wide
+
+
+def phase_hires(model, seed: int) -> None:
+    """Phase hires on the video phase's model (bf16, with the conditioner)
+    above 512^2, where the UNet's ds4 self-attention (dh 160) takes the
+    attention kernels, counts set to 0 before and read after each run:
+    (b) ``swap_image_batch`` at ``HIRES_IMAGE``^2 (latent 128^2), b = 1,
+    ``HIRES_IMAGE_STEPS`` DDIM steps, scale 3.0, with the kernels and with the
+    plain versions (:func:`plain_kernels`) on the same inputs: relative L2
+    within ``HIRES_TOL``, K1's launches at dh 160, seconds per stage, peak
+    memory; (c) ``swap_window`` on 6 frames at ``HIRES_WINDOW``^2 crops,
+    ``HIRES_WINDOW_STEPS`` + ``HIRES_WINDOW_STEPS`` steps under
+    :func:`checked_sites` (every K1, K2, K9 and K3 call held to its plain
+    version at each new signature): seconds per stage, peak memory, launches
+    at dh 160; (d) one bf16 train step (``p_losses_face`` + backward on fixed
+    draws) at ``HIRES_WINDOW``^2, b = 1, with the kernels and with the plain
+    versions: the UNet gradients within phase train_reference's 3e-2, K4, K6
+    and K5's launches at dh 160, seconds, peak memory. The fp32 eval at
+    ``HIRES_WINDOW``^2 runs in :func:`phase_fp32_unet`, on its model."""
+    import torch
+
+    from vface_torch.pipelines.image_swap import ImageSwapOptions, swap_image_batch
+    from vface_torch.pipelines.train import TrainConfig
+    from vface_torch.pipelines.video_swap import SwapOptions, VideoSwapPipeline
+
+    t_phase = time.perf_counter()
+    rel = lambda a, w: float((a.float() - w.float()).norm() / w.float().norm())
+
+    def measured(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernel_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+    with at_image_size(model, HIRES_IMAGE):  # (b)
+        s = HIRES_IMAGE
+        x = image_inputs(model, 1, seed + 60)
+        args = [x[k] for k in ("target", "keep", "src_clip", "src01", "lms")]
+        opts = ImageSwapOptions(HIRES_IMAGE_STEPS, 3.0)
+        timings = {}
+        out, wall, launches, peak = measured(lambda: swap_image_batch(model, *args, opts, timings=timings))
+        wide = _check_wide("image swap", launches, ("flash_attention",))
+        with plain_kernels():
+            want = swap_image_batch(model, *args, opts)
+        err = rel(out, want)
+        ok = tuple(out.shape) == (1, s, s, 3) and bool(torch.isfinite(out).all()) and 0 <= float(out.min()) \
+            and float(out.max()) <= 1
+        log("hires_image", image=f"{s}^2", latent=f"{model.cfg.latent_size}^2", batch=1, unet_batch=2,
+            ddim_steps=HIRES_IMAGE_STEPS, wall_s=f"{wall:.3f}", **stage_line(timings), peak_gib=f"{peak:.2f}",
+            rel_l2_vs_plain=f"{err:.3e}", tol=HIRES_TOL, **{k: v for k, v in launches.items() if v}, **wide)
+        if not (ok and err <= HIRES_TOL):
+            raise SystemExit("chip_smoke: the 1024^2 image swap is malformed or disagrees with its plain path")
+        del x, args, out, want
+
+    with at_image_size(model, HIRES_WINDOW):  # (c)
+        frames, n = FRAMES, HIRES_WINDOW_STEPS
+        opts = SwapOptions(ddim_steps=n, inversion_steps=n, window=frames, image_size=HIRES_WINDOW)
+        inputs = window_inputs(model, frames, seed + 61)
+        timings = {}
+        with checked_sites("hires_window"):
+            out, wall, launches, peak = measured(lambda: VideoSwapPipeline(model, opts, device="cuda").swap_window(
+                **inputs, timings=timings))
+        wide = _check_wide("window", launches, ("flash_attention",))
+        ok = (tuple(out.shape) == (frames, HIRES_WINDOW, HIRES_WINDOW, 3) and bool(torch.isfinite(out).all())
+              and float(out.min()) >= 0.0 and float(out.max()) <= 1.0)
+        log("hires_window", frames=frames, image=f"{HIRES_WINDOW}^2", ddim_steps=n, inversion_steps=n,
+            wall_s=f"{wall:.3f}", **{f"{k}_s": f"{v:.3f}" for k, v in timings.items()}, peak_gib=f"{peak:.2f}",
+            **{k: v for k, v in launches.items() if v}, **wide)
+        if not ok:
+            raise SystemExit("chip_smoke: the 768^2 window's output has the wrong shape, is not finite or leaves [0, 1]")
+        del inputs, out
+
+        cfg = TrainConfig()  # (d)
+        batch, fixed = train_batch(model, 1, seed + 62), _train_fixed(model, 1, seed + 63)
+        (logs_k, grads_k), wall, launches, peak = measured(lambda: _loss_grads(model, batch, fixed, cfg))
+        wide = _check_wide("train step", launches,
+                           ("flash_attention_stats", "flash_attention_fp32", "flash_attention_bwd_dq",
+                            "flash_attention_bwd_dkv"))
+        with plain_kernels():
+            logs_p, grads_p = _loss_grads(model, batch, fixed, cfg)
+        model.zero_grad(set_to_none=True)
+        names = [k for k in grads_p if k.startswith("unet.")]
+        diff = math.sqrt(sum(float((grads_k[k].float() - grads_p[k].float()).norm()) ** 2 for k in names))
+        ref = math.sqrt(sum(float(grads_p[k].float().norm()) ** 2 for k in names))
+        finite = all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+        log("hires_train", image=f"{HIRES_WINDOW}^2", batch=1, wall_s=f"{wall:.3f}", peak_gib=f"{peak:.2f}",
+            unet_grad_rel_l2=f"{diff / ref:.3e}", tol=3e-2, loss_kernels=f"{logs_k['loss']:.6f}",
+            loss_plain=f"{logs_p['loss']:.6f}", finite=finite, **{k: v for k, v in launches.items() if v}, **wide)
+        del grads_k, grads_p
+        if not (finite and diff / ref <= 3e-2):
+            raise SystemExit("chip_smoke: the 768^2 train step's gradients disagree with the plain path")
+    torch.cuda.empty_cache()
+    log("hires_phase", wall_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def kernels_line(rows: dict, launches: dict) -> dict:
     """One entry per kernel: the ds1 / largest site's numbers at top level, every site under "sites".
 
@@ -4792,6 +5173,8 @@ def main() -> int:
         rows[name] += more
     for name, more in phase_dift_kernels().items():  # and at DIFT's b = 2, K3 at DIFT's and VQ's VAEs
         rows[name] += more
+    for name, more in phase_hires_kernels().items():  # the attention kernels at ds4's dh 160 (phase hires)
+        rows.setdefault(name, []).extend(more)
     bench_launches = phase_bench(args.bench_reps)
     clock("kernels")
     model = build_model(SEED)
@@ -4831,6 +5214,9 @@ def main() -> int:
     phase_image(model, SEED)
     clock("image")
     torch.cuda.empty_cache()
+    phase_hires(model, SEED)
+    clock("hires")
+    torch.cuda.empty_cache()
     train_launches = phase_train(model, SEED)
     phase_train_reference(model, SEED)
     if args.profile_train:
@@ -4855,7 +5241,8 @@ def main() -> int:
     launches.update({k: v for k, v in train_launches.items() if k not in SWAP_KERNELS})
     launches.update({k: ops_launches[k] for k in OPS_KERNELS})
     launches.update({k: bench_launches[k] for k in BENCH_KERNELS})
-    launches.update({k: f32_launches[k] for k in ("flash_attention_bwd_dq_f32", "geglu_ff_f32", "geglu_ff_wide_f32")})
+    launches.update({k: f32_launches[k] for k in ("flash_attention_bwd_dq_f32", "flash_attention_stats_f32",
+                                                  "flash_attention_fp32_f32", "geglu_ff_f32", "geglu_ff_wide_f32")})
     log("script", wall_s=f"{time.perf_counter() - t_script:.1f}")
     print(smi, flush=True)
     print(json.dumps(kernels_line(rows, launches)), flush=True)

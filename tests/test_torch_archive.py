@@ -31,6 +31,7 @@ from vface_tpu.ops import _archive_attention as JAA
 from vface_tpu.ops.attention import multi_head_attention as jax_mha
 from vface_tpu.ops.pallas_ff import _pallas_impl
 from vface_torch.bench import attention as bench_attention
+from vface_torch.bench import attn_f32 as bench_f32
 from vface_torch.bench import attn_v56 as bench_v56
 from vface_torch.bench import ff_tile as bench_ff
 from vface_torch.ops import _archive_attention as AA
@@ -165,6 +166,23 @@ def test_attention_bench_variants_agree_on_the_cpu():
             got = fn(q, k, v)
             assert got.shape == q.shape and got.dtype == torch.bfloat16, name
             close(got, want, atol=0.04)
+
+
+def test_attn_f32_bench_entries_agree_on_the_cpu():
+    """The fp32 bench's entries (K8, K4, K6, K7; plain versions on the CPU)
+    compute one attention: at a small fp32 shape of each of its head widths
+    each output is within 1e-5 of the einsum path's, and none launches."""
+    assert {c // bench_f32.H for _, _, c in bench_f32.CASES} == {40, 80}
+    before = dict(FA.LAUNCHES)
+    for c in (320, 640):
+        q, k, v = (bench_f32.randn((2, 64, c), seed=s, device="cpu", dtype=torch.float32) for s in range(3))
+        want = multi_head_attention(q, k, v, bench_f32.H, dtype=torch.float32)
+        for name, fn in bench_f32.ENTRIES.items():
+            got = fn(q, k, v, bench_f32.H)
+            got = got[0] if isinstance(got, tuple) else got
+            assert got.shape == q.shape and got.dtype == torch.float32, name
+            close(got, want, atol=1e-5)
+    assert FA.LAUNCHES == before
 
 
 def test_ff_tile_bench_operands_and_cases():

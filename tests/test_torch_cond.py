@@ -87,6 +87,23 @@ def test_irse50_with_preprocess_matches_jax():
     close(TArc.safe_l2_normalize(got.detach()), JArc.safe_l2_normalize(want), atol=1e-6)
 
 
+def test_id_embedding_and_id_loss_match_jax():
+    """id_embedding (preprocess, the two-stage IR-SE net, L2 norm) within 1e-6
+    of JAX's; id_loss on two feature batches, one row all zeros (the safe
+    norm's floor), within 1e-6."""
+    stages = ((16, 1), (32, 1))
+    img = np.random.default_rng(12).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    jmod = JArc.IRSE50(stages=stages)
+    params = _perturb(jmod.init(jax.random.PRNGKey(13), jnp.zeros((1, 112, 112, 3)))["params"], 14)
+    want = JArc.id_embedding(params, jnp.asarray(img), model=jmod)
+    with torch.no_grad():
+        got = TArc.id_embedding(_load(TArc.IRSE50(stages=stages), params), t(img))
+    close(got, want, atol=1e-6)
+    a, b = np.random.default_rng(15).normal(size=(2, 3, 512)).astype(np.float32)
+    b[1] = 0.0
+    close(TArc.id_loss(t(a), t(b)), JArc.id_loss(jnp.asarray(a), jnp.asarray(b)), atol=1e-6)
+
+
 def test_conditioner_and_uncond_match_jax():
     """The "sum" token: CLIP source + target, the ArcFace ID term and the
     landmark term, divided by the summed weights; and the uncond token."""

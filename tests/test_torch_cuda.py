@@ -70,7 +70,8 @@ def _check_k1_k4(q, k, v, heads):
 # both ways
 @pytest.mark.parametrize("b,nq,nk,heads,dh", [
     (2, 1, 1, 2, 40), (2, 65, 65, 3, 8), (2, 130, 130, 3, 80), (2, 300, 300, 2, 40), (1, 128, 256, 2, 40),
-    (2, 65, 300, 2, 80), (2, 300, 130, 4, 16), (3, 257, 1000, 2, 48)])
+    (2, 65, 300, 2, 80), (2, 300, 130, 4, 16), (3, 257, 1000, 2, 48), (2, 130, 300, 2, 160), (1, 1024, 1024, 8, 160),
+    (2, 65, 65, 3, 152)])
 def test_flash_attention_kernel_tiling(gen, b, nq, nk, heads, dh):
     q = _randn(gen, b, nq, heads * dh)
     k, v = (_randn(gen, b, nk, heads * dh) for _ in range(2))
@@ -181,11 +182,13 @@ def _rel_l2(got, want):
 # same plain version with P and dS rounded to bf16 alone (as in chip_smoke.py)
 PRECISION_GATE = 0.25
 
-TRAIN_SHAPES = [(300, 2, 40), (130, 3, 16), (300, 2, 80), (130, 2, 48)]  # ragged N; dh pads to 48, 16, 80, 48
+# ragged N; dh pads to 48, 16, 80, 48, 160 (SD-v1's ds4 at 768^2: 576 tokens)
+TRAIN_SHAPES = [(300, 2, 40), (130, 3, 16), (300, 2, 80), (130, 2, 48), (576, 2, 160)]
 # K6, K7 and K5: the self-attention shapes at b = 2, then Nq != Nk both ways
 # (ragged, a whole 128-row tile of queries over 320 keys, dh 16)
 CROSS_SHAPES = [(2, n, n, heads, dh) for n, heads, dh in TRAIN_SHAPES] + [
-    (2, 300, 130, 2, 40), (2, 128, 320, 2, 80), (2, 130, 300, 3, 16), (1, 1000, 257, 2, 48)]
+    (2, 300, 130, 2, 40), (2, 128, 320, 2, 80), (2, 130, 300, 3, 16), (1, 1000, 257, 2, 48), (2, 300, 130, 2, 160),
+    (1, 130, 1000, 3, 160)]
 
 
 def _qkv(gen, b, nq, nk, heads, dh, count=3):
@@ -246,7 +249,7 @@ def test_flash_attention_bwd_kernels(gen, b, nq, nk, heads, dh):
         assert _rel_l2(gi, wi) <= PRECISION_GATE * _rel_l2(yi, wi)
 
 
-@pytest.mark.parametrize("b,nq,nk,heads,dh", [(1, 4096, 4096, 8, 40), (2, 300, 130, 2, 80)])
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [(1, 4096, 4096, 8, 40), (2, 300, 130, 2, 80), (1, 1024, 1024, 8, 160)])
 def test_flash_attention_bwd_kernels_are_deterministic(gen, b, nq, nk, heads, dh):
     """K5 sums each output in a fixed order in one CTA: two launches on the same
     inputs give the same bits."""
@@ -322,7 +325,8 @@ def _rand(gen, *shape, dtype=torch.float32):
 @pytest.mark.parametrize("nq,nk,heads,dh,dtype", [
     (300, 300, 2, 40, torch.float32), (130, 70, 3, 16, torch.float32), (257, 1000, 2, 80, torch.float32),
     (64, 200, 4, 32, torch.float32), (300, 130, 2, 40, torch.bfloat16), (1024, 1024, 8, 80, torch.bfloat16),
-    (333, 100, 2, 40, torch.float32), (200, 130, 3, 32, torch.bfloat16)])
+    (333, 100, 2, 40, torch.float32), (200, 130, 3, 32, torch.bfloat16), (576, 576, 2, 160, torch.float32),
+    (300, 1000, 2, 160, torch.float32), (1024, 1024, 8, 160, torch.bfloat16)])
 def test_flash_attention_v1_kernel(gen, nq, nk, heads, dh, dtype):
     """K8 (ragged Nq and Nk, Nq != Nk both ways, every head width) vs its plain
     version over the same fp32 math: fp32 on the tf32 kernel within 1e-5 of the
@@ -340,7 +344,7 @@ def test_flash_attention_v1_kernel(gen, nq, nk, heads, dh, dtype):
 
 
 @pytest.mark.parametrize("nq,nk,heads,dh,dtype", [(300, 300, 2, 40, torch.float32), (257, 1000, 2, 80, torch.float32),
-                                                 (333, 100, 2, 16, torch.float32)])
+                                                 (333, 100, 2, 16, torch.float32), (257, 1000, 2, 160, torch.float32)])
 def test_flash_attention_v1_kernel_is_deterministic(gen, nq, nk, heads, dh, dtype):
     """The tf32 kernel walks each row's keys in one fixed order: two launches
     (each with its own split pass) are equal bit for bit."""
@@ -366,7 +370,8 @@ def test_k8_on_bf16_operands_is_k6s_kernel(gen, nq, nk, heads, dh):
 @pytest.mark.parametrize("nq,nk,heads,dh,dtype", [
     (300, 300, 2, 40, torch.bfloat16), (130, 130, 3, 16, torch.bfloat16), (300, 300, 2, 80, torch.bfloat16),
     (300, 300, 2, 40, torch.float32), (130, 130, 3, 32, torch.float32), (300, 130, 2, 40, torch.bfloat16),
-    (128, 320, 2, 80, torch.bfloat16), (130, 300, 3, 16, torch.bfloat16), (300, 130, 2, 40, torch.float32)])
+    (128, 320, 2, 80, torch.bfloat16), (130, 300, 3, 16, torch.bfloat16), (300, 130, 2, 40, torch.float32),
+    (576, 576, 2, 160, torch.bfloat16), (300, 130, 2, 160, torch.float32)])
 def test_flash_attention_v2_stats_kernel(gen, nq, nk, heads, dh, dtype):
     """K7: bf16, K6's output bit for bit; fp32, K8's (the tf32 kernel). Against the plain version:
     out within 2 bf16 ulps (bf16) or 1e-5 of its peak (fp32), m and l within
@@ -597,7 +602,8 @@ def test_unet_wide_feed_forward_takes_k9_only_without_a_gradient(gen):
 # K5 on fp32 at every built head width: self-attention shapes with a ragged
 # tile, Nq != Nk both ways, Nq and Nk below one tile
 F32_BWD_SHAPES = [(2, 300, 300, 2, 40), (2, 130, 70, 3, 16), (2, 257, 1000, 2, 80), (2, 64, 200, 4, 32),
-                  (2, 300, 130, 2, 40), (1, 1000, 257, 2, 80), (2, 17, 33, 2, 16), (1, 1024, 1024, 8, 80)]
+                  (2, 300, 130, 2, 40), (1, 1000, 257, 2, 80), (2, 17, 33, 2, 16), (1, 1024, 1024, 8, 80),
+                  (2, 576, 576, 2, 160), (2, 130, 300, 2, 160), (1, 1024, 1024, 8, 160)]
 
 
 @pytest.mark.parametrize("b,nq,nk,heads,dh", F32_BWD_SHAPES)
@@ -622,7 +628,7 @@ def test_flash_attention_bwd_f32_kernels(gen, b, nq, nk, heads, dh):
         assert (gi - wi).abs().max() <= 1e-5 * wi.abs().max()
 
 
-@pytest.mark.parametrize("b,nq,nk,heads,dh", [(2, 300, 130, 2, 40), (2, 130, 300, 3, 80)])
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [(2, 300, 130, 2, 40), (2, 130, 300, 3, 80), (2, 130, 300, 2, 160)])
 def test_fp32_forward_forms_of_k4_and_k6(gen, b, nq, nk, heads, dh):
     """On fp32 operands K4 (flash_attention_stats) runs the tf32 kernel's STATS
     form and K6 (flash_attention_fp32) its plain form, under their own keys:
@@ -667,7 +673,8 @@ def test_geglu_ff_f32_kernels(gen, m, c):
     want = FF.geglu_ff_ref(*args)
     assert got.dtype == torch.float32 and torch.equal(got, again)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
-    with pytest.raises(ValueError, match="dtype"):  # the row-tile kernels (K13) are bf16 only
+    # the row-tile kernels (K13) on fp32 are built at tm 128 only
+    with pytest.raises(ValueError, match="no kernel at C=320, tm=64 for torch.float32"):
         FF.geglu_ff_split(*_ff_args_f32(gen, 17, 320), 64)
 
 

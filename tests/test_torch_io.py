@@ -8,6 +8,8 @@ Python Y4M codec is held to JAX's bit for bit, and the native codec to it
 order, within one level). Nothing here compiles a JAX program.
 """
 
+import collections
+import fractions
 import json
 import wave
 
@@ -295,3 +297,23 @@ def test_load_yaml_matches_jax(tmp_path):
     got = load_yaml(str(path))
     assert got == j_load_yaml(str(path))
     assert got[1] == {"video": "/data/v2", "source": "/data/s2.jpg", "masks": "/data/m2"}
+
+
+def test_registry_and_instantiate_from_config_match_jax():
+    """register / build (and the KeyError naming the known names),
+    get_obj_from_str and instantiate_from_config (a dotted target and its
+    params; KeyError without a target), on both packages' copies."""
+    from vface_torch.utils import config as TC
+    from vface_tpu.utils import config as JC
+
+    for mod in (TC, JC):
+        mod.register("registry_test_pair")(lambda a, b=2: (a, b))
+        assert mod.build("registry_test_pair", a=1) == (1, 2)
+        with pytest.raises(KeyError, match="registry_test_pair"):
+            mod.build("no_such_component")
+        assert mod.get_obj_from_str("collections.OrderedDict") is collections.OrderedDict
+        cfg = {"target": "fractions.Fraction", "params": {"numerator": 3, "denominator": 4}}
+        assert mod.instantiate_from_config(cfg) == fractions.Fraction(3, 4)
+        assert mod.instantiate_from_config({"target": "builtins.list"}) == []
+        with pytest.raises(KeyError, match="target"):
+            mod.instantiate_from_config({"params": {}})

@@ -304,6 +304,16 @@ def test_upsample_and_silu():
     close(TL.nonlinearity(t(x)), JL.nonlinearity(jnp.asarray(x)), atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 6, 3), (1, 5, 7, 4)], ids=["even", "odd"])
+def test_avg_pool_2x(shape):
+    """The 2 x 2 stride-2 pool (NCHW in the port, NHWC in JAX); an odd side
+    drops its last row or column in both (VALID). Four-term fp32 means in
+    another order: 1e-6."""
+    x = np.random.default_rng(8).normal(size=shape).astype(np.float32)
+    got = TL.avg_pool_2x(t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    close(got, JL.avg_pool_2x(jnp.asarray(x)), atol=1e-6)
+
+
 # ------------------------------------------------------------------- fusion
 @pytest.mark.parametrize("d", [32, 320])
 def test_fsai_circulant_equals_fft(d):
@@ -459,6 +469,46 @@ def test_every_jax_module_and_user_cli_has_a_port_counterpart():
         strings = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)
                    and id(n) not in docs]
         assert not [v for v in strings if v == "scripts" or "scripts/" in v], path
+
+
+
+# The JAX package's top-level public names that the port has no counterpart
+# for, each with the reason
+JAX_ONLY_NAMES = {
+    "io/video.py::native_available": "the port builds its native IO library at first use and raises if the "
+                                     "build fails, so there is no optional library to ask about",
+    "parallel/mesh.py::zero1_sharding": "a jax.sharding layout of the optimizer state for jit; the port's ZeRO-1 "
+                                        "is torch's ZeroRedundancyOptimizer (pipelines/train.py::make_optimizer)",
+    "utils/platform.py::apply_platform_from_env": "sets JAX's platform from VFACE_PLATFORM; the port reads the "
+                                                  "variable per call (utils/platform.py::device_from_env)",
+    "models/layers.py::Dtype": "Flax's annotation alias for a dtype; the port annotates with torch.dtype",
+}
+
+
+def _public_names(path: Path) -> set:
+    """The top-level functions, classes and assigned names of a module that do not start with _."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(n.id for n in node.targets if isinstance(n, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_every_jax_public_name_has_a_port_counterpart():
+    """Module by module (those with a port counterpart), every top-level public
+    name of the JAX package is one of the port's too, but for ``JAX_ONLY_NAMES``;
+    each of those is still JAX-only and still a JAX name."""
+    missing = set()
+    for path in sorted((REPO / "vface_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "vface_tpu").as_posix()
+        port = REPO / "vface_torch" / rel
+        if port.exists():
+            missing |= {f"{rel}::{n}" for n in _public_names(path) - _public_names(port)}
+    assert sorted(missing) == sorted(JAX_ONLY_NAMES)
 
 
 if __name__ == "__main__":

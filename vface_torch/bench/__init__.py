@@ -5,7 +5,10 @@
 * :mod:`vface_torch.bench.attn_v56` (``scripts/bench_attn_v56.py``): K1
   against K12 and SDPA at batch 24;
 * :mod:`vface_torch.bench.ff_tile` (``scripts/bench_ff_tile.py``): K13's row
-  tile sweep against the unfused route, ending with one JSON line.
+  tile sweep against the unfused route, ending with one JSON line;
+* :mod:`vface_torch.bench.attn_f32` (no JAX counterpart): the tf32 forward
+  kernel's entry points (K8, and K4, K6, K7 on fp32) at the UNet's dh 40 and
+  80, ending with one JSON line, to compare two trees' kernels.
 
 Run each with ``python -m vface_torch.bench.<name>`` on a CUDA device; times
 are CUDA events over ``--reps`` calls after one warm-up call.

@@ -41,7 +41,13 @@
 //   the card's SM count (flash_attention.py::k1_consumers): 128-row tiles
 //   where 192-row ones give fewer than two CTAs per SM (the train step's
 //   b = 1). With the producer warp, NC = 3 is 13 warps, which ptxas caps at
-//   128 registers a thread (NC = 2: 168). A producer warp keeps a ring of 4 K/V stages filled by TMA,
+//   128 registers a thread (NC = 2: 168). At dh 160 (SD-v1's ds4 sites above
+//   512^2) a consumer holds a 64 x 160 fp32 output (80 registers), S (32), P
+//   (16, SPLIT 32) and 48 descriptor registers, past 168: that width is built
+//   at NC = 2 with a producer warpgroup instead of the warp, which hands its
+//   registers to the consumers (setmaxnreg 24 / 240, as K5's kernels do;
+//   Q's 40 KB and four 40 KB K/V stages fit in 227 KB of shared memory).
+//   A producer warp keeps a ring of 4 K/V stages filled by TMA,
 //   completed on mbarriers (full: the bytes landed; empty: every consumer warp
 //   is done with the stage), so later tiles load while this one computes.
 // * Both products run on wgmma with fp32 accumulators: S = Q.K^T with Q and K
@@ -62,7 +68,7 @@
 // columns (32 bytes) by 64 or 64 * NC rows and lands with TMA's 32-byte swizzle,
 // which is the wgmma operand layout of that swizzle for both majors: 16
 // columns are one k16 step of Q.K^T and 16 output columns of P.V. dh is padded
-// to 16/48/80 in shared memory: a padded head's box reads the next head's
+// to 16/48/80/160 in shared memory: a padded head's box reads the next head's
 // first columns (zeros past the last head, and past N, which TMA fills), so
 // the kernel zeroes Q's padding columns; K's then multiply zeros (the inputs
 // are finite), and V's land only in output columns that are not stored.
@@ -80,9 +86,15 @@ namespace {
 constexpr int kBlockK = 64;  // keys per K/V tile: the softmax block
 constexpr int kStages = 4;   // K/V tiles in flight
 
-// NC consumer warpgroups of 64 q rows each, and one producer warp
-template <int NC>
-constexpr int kThreads = 128 * NC + 32;
+// dh 160: a producer warpgroup that gives its registers to the consumers
+template <int DHP>
+constexpr bool kWide = DHP > 80;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 24 + 2 * 240 = 3 * 168: the pool stays whole
+
+// NC consumer warpgroups of 64 q rows each, and one producer warp (a
+// producer warpgroup at dh 160)
+template <int DHP, int NC>
+constexpr int kThreads = 128 * NC + (kWide<DHP> ? 128 : 32);
 
 // [column block][row][16 columns]; TMA swaps the two 16-byte halves of rows
 // 4-7 of every 8 (32-byte swizzle: address bit 4 ^= bit 7)
@@ -97,7 +109,7 @@ template <int DHP, int NC>
 constexpr int kSmemBytes = sizeof(Smem<DHP, NC>) + 1024;  // + the slack to align it to 1024 bytes
 
 template <int DHP, int NC, bool STATS, bool SPLIT>
-__global__ void __launch_bounds__(kThreads<NC>, 1)
+__global__ void __launch_bounds__(kThreads<DHP, NC>, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out, int nq, int nk, int heads, int dh,
@@ -124,7 +136,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   }
   __syncthreads();
 
-  if (tid >= 128 * NC) {  // the producer warp: one thread issues every load
+  if (tid >= 128 * NC) {  // the producer warp (warpgroup): one thread issues every load
+    if constexpr (kWide<DHP>) setmaxnreg_dec<kProducerRegs>();
     if (tid == 128 * NC) {
       mbar_expect_tx(&sm.q_full, sizeof(sm.q));
       for (int c = 0; c < NB; ++c) tma_load(&sm.q[c][0][0], &tq, &sm.q_full, col0 + c * kAtom, q0, b);
@@ -141,6 +154,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     return;
   }
 
+  if constexpr (kWide<DHP>) setmaxnreg_inc<kConsumerRegs>();
   const int wg = tid >> 7;
   if (wg >= active) return;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
@@ -306,16 +320,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m, float
                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((nq + 64 * NC - 1) / (64 * NC), b * heads);
-  flash_fwd_bf16_kernel<DHP, NC, STATS, SPLIT><<<grid, kThreads<NC>, kSmem, stream>>>(
+  flash_fwd_bf16_kernel<DHP, NC, STATS, SPLIT><<<grid, kThreads<DHP, NC>, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), m, l, nq, nk, heads, dh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Three consumer warpgroups and the producer warp are 13 warps, which ptxas
 // caps at 128 registers a thread; at dh 80 the SPLIT form spills there, so
-// it is built with two (168 registers).
+// it is built with two (168 registers). dh 160 is built with two only: three
+// and a producer warpgroup leave 160 registers a consumer, below its 80-register
+// output and the rest.
 template <int DHP, bool SPLIT>
-constexpr bool kBuilt3 = !(SPLIT && DHP == 80);
+constexpr bool kBuilt3 = !(SPLIT && DHP == 80) && !kWide<DHP>;
 
 template <int DHP, bool STATS, bool SPLIT>
 int by_consumers(int consumers, const void* q, const void* k, const void* v, void* o, float* m, float* l, int b,
@@ -335,6 +351,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* m, flo
     case 16: return by_consumers<16, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
     case 48: return by_consumers<48, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
     case 80: return by_consumers<80, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
+    case 160: return by_consumers<160, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -342,9 +359,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* m, flo
 }  // namespace
 
 // q, o: (b, nq, heads * dh); k, v: (b, nk, heads * dh); bf16, contiguous,
-// 16-byte aligned; dh a multiple of 8 that pads to 16, 48 or 80 (the UNet's
-// ds1 dh = 40 and ds2 dh = 80, and small widths for the tests); `consumers`
-// 2 or 3: 128 or 192 query rows per CTA (2 only for K6 and K7 at dh 80).
+// 16-byte aligned; dh a multiple of 8 that pads to 16, 48, 80 or 160 (the
+// UNet's ds1 dh = 40, ds2 dh = 80 and ds4 dh = 160, and small widths for the
+// tests); `consumers` 2 or 3: 128 or 192 query rows per CTA (2 only for K6
+// and K7 at dh 80, and for every form at dh 160).
 // Each returns cudaGetLastError() after the launch.
 
 // K1: P rounded to bf16 before P.V.
@@ -386,6 +404,7 @@ extern "C" int vface_flash_attention_smem_bytes(int dh, int consumers) {
     case 16: return consumers == 2 ? kSmemBytes<16, 2> : kSmemBytes<16, 3>;
     case 48: return consumers == 2 ? kSmemBytes<48, 2> : kSmemBytes<48, 3>;
     case 80: return consumers == 2 ? kSmemBytes<80, 2> : kSmemBytes<80, 3>;
+    case 160: return consumers == 2 ? kSmemBytes<160, 2> : 0;
     default: return 0;
   }
 }

@@ -70,11 +70,15 @@
 //
 // Layout: heads are read strided straight out of (B, N, H*dh) by 3-D tensor
 // maps in 16-column boxes with TMA's 32-byte swizzle (hopper.cuh); rows past N
-// read as zeros. dh is padded to 16/48/80 in shared memory: the resident
+// read as zeros. dh is padded to 16/48/80/160 in shared memory: the resident
 // operands' padding columns are zeroed (a padded box reads the next head's
 // first columns), so the products over dh see zeros there, and the streamed
 // tiles' padding columns land only in output columns that are not stored.
 // Keys past Nk are masked out of P in the dQ kernel's last tile.
+//
+// dh 160 (SD-v1's ds4 sites above 512^2) runs on the staged kernels below
+// the others (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel), with
+// three streamed stages: see there.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,7 +93,10 @@
 namespace {
 
 constexpr int kBlock = 64;       // rows of each streamed tile (keys for dQ, queries for dK/dV)
-constexpr int kStages = 4;       // streamed tiles in flight
+// streamed tiles in flight: at dh 160 the resident rows (80 KB) and four
+// stages (160 KB) would pass 227 KB
+template <int DHP>
+constexpr int kStages = DHP > 80 ? 3 : 4;
 constexpr int kNC = 2;           // consumer warpgroups, 64 resident rows each
 constexpr int kRows = 64 * kNC;  // resident rows per CTA
 // The consumers and a producer warpgroup that gives its registers to them
@@ -106,10 +113,10 @@ template <int DHP>
 struct Smem {
   __nv_bfloat16 res0[DHP / kAtom][kRows][kAtom];
   __nv_bfloat16 res1[DHP / kAtom][kRows][kAtom];
-  __nv_bfloat16 str0[kStages][DHP / kAtom][kBlock][kAtom];
-  __nv_bfloat16 str1[kStages][DHP / kAtom][kBlock][kAtom];
-  float lse[kStages][kBlock], dd[kStages][kBlock];
-  uint64_t res_full, full[kStages], empty[kStages];
+  __nv_bfloat16 str0[kStages<DHP>][DHP / kAtom][kBlock][kAtom];
+  __nv_bfloat16 str1[kStages<DHP>][DHP / kAtom][kBlock][kAtom];
+  float lse[kStages<DHP>][kBlock], dd[kStages<DHP>][kBlock];
+  uint64_t res_full, full[kStages<DHP>], empty[kStages<DHP>];
 };
 template <int DHP>
 constexpr int kSmemBytes = sizeof(Smem<DHP>) + 1024;  // + the slack to align it to 1024 bytes
@@ -178,7 +185,7 @@ __device__ __forceinline__ bool prologue(Smem<DHP>& sm, const CUtensorMap* tr0, 
   const int active = min(kNC, (n_res - r0 + 63) / 64);  // warpgroups with a resident row below n_res
   if (tid == 0) {
     mbar_init(&sm.res_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kStages<DHP>; ++s) {
       mbar_init(&sm.full[s], STATS ? 33 : 1);  // the TMA bytes (and the producer warp's statistics)
       mbar_init(&sm.empty[s], 4 * active);     // one arrival per consumer warp
     }
@@ -198,10 +205,12 @@ __device__ __forceinline__ bool prologue(Smem<DHP>& sm, const CUtensorMap* tr0, 
       }
     }
     for (int j = 0; j < n_tiles; ++j) {
-      const int st = j % kStages;
-      if (lane == 0 || STATS) mbar_wait(&sm.empty[st], ((j / kStages) & 1) ^ 1);
+      const int st = j % kStages<DHP>;
+      if (lane == 0 || STATS) mbar_wait(&sm.empty[st], ((j / kStages<DHP>) & 1) ^ 1);
       if (lane == 0) {
         mbar_expect_tx(&sm.full[st], sizeof(sm.str0[0]) + sizeof(sm.str1[0]));
+        // not unrolled: at dh 160 the unrolled loads spilled the producer
+#pragma unroll 1
         for (int c = 0; c < NB; ++c) {
           tma_load(&sm.str0[st][c][0][0], ts0, &sm.full[st], col0 + c * kAtom, j * kBlock, b);
           tma_load(&sm.str1[st][c][0][0], ts1, &sm.full[st], col0 + c * kAtom, j * kBlock, b);
@@ -282,14 +291,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
   uint64_t dk[NB], dv[NB], dkm[4];
   auto wait_full = [&](int j) {
-    mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+    mbar_wait(&sm.full[j % kStages<DHP>], (j / kStages<DHP>) & 1);
     __syncwarp();
   };
   auto kv_descs = [&](int j) {
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb) {
-      dk[cb] = dk0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
-      dv[cb] = dv0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
+      dk[cb] = dk0 + (j % kStages<DHP>) * kStage + cb * (kBlock * 32 >> 4);
+      dv[cb] = dv0 + (j % kStages<DHP>) * kStage + cb * (kBlock * 32 >> 4);
     }
     pin(dk);
     pin(dv);
@@ -306,7 +315,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 
   auto k_mn = [&](int j) {  // K(j) as the MN-major B operand of dS.K
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) dkm[kc] = dkm0 + (j % kStages) * kStage + kc * (16 * 32 >> 4);
+    for (int kc = 0; kc < 4; ++kc) dkm[kc] = dkm0 + (j % kStages<DHP>) * kStage + kc * (16 * 32 >> 4);
     pin(dkm);
   };
 
@@ -348,7 +357,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     pin(acc);
     pin(hi);
     pin(lo);
-    if (kPrev && lane == 0) mbar_arrive(&sm.empty[(j - 1) % kStages]);
+    if (kPrev && lane == 0) mbar_arrive(&sm.empty[(j - 1) % kStages<DHP>]);
     split16(s, hi, lo);
   };
   tile(0, std::false_type{});
@@ -405,14 +414,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
   constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
   uint64_t dqk[NB], dok[NB], dqm[4], dom[4];
   auto wait_full = [&](int j) {
-    mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+    mbar_wait(&sm.full[j % kStages<DHP>], (j / kStages<DHP>) & 1);
     __syncwarp();
   };
   auto issue_s = [&](int j, float (&st)[32], float (&dpt)[32]) {  // S^T = K.Q(j)^T, dP^T = V.dO(j)^T
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb) {
-      dqk[cb] = dq0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
-      dok[cb] = ddo0 + (j % kStages) * kStage + cb * (kBlock * 32 >> 4);
+      dqk[cb] = dq0 + (j % kStages<DHP>) * kStage + cb * (kBlock * 32 >> 4);
+      dok[cb] = ddo0 + (j % kStages<DHP>) * kStage + cb * (kBlock * 32 >> 4);
     }
     pin(dqk);
     pin(dok);
@@ -435,8 +444,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
   auto qdo_mn = [&](int j) {  // Q(j) and dO(j) as the MN-major B operands of the products
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
-      dqm[kc] = dqm0 + (j % kStages) * kStage + kc * (16 * 32 >> 4);
-      dom[kc] = ddom0 + (j % kStages) * kStage + kc * (16 * 32 >> 4);
+      dqm[kc] = dqm0 + (j % kStages<DHP>) * kStage + kc * (16 * 32 >> 4);
+      dom[kc] = ddom0 + (j % kStages<DHP>) * kStage + kc * (16 * 32 >> 4);
     }
     pin(dqm);
     pin(dom);
@@ -462,7 +471,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
   // sits in a branch (C7520): `prev` is a compile-time flag, tile 0 is peeled.
   auto tile = [&](int j, auto prev) {
     constexpr bool kPrev = decltype(prev)::value;
-    const int stage = j % kStages;
+    const int stage = j % kStages<DHP>;
     wait_full(j);
     if constexpr (kPrev) qdo_mn(j - 1);
     pin_frags();
@@ -490,7 +499,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
     }
     wgmma_wait<0>();  // the products of tile j-1 are done: its stage and the fragments are free
     pin_frags();
-    if (kPrev && lane == 0) mbar_arrive(&sm.empty[(j - 1) % kStages]);
+    if (kPrev && lane == 0) mbar_arrive(&sm.empty[(j - 1) % kStages<DHP>]);
     split16(st, phi, plo);
     split16(dpt, dhi, dlo);
     if constexpr (!kOverlap) {
@@ -522,6 +531,241 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
   store_rows<DHP>(dv_out, acc_v, 1.f, base, cols, row0, nk, dh, t4);
 }
 
+// ---- K5 at dh 160 (SD-v1's ds4 sites above 512^2)
+//
+// At dh 160 a consumer of the kernels above would hold, while S and dP run,
+// 80 descriptor registers (ten k16 steps of four operands) beside its output
+// accumulators (80 for dQ; 160 for dK and dV) and S and dP (64): past the 240
+// registers setmaxnreg gives it. So each tile runs in stages, each waited
+// before the next is issued: S in two groups of five k16 steps (Q's and K's
+// descriptors of those steps), then dP likewise (dO's and V's: P is computed
+// while dP's second group runs), then the products over the tile's rows. The
+// resident operands' descriptors are remade each group from an opaque base,
+// so that ptxas keeps none of them live across the loop. The dK/dV kernel
+// gives each CTA one of four parts of its key rows' outputs: dV's or dK's
+// first or last 80 columns (grid.x is four times the key tiles). It
+// recomputes S^T and dP^T over the whole width and keeps one 40-register
+// accumulator; its product takes P^T against dO or dS^T against Q, chosen by
+// a select of values, not a branch (ptxas serializes the wgmma of a kernel
+// that has one in a runtime branch, C7520). Each CTA recomputes S^T and dP^T
+// for one product; two parts a key tile (both products, 80 accumulator
+// registers) would recompute them half as often and were not tried on the
+// card. Every output is still summed in one fixed order by one CTA.
+//
+// The producer's loop over a stage's column blocks is not unrolled: at dh 160
+// (ten blocks of two operands) the unrolled loads spilled the 24-register
+// producer warp that also writes the statistics (20 bytes).
+
+// d = A . B^T over dh in two groups of NB / 2 k16 steps, the first waited:
+// A is the resident operand from `base` (an sdesc of its warpgroup's first
+// row; column blocks kRows * 32 bytes apart), B the streamed tile in stage
+// `st` from `str0` (kBlock * 32 bytes apart). Each group's descriptors are
+// made before its fence; the caller waits for the second group.
+template <int DHP>
+__device__ __forceinline__ void ss_dh_halves(float (&d)[32], uint64_t base, uint64_t str0, int st, uint32_t one,
+                                             uint32_t zero) {
+  constexpr int NH = DHP / kAtom / 2;
+  constexpr uint64_t kStage = (uint64_t)(DHP / kAtom) * kBlock * kAtom * 2 >> 4;
+  uint64_t a[NH], b[NH];
+  auto group = [&](auto first) {
+    constexpr bool kFirst = decltype(first)::value;
+    uint64_t ra = base;
+    asm volatile("" : "+l"(ra));  // remade every group, never hoisted
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      const int cb = (kFirst ? 0 : NH) + i;
+      a[i] = ra + cb * (kRows * 32 >> 4);
+      b[i] = str0 + st * kStage + cb * (kBlock * 32 >> 4);
+    }
+    pin(a);
+    pin(b);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      if (kFirst && i == 0) wgmma_ss_n64_zero(d, a[0], b[0], zero);
+      else wgmma_ss_n64(d, a[i], b[i], one);
+    }
+    wgmma_commit();
+  };
+  group(std::true_type{});
+  wgmma_wait<0>();
+  pin(d);
+  group(std::false_type{});
+}
+
+// ---- K5, dQ at dh 160: 128 query rows, a loop over 64-key tiles in stages
+template <int DHP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                         const float* __restrict__ m, const float* __restrict__ l, const float* __restrict__ dd,
+                         __nv_bfloat16* __restrict__ dq, int nq, int nk, int heads, int dh, float scale) {
+  constexpr int S = kStages<DHP>;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<DHP>& sm = *reinterpret_cast<Smem<DHP>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int q0 = blockIdx.x * kRows, n_kt = (nk + kBlock - 1) / kBlock, col0 = h * dh;
+  const long long st0 = (long long)bh * nq;
+  // res0 = Q, res1 = dO; str0 = K, str1 = V
+  if (!prologue<DHP, false>(sm, &tq, &tdo, &tk, &tv, q0, nq, n_kt, col0, b, m, l, dd, st0, nq, dh)) return;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + wg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+  float lse[2], drow[2];  // P = 0 on rows past nq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
+    drow[r] = row < nq ? dd[st0 + row] : 0.f;
+  }
+
+  uint32_t one = 1, zero = 0;
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dq0 = sdesc(&sm.res0[0][wg * 64][0], 16, 256), ddo0 = sdesc(&sm.res1[0][wg * 64][0], 16, 256);
+  const uint64_t dk0 = sdesc(&sm.str0[0][0][0][0], 16, 256), dv0 = sdesc(&sm.str1[0][0][0][0], 16, 256);
+  const uint64_t dkm0 = sdesc(&sm.str0[0][0][0][0], kBlock * 32, 256);
+  constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
+
+  const float c = scale * kLog2e;
+  const int tail = nk - (n_kt - 1) * kBlock;  // valid keys of the last tile
+  float acc[DHP / 2];
+#pragma unroll
+  for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
+  float s[32], dp[32];
+  uint32_t hi[16], lo[16];
+  uint64_t dkm[4];
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j % S;
+    mbar_wait(&sm.full[st], (j / S) & 1);
+    __syncwarp();
+    pin(acc);
+    ss_dh_halves<DHP>(s, dq0, dk0, st, one, zero);  // S = Q . K(j)^T
+    wgmma_wait<0>();
+    pin(s);
+    ss_dh_halves<DHP>(dp, ddo0, dv0, st, one, zero);  // dP = dO . V(j)^T
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], c, -lse[(i >> 1) & 1]));  // P, while dP's second group runs
+    if (j == n_kt - 1 && tail < kBlock) {  // keys past nk
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (8 * (i >> 2) + 2 * t4 + (i & 1) >= tail) s[i] = 0.f;
+    }
+    wgmma_wait<0>();
+    pin(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - drow[(i >> 1) & 1];  // dS
+    split16(s, hi, lo);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) dkm[kc] = dkm0 + st * kStage + kc * (16 * 32 >> 4);  // K(j), MN-major
+    pin(dkm);
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    wgmma_fence();
+    rs_split<DHP>(acc, hi, lo, dkm, one);  // dQ += dS . K(j)
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
+  }
+  store_rows<DHP>(dq, acc, scale, (long long)b * nq * heads * dh + col0, (long long)heads * dh, row0, nq, dh, t4);
+}
+
+// ---- K5, dK or dV at dh 160: 128 key rows and half of dh's output columns
+// of one of the two, a loop over 64-query tiles in stages
+template <int DHP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ m, const float* __restrict__ l, const float* __restrict__ dd,
+                          __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int nq, int nk,
+                          int heads, int dh, float scale) {
+  constexpr int S = kStages<DHP>;
+  constexpr int DO = DHP / 2;  // output columns per CTA
+  extern __shared__ uint8_t smem_raw[];
+  Smem<DHP>& sm = *reinterpret_cast<Smem<DHP>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int half = blockIdx.x & 1, grad_k = (blockIdx.x >> 1) & 1;  // columns half * DO on; dK (1) or dV (0)
+  const int k0 = (blockIdx.x >> 2) * kRows, n_qt = (nq + kBlock - 1) / kBlock, col0 = h * dh;
+  // res0 = K, res1 = V; str0 = Q, str1 = dO, with each query tile's lse and D
+  if (!prologue<DHP, true>(sm, &tk, &tv, &tq, &tdo, k0, nk, n_qt, col0, b, m, l, dd, (long long)bh * nq, nq, dh))
+    return;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+
+  uint32_t one = 1, zero = 0;
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dk0 = sdesc(&sm.res0[0][wg * 64][0], 16, 256), dv0 = sdesc(&sm.res1[0][wg * 64][0], 16, 256);
+  const uint64_t dq0 = sdesc(&sm.str0[0][0][0][0], 16, 256), ddo0 = sdesc(&sm.str1[0][0][0][0], 16, 256);
+  // the product's streamed operand, MN-major from this CTA's first output
+  // column block on: Q(j) for dK += dS^T . Q, dO(j) for dV += P^T . dO
+  const uint64_t dym0 = grad_k ? sdesc(&sm.str0[0][half * DO / kAtom][0][0], kBlock * 32, 256)
+                               : sdesc(&sm.str1[0][half * DO / kAtom][0][0], kBlock * 32, 256);
+  constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
+
+  const float c = scale * kLog2e;
+  float acc[DO / 2];
+#pragma unroll
+  for (int i = 0; i < DO / 2; ++i) acc[i] = 0.f;
+  float st[32], dpt[32];
+  uint32_t hi[16], lo[16];
+  uint64_t dym[4];
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int stage = j % S;
+    mbar_wait(&sm.full[stage], (j / S) & 1);
+    __syncwarp();
+    pin(acc);
+    ss_dh_halves<DHP>(st, dk0, dq0, stage, one, zero);  // S^T = K . Q(j)^T
+    wgmma_wait<0>();
+    pin(st);
+    ss_dh_halves<DHP>(dpt, dv0, ddo0, stage, one, zero);  // dP^T = V . dO(j)^T
+    // this thread's columns: queries 8jj + 2*t4 + {0, 1} of the tile
+    const float* lse = sm.lse[stage];
+    const float* dcol = sm.dd[stage];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {  // P^T, while dP^T's second group runs
+      const float2 ls = *reinterpret_cast<const float2*>(&lse[8 * jj + 2 * t4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[4 * jj + e] = ex2(fmaf(st[4 * jj + e], c, -(e & 1 ? ls.y : ls.x)));
+    }
+    wgmma_wait<0>();
+    pin(dpt);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {  // dS^T for dK, P^T for dV: a select, no branch
+      const float2 d = *reinterpret_cast<const float2*>(&dcol[8 * jj + 2 * t4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = st[4 * jj + e];
+        st[4 * jj + e] = grad_k ? p * (dpt[4 * jj + e] - (e & 1 ? d.y : d.x)) : p;
+      }
+    }
+    split16(st, hi, lo);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) dym[kc] = dym0 + stage * kStage + kc * (16 * 32 >> 4);
+    pin(dym);
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    wgmma_fence();
+    rs_split<DO>(acc, hi, lo, dym, one);  // dK += dS^T . Q(j) or dV += P^T . dO(j)
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    pin(hi);
+    pin(lo);
+    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+  }
+  const long long base = (long long)b * nk * heads * dh + col0 + half * DO, cols = (long long)heads * dh;
+  const int row0 = k0 + wg * 64 + warp * 16 + g;
+  store_rows<DO>(grad_k ? dk_out : dv_out, acc, grad_k ? scale : 1.f, base, cols, row0, nk, dh - half * DO, t4);
+}
+
 // ---- host side (tensor maps: hopper.cuh)
 
 struct Args {
@@ -543,22 +787,26 @@ int launch(const Args& a, cudaStream_t stream) {
       !tensor_map(&tk, a.k, a.b, a.nk, cols, rk) || !tensor_map(&tv, a.v, a.b, a.nk, cols, rk))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kSmem = kSmemBytes<DHP>;
+  constexpr bool kWide = DHP > 80;  // the staged kernels; dK/dV in four parts (dK or dV, half of dh's columns)
   const int n_res = DKV ? a.nk : a.nq;
-  dim3 grid((n_res + kRows - 1) / kRows, a.b * a.heads);
-  if constexpr (DKV) {
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(flash_bwd_dkv_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    flash_bwd_dkv_kernel<DHP><<<grid, kThreads, kSmem, stream>>>(
-        tk, tv, tq, tdo, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
-        a.nq, a.nk, a.heads, a.dh, a.scale);
-  } else {
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(flash_bwd_dq_kernel<DHP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    flash_bwd_dq_kernel<DHP><<<grid, kThreads, kSmem, stream>>>(
-        tq, tdo, tk, tv, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dq), a.nq, a.nk, a.heads, a.dh, a.scale);
-  }
+  dim3 grid((n_res + kRows - 1) / kRows * (DKV && kWide ? 4 : 1), a.b * a.heads);
+  auto run = [&](auto kernel) {
+    static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (attr != cudaSuccess) return attr;
+    if constexpr (DKV)
+      kernel<<<grid, kThreads, kSmem, stream>>>(tk, tv, tq, tdo, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dk),
+                                                static_cast<__nv_bfloat16*>(a.dv), a.nq, a.nk, a.heads, a.dh, a.scale);
+    else
+      kernel<<<grid, kThreads, kSmem, stream>>>(tq, tdo, tk, tv, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dq),
+                                                a.nq, a.nk, a.heads, a.dh, a.scale);
+    return cudaSuccess;
+  };
+  cudaError_t err;
+  if constexpr (DKV && kWide) err = run(flash_bwd_dkv_wide_kernel<DHP>);
+  else if constexpr (DKV) err = run(flash_bwd_dkv_kernel<DHP>);
+  else if constexpr (kWide) err = run(flash_bwd_dq_wide_kernel<DHP>);
+  else err = run(flash_bwd_dq_kernel<DHP>);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -570,6 +818,7 @@ int dispatch(const Args& a, void* stream) {
     case 16: return launch<16, DKV>(a, st);
     case 48: return launch<48, DKV>(a, st);
     case 80: return launch<80, DKV>(a, st);
+    case 160: return launch<160, DKV>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -578,8 +827,8 @@ int dispatch(const Args& a, void* stream) {
 
 // q, dout: (b, nq, heads * dh); k, v: (b, nk, heads * dh); bf16, contiguous,
 // 16-byte aligned; m, l, dd: (b * heads, nq) fp32 (m and l from K4 or K7, dd =
-// rowsum(dO * O) per head and row); dh a multiple of 8 that pads to 16, 48 or
-// 80. Each returns cudaGetLastError() after its launch.
+// rowsum(dO * O) per head and row); dh a multiple of 8 that pads to 16, 48,
+// 80 or 160. Each returns cudaGetLastError() after its launch.
 
 // K5, dQ: (b, nq, heads * dh).
 extern "C" int vface_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -607,6 +856,7 @@ extern "C" int vface_flash_attention_bwd_smem_bytes(int dh) {
     case 16: return kSmemBytes<16>;
     case 48: return kSmemBytes<48>;
     case 80: return kSmemBytes<80>;
+    case 160: return kSmemBytes<160>;
     default: return 0;
   }
 }

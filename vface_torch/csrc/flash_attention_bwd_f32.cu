@@ -39,7 +39,7 @@
 //   filled by bulk copies completed on mbarriers (full: the bytes landed and,
 //   for dK/dV, the stage's statistics are written; empty: every consumer warp
 //   is done with it). A tile is T = 64 rows, 32 at dh 80, where two 64-row
-//   tiles' planes leave no room for a second stage (227 KB).
+//   tiles' planes leave no room for a second stage (227 KB), and at dh 160.
 // * The products over dh (S, dP; S^T, dP^T) read both operands from shared
 //   memory (ss); the products over the tile's rows take P or dS, split in
 //   registers into hi and lo A fragments, against the transposed planes.
@@ -58,8 +58,9 @@
 //   C7515). At dh <= 40 the S and dP groups go out together; at dh 80 their
 //   descriptors do not fit beside each other, and the row products run in two
 //   halves of 40 columns.
-// dh is one of 16, 32, 40 and 80 (the JAX tests' widths and the UNet's ds1
-// and ds2); other widths are refused.
+// dh is one of 16, 32, 40, 80 and 160 (the JAX tests' widths and the UNet's
+// ds1, ds2 and ds4); other widths are refused. dh 160 runs on the wide
+// kernels below the others: see there.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -78,7 +79,7 @@ constexpr int kSmemMax = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
-constexpr int kT = DH == 80 ? 32 : 64;  // rows of a streamed tile (and of the split pass's tiles)
+constexpr int kT = DH >= 80 ? 32 : 64;  // rows of a streamed tile (and of the split pass's tiles)
 
 // Shared memory of the dQ (!DKV) or dK/dV kernel at head width DH.
 template <int DH, bool DKV>
@@ -532,6 +533,301 @@ bwd_dkv_f32_kernel(const float* __restrict__ pk, const float* __restrict__ pv, c
   store_rows<DH>(dv_out, run_v, 1.f, base, cols, row0, nk, t4);
 }
 
+// ---- dh 160 (SD-v1's ds4 sites above 512^2): the resident operands as
+// register fragments
+//
+// At dh 160 the 64 resident rows' four tf32 planes are 160 KB, and beside
+// them no streamed stage fits (the dQ kernel's six planes of 16 rows are
+// 60 KB, the dK/dV kernel's eight 80 KB). These kernels keep no resident
+// plane in shared memory: each product over dh takes the resident operand's
+// hi and lo A fragments straight from its split planes in global memory (L2
+// hits), two k8 steps at a time, into a fresh accumulator that the CUDA cores
+// add to S (or dP), as the fp32 forward does with Q at dh 160. One streamed
+// stage of 32-row tiles (dQ: 120 KB; dK/dV: 160 KB). The dK/dV kernel gives
+// each CTA half of dh's output columns of both dK and dV (grid.x is twice the
+// key blocks): 40 + 40 running-output registers, S^T and dP^T recomputed by
+// both halves. Every output is still summed in one fixed order by one CTA.
+
+// Shared memory of the wide dQ (!DKV) or dK/dV kernel: one stage.
+template <int DH, bool DKV>
+struct WideCfg {
+  static constexpr int T = kT<DH>;
+  static constexpr int kPlane = T * DH;
+  static constexpr int kStrPlanes = DKV ? 8 : 6;
+  static constexpr int kStatT = DKV ? T : 1;
+  struct Smem {
+    float str[kStrPlanes][kPlane];
+    float lse[kStatT], dd[kStatT];
+    uint64_t full, empty;
+  };
+  static constexpr int kSmemBytes = sizeof(Smem) + 1024;
+};
+
+// The hi and lo tf32 A fragments of k8 steps cb0 .. cb0 + CB - 1 of a
+// resident operand, read from its split planes x (planes[bh][tile][4][T * DH]):
+// this thread's rows rr and rr + 8 of the 64 from tile tile0 on. Row R of a
+// plane is column block * T + the tile's row; its slot c ^ 4 * (bit 2 of R)
+// holds column 8 * block + c (the pass writes TMA's 32-byte swizzle).
+template <int DH, int CB>
+__device__ __forceinline__ void load_frags(const float* __restrict__ x, long long tile0, int rr, int t4, int cb0,
+                                           uint32_t (&hi)[4 * CB], uint32_t (&lo)[4 * CB]) {
+  constexpr int T = kT<DH>, P = T * DH;
+#pragma unroll
+  for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = rr + 8 * (e & 1), c = t4 + 4 * (e >> 1);
+      const int R = (cb0 + cb) * T + row % T;
+      const float* at = x + (tile0 + row / T) * 4 * P + R * 8 + (c ^ (((R >> 2) & 1) << 2));
+      hi[4 * cb + e] = __float_as_uint(at[0]);
+      lo[4 * cb + e] = __float_as_uint(at[P]);
+    }
+}
+
+// d = X . Y^T over dh (T / 2 registers, N = T): X the resident operand from
+// its planes x at tile tile0, two k8 steps a group; Y the streamed plane pair
+// from shared memory descriptor y (hi, then lo kPl later). Each group's three
+// tf32 terms go to `part`, added to d on the CUDA cores.
+template <int DH>
+__device__ __forceinline__ void dh_product(float (&d)[kT<DH> / 2], float (&part)[kT<DH> / 2], const float* x,
+                                           long long tile0, int rr, int t4, uint64_t y, uint64_t kPl, uint32_t one,
+                                           uint32_t zero) {
+  constexpr int T = kT<DH>, CB = 2, QC = DH / 8 / CB;
+  static_assert(T == 32, "the wide kernels' tiles are 32 rows");
+  uint32_t ahi[4 * CB], alo[4 * CB];
+  uint64_t db[2 * CB];
+#pragma unroll 1
+  for (int qc = 0; qc < QC; ++qc) {
+    load_frags<DH, CB>(x, tile0, rr, t4, qc * CB, ahi, alo);
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) {
+      db[cb] = y + (qc * CB + cb) * (T * 32 >> 4);
+      db[CB + cb] = db[cb] + kPl;
+    }
+    pin(ahi);
+    pin(alo);
+    pin(db);
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) {  // X_lo.Y_hi + X_hi.Y_lo + X_hi.Y_hi, the small terms first
+      if (cb == 0) wgmma_tf32_n32_zero(part, &alo[0], db[0], zero);
+      else wgmma_tf32_n32(part, &alo[4 * cb], db[cb], one);
+    }
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) wgmma_tf32_n32(part, &ahi[4 * cb], db[CB + cb], one);
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) wgmma_tf32_n32(part, &ahi[4 * cb], db[cb], one);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(part);
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) d[i] = qc ? d[i] + part[i] : part[i];
+  }
+}
+
+// ---- dQ at dh 160: 64 query rows, a loop over 32-key tiles
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dq_f32_wide_kernel(const float* __restrict__ pq, const float* __restrict__ pdo, const float* __restrict__ pk,
+                       const float* __restrict__ pv, const float* __restrict__ m, const float* __restrict__ l,
+                       const float* __restrict__ dd, float* __restrict__ dq, int nq, int nk, int heads, float scale) {
+  using C = WideCfg<DH, false>;
+  constexpr int T = C::T, P = C::kPlane, KG = T / 8, DN = 40, NH = DH / DN;
+  extern __shared__ uint8_t smem_raw[];
+  auto& sm = *reinterpret_cast<typename C::Smem*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int tid = threadIdx.x, bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int q0 = blockIdx.x * kRes, n_kt = (nk + T - 1) / T;
+  const long long kt0 = (long long)bh * tiles<DH>(nk), qt0 = (long long)bh * tiles<DH>(nq) + q0 / T;
+
+  if (tid == 0) {
+    mbar_init(&sm.full, 1);
+    mbar_init(&sm.empty, 4);  // one arrival per consumer warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warpgroup: its first thread issues every copy
+    if (tid == 128) {
+      for (int j = 0; j < n_kt; ++j) {
+        mbar_wait(&sm.empty, (j & 1) ^ 1);
+        mbar_expect_tx(&sm.full, 6 * P * 4);
+        bulk_load(sm.str[0], pk + (kt0 + j) * 4 * P, 4 * P * 4, &sm.full);  // K: hi, lo, T hi, T lo
+        bulk_load(sm.str[4], pv + (kt0 + j) * 4 * P, 2 * P * 4, &sm.full);  // V: hi, lo
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int rr = warp * 16 + g, row0 = q0 + rr;  // this thread's rows: row0 and row0 + 8
+  const long long st0 = (long long)bh * nq;
+  float lse[2], drow[2];  // P = 0 on rows past nq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lse[r] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
+    drow[r] = row < nq ? dd[st0 + row] : 0.f;
+  }
+  uint32_t one = 1, zero = 0;
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dstr = sdesc(&sm.str[0][0], 16, 256);
+  constexpr uint64_t kPl = P * 4 >> 4;
+
+  const float c = scale * kLog2e;
+  const int tail = nk - (n_kt - 1) * T;  // valid keys of the last tile
+  float run[DH / 2], acc[DN / 2], s[T / 2], dp[T / 2], part[T / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) run[i] = 0.f;
+  uint32_t fhi[T / 2], flo[T / 2];
+
+  for (int j = 0; j < n_kt; ++j) {
+    mbar_wait(&sm.full, j & 1);
+    __syncwarp();
+    dh_product<DH>(s, part, pq, qt0, rr, t4, dstr, kPl, one, zero);             // S = Q.K^T
+    dh_product<DH>(dp, part, pdo, qt0, rr, t4, dstr + 4 * kPl, kPl, one, zero);  // dP = dO.V^T
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) s[i] = ex2(fmaf(s[i], c, -lse[(i >> 1) & 1]));  // P
+    if (j == n_kt - 1 && tail < T) {  // keys past nk
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i)
+        if (8 * (i >> 2) + 2 * t4 + (i & 1) >= tail) s[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) s[i] *= dp[i] - drow[(i >> 1) & 1];  // dS
+    split_frags<T>(s, fhi, flo);
+    pin(fhi);
+    pin(flo);
+    // dQ += dS . K, K^T's planes (2: hi, 3: lo), in NH groups of DN columns
+#pragma unroll
+    for (int hb = 0; hb < NH; ++hb) {
+      uint64_t dk[2 * KG];
+#pragma unroll
+      for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) dk[p * KG + kg] = dstr + (2 + p) * kPl + kg * (DH * 32 >> 4) + hb * (DN * 32 >> 4);
+      pin(dk);
+      wgmma_fence();
+      rs_rows<DN, KG>(acc, fhi, flo, dk, one, zero);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) run[hb * DN / 2 + i] += acc[i];
+    }
+    if (lane == 0) mbar_arrive(&sm.empty);
+  }
+  store_rows<DH>(dq, run, scale, (long long)b * nq * heads * DH + h * DH, (long long)heads * DH, row0, nq, t4);
+}
+
+// ---- dK and dV at dh 160: 64 key rows and half of dh's output columns, a
+// loop over 32-query tiles
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+bwd_dkv_f32_wide_kernel(const float* __restrict__ pk, const float* __restrict__ pv, const float* __restrict__ pq,
+                        const float* __restrict__ pdo, const float* __restrict__ m, const float* __restrict__ l,
+                        const float* __restrict__ dd, float* __restrict__ dk_out, float* __restrict__ dv_out,
+                        int nq, int nk, int heads, float scale) {
+  using C = WideCfg<DH, true>;
+  constexpr int T = C::T, P = C::kPlane, KG = T / 8, DO = DH / 2, DN = 40, NH = DO / DN;
+  extern __shared__ uint8_t smem_raw[];
+  auto& sm = *reinterpret_cast<typename C::Smem*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int tid = threadIdx.x, bh = blockIdx.y, b = bh / heads, h = bh - b * heads, half = blockIdx.x & 1;
+  const int k0 = (blockIdx.x >> 1) * kRes, n_qt = (nq + T - 1) / T;
+  const long long qt0 = (long long)bh * tiles<DH>(nq), kt0 = (long long)bh * tiles<DH>(nk) + k0 / T;
+  const long long st0 = (long long)bh * nq;
+
+  if (tid == 0) {
+    mbar_init(&sm.full, 33);  // the copies' bytes, and the producer warp's statistics
+    mbar_init(&sm.empty, 4);  // one arrival per consumer warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 128) {  // the producer warpgroup: its first warp works, lane 0 issues every copy
+    if (tid >= 160) return;
+    const int lane = tid & 31;
+    for (int j = 0; j < n_qt; ++j) {
+      mbar_wait(&sm.empty, (j & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full, 8 * P * 4);
+        bulk_load(sm.str[0], pq + (qt0 + j) * 4 * P, 4 * P * 4, &sm.full);   // Q: hi, lo, T hi, T lo
+        bulk_load(sm.str[4], pdo + (qt0 + j) * 4 * P, 4 * P * 4, &sm.full);  // dO: the same
+      }
+      for (int cq = lane; cq < T; cq += 32) {  // P = ex2(s * scale * log2(e) - lse): 0 past nq
+        const int row = j * T + cq;
+        sm.lse[cq] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
+        sm.dd[cq] = row < nq ? dd[st0 + row] : 0.f;
+      }
+      mbar_arrive(&sm.full);
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int rr = warp * 16 + g;
+  uint32_t one = 1, zero = 0;
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dstr = sdesc(&sm.str[0][0], 16, 256);
+  constexpr uint64_t kPl = P * 4 >> 4;
+  // out += X . Y over the tile's queries: Y the transposed planes from y (2:
+  // Q^T, 6: dO^T), this CTA's DO columns in NH groups of DN
+  auto rows_product = [&](float (&out)[DO / 2], float (&acc)[DN / 2], uint32_t (&hi)[T / 2], uint32_t (&lo)[T / 2],
+                          int y) {
+    pin(hi);
+    pin(lo);
+#pragma unroll
+    for (int hb = 0; hb < NH; ++hb) {
+      uint64_t dy[2 * KG];
+#pragma unroll
+      for (int kg = 0; kg < KG; ++kg)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          dy[p * KG + kg] = dstr + (y + p) * kPl + kg * (DH * 32 >> 4) + (half * DO + hb * DN) * 32 / 16;
+      pin(dy);
+      wgmma_fence();
+      rs_rows<DN, KG>(acc, hi, lo, dy, one, zero);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) out[hb * DN / 2 + i] += acc[i];
+    }
+  };
+
+  const float c = scale * kLog2e;
+  float run_k[DO / 2], run_v[DO / 2], acc[DN / 2], s[T / 2], dp[T / 2], part[T / 2];
+#pragma unroll
+  for (int i = 0; i < DO / 2; ++i) run_k[i] = run_v[i] = 0.f;
+  uint32_t fhi[T / 2], flo[T / 2];
+
+  for (int j = 0; j < n_qt; ++j) {
+    mbar_wait(&sm.full, j & 1);
+    __syncwarp();
+    dh_product<DH>(s, part, pk, kt0, rr, t4, dstr, kPl, one, zero);             // S^T = K.Q^T
+    dh_product<DH>(dp, part, pv, kt0, rr, t4, dstr + 4 * kPl, kPl, one, zero);  // dP^T = V.dO^T
+    // this thread's columns: queries 8jj + 2*t4 + {0, 1} of the tile
+#pragma unroll
+    for (int jj = 0; jj < KG; ++jj) {
+      const float2 ls = *reinterpret_cast<const float2*>(&sm.lse[8 * jj + 2 * t4]);
+      const float2 d = *reinterpret_cast<const float2*>(&sm.dd[8 * jj + 2 * t4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * jj + e] = ex2(fmaf(s[4 * jj + e], c, -(e & 1 ? ls.y : ls.x)));       // P^T
+        dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - (e & 1 ? d.y : d.x));  // dS^T
+      }
+    }
+    split_frags<T>(s, fhi, flo);
+    rows_product(run_v, acc, fhi, flo, 6);  // dV += P^T . dO
+    split_frags<T>(dp, fhi, flo);
+    rows_product(run_k, acc, fhi, flo, 2);  // dK += dS^T . Q
+    if (lane == 0) mbar_arrive(&sm.empty);
+  }
+  const long long base = (long long)b * nk * heads * DH + h * DH + half * DO, cols = (long long)heads * DH;
+  const int row0 = k0 + warp * 16 + g;
+  store_rows<DO>(dk_out, run_k, scale, base, cols, row0, nk, t4);
+  store_rows<DO>(dv_out, run_v, 1.f, base, cols, row0, nk, t4);
+}
+
 // ---- host side
 
 struct Args {
@@ -570,22 +866,26 @@ template <int DH, bool DKV>
 int launch(const Args& a, cudaStream_t stream) {
   float *pq, *pk, *pv, *pdo;
   plane_ptrs<DH>(a, pq, pk, pv, pdo);
-  constexpr int kSmem = Cfg<DH, DKV>::kSmemBytes;
-  const dim3 grid(((DKV ? a.nk : a.nq) + kRes - 1) / kRes, a.b * a.heads);
-  if constexpr (DKV) {
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(bwd_dkv_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    bwd_dkv_f32_kernel<DH><<<grid, kThreads, kSmem, stream>>>(pk, pv, pq, pdo, a.m, a.l, a.dd,
-                                                              static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-                                                              a.nq, a.nk, a.heads, a.scale);
-  } else {
-    static const cudaError_t attr =
-        cudaFuncSetAttribute(bwd_dq_f32_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    bwd_dq_f32_kernel<DH><<<grid, kThreads, kSmem, stream>>>(pq, pdo, pk, pv, a.m, a.l, a.dd,
-                                                             static_cast<float*>(a.dq), a.nq, a.nk, a.heads, a.scale);
-  }
+  constexpr bool kWide = DH > 80;  // the register-fragment kernels; dK/dV by half of dh's columns
+  const int n_res = DKV ? a.nk : a.nq;
+  const dim3 grid((n_res + kRes - 1) / kRes * (DKV && kWide ? 2 : 1), a.b * a.heads);
+  auto run = [&](auto kernel, int smem) {
+    static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return attr;
+    if constexpr (DKV)
+      kernel<<<grid, kThreads, smem, stream>>>(pk, pv, pq, pdo, a.m, a.l, a.dd, static_cast<float*>(a.dk),
+                                               static_cast<float*>(a.dv), a.nq, a.nk, a.heads, a.scale);
+    else
+      kernel<<<grid, kThreads, smem, stream>>>(pq, pdo, pk, pv, a.m, a.l, a.dd, static_cast<float*>(a.dq), a.nq, a.nk,
+                                               a.heads, a.scale);
+    return cudaSuccess;
+  };
+  cudaError_t err;
+  if constexpr (DKV && kWide) err = run(bwd_dkv_f32_wide_kernel<DH>, WideCfg<DH, true>::kSmemBytes);
+  else if constexpr (DKV) err = run(bwd_dkv_f32_kernel<DH>, Cfg<DH, true>::kSmemBytes);
+  else if constexpr (kWide) err = run(bwd_dq_f32_wide_kernel<DH>, WideCfg<DH, false>::kSmemBytes);
+  else err = run(bwd_dq_f32_kernel<DH>, Cfg<DH, false>::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,6 +903,7 @@ int dispatch(const Args& a, int dh, int what, void* stream) {
     case 32: return run(std::integral_constant<int, 32>{});
     case 40: return run(std::integral_constant<int, 40>{});
     case 80: return run(std::integral_constant<int, 80>{});
+    case 160: return run(std::integral_constant<int, 160>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -611,7 +912,7 @@ int dispatch(const Args& a, int dh, int what, void* stream) {
 
 // q, dout: (b, nq, heads * dh); k, v: (b, nk, heads * dh); fp32, contiguous,
 // 16-byte aligned; m, l, dd: (b * heads, nq) fp32 (m and l from K7's fp32
-// form, dd = rowsum(dO * O) per head and row); dh one of 16, 32, 40, 80;
+// form, dd = rowsum(dO * O) per head and row); dh one of 16, 32, 40, 80, 160;
 // planes: the split pass's scratch, 4 * b * heads * dh * 64 * (2 * ceil(nq /
 // 64) + 2 * ceil(nk / 64)) fp32 values. Each returns cudaGetLastError() after
 // its launches (cudaErrorInvalidValue, 1, for a width that is not built).
@@ -649,6 +950,7 @@ extern "C" int vface_flash_attention_bwd_f32_smem_bytes(int dh, int dkv) {
     case 32: return dkv ? Cfg<32, true>::kSmemBytes : Cfg<32, false>::kSmemBytes;
     case 40: return dkv ? Cfg<40, true>::kSmemBytes : Cfg<40, false>::kSmemBytes;
     case 80: return dkv ? Cfg<80, true>::kSmemBytes : Cfg<80, false>::kSmemBytes;
+    case 160: return dkv ? WideCfg<160, true>::kSmemBytes : WideCfg<160, false>::kSmemBytes;
     default: return 0;
   }
 }

@@ -49,13 +49,23 @@
 //   are the A fragment as they stand.
 // * One CTA owns 128 query rows of one (batch, head): two consumer
 //   warpgroups of 64 rows, and a producer warpgroup whose first lane keeps a
-//   ring of tile stages (4 at dh <= 40, 2 at dh 80: 160 KB) filled by TMA
-//   in 256-row boxes through the 32-byte swizzle, completed on mbarriers
+//   ring of slots (160 KB: 4 at dh <= 40, 2 at dh 80 and 160) filled by
+//   TMA in 256-row boxes through the 32-byte swizzle, completed on mbarriers
 //   (full: the bytes landed; empty: every consumer warp is done with the
-//   stage), and which hands its registers to the consumers (setmaxnreg
-//   24 / 240): a consumer holds Q's fragments (dh registers), S (32), the
-//   running output and one tile's P.V (dh / 2 each; at dh 80 the tile's in
-//   two halves) and P's hi and lo fragments (64).
+//   slot). Up to dh 80 a slot holds one key tile's four planes, waited for
+//   once and released once a tile. At dh 160 those are 160 KB, so a slot
+//   holds a tile's K planes or its V^T planes, the two in turn, each waited
+//   for and released on its own: K(j + 1) loads while P(j).V(j) runs and
+//   V(j + 1) while S(j + 1) does. The producer hands
+//   its registers to the consumers (setmaxnreg 24 / 240): a consumer holds
+//   Q's fragments (dh registers), S (32), the running output and one tile's
+//   P.V (dh / 2 each; at dh 80 and 160 the tile's in blocks of 40 columns)
+//   and P's hi and lo fragments (64).
+// * At dh 160 Q's fragments (160 registers) and S's 40 descriptor registers
+//   do not fit beside the 80-register output: S is issued in ten groups of
+//   16 columns, each loading its Q fragments (L1 hits) into a fresh
+//   accumulator that the CUDA cores add to S, as the P.V tiles are summed
+//   (five groups of 32 columns spilled 168 bytes).
 // * Per tile each warpgroup issues S = Q_lo.K_hi^T + Q_hi.K_lo^T +
 //   Q_hi.K_hi^T (3 * dh / 8 wgmma of m64n64k8, the small terms first) as one
 //   group, waits, runs the softmax (one FFMA and one ex2 a score; only a
@@ -71,8 +81,8 @@
 //   C7513), and no group is in flight across the loop's back edge (C7515).
 // * Each row walks its keys in one fixed order: two launches are equal bit
 //   for bit.
-// dh is one of 16, 32, 40 and 80 (the JAX tests' widths and the UNet's ds1
-// and ds2); other widths are refused.
+// dh is one of 16, 32, 40, 80 and 160 (the JAX tests' widths and the UNet's
+// ds1, ds2 and ds4); other widths are refused.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -93,18 +103,23 @@ constexpr int kThreads = 128 * kNC + 128, kProducerRegs = 24, kConsumerRegs = 24
 constexpr int kBoxRows = 256;  // 32-byte rows per TMA box of the scratch tensor
 constexpr float kLog2e = 1.4426950408889634f;
 
-// tiles in flight: a stage is 4 planes of 64 * DH fp32 values, 160 KB of
-// stages at dh 40 and at dh 80
+// items of the ring a key tile takes: its four planes as one, or at dh 160
+// its K planes and then its V^T planes
 template <int DH>
-constexpr int kStages = DH <= 40 ? 4 : 2;
+constexpr int kParts = DH == 160 ? 2 : 1;
+// slots of the ring, each holding one item: 160 KB of slots at every width
+template <int DH>
+constexpr int kSlots = DH <= 40 ? 4 : 2;
 
-// A stage's planes, each 8 * DH rows of 8 fp32 values in TMA's 32-byte
-// swizzle: K_hi and K_lo as [DH / 8][64 keys][8], V^T_hi and V^T_lo as
-// [8 key groups][DH][8] with each group's keys in perm8 order.
+// A slot's planes, each 8 * DH rows of 8 fp32 values in TMA's 32-byte
+// swizzle: K_hi and K_lo as [DH / 8][64 keys][8], then (or, at dh 160, in
+// the next item) V^T_hi and V^T_lo as [8 key groups][DH][8] with each
+// group's keys in perm8 order. Key tile j's K is item kParts * j of the ring,
+// its V^T item kParts * j + kParts - 1: item i in slot i % kSlots.
 template <int DH>
 struct Smem {
-  float kv[kStages<DH>][4][8 * DH][8];
-  uint64_t full[kStages<DH>], empty[kStages<DH>];
+  float kv[kSlots<DH>][4 / kParts<DH>][8 * DH][8];
+  uint64_t full[kSlots<DH>], empty[kSlots<DH>];
 };
 template <int DH>
 constexpr int kSmemBytes = sizeof(Smem<DH>) + 1024;  // + the slack to align it to 1024 bytes
@@ -117,36 +132,45 @@ __device__ __forceinline__ int perm8(int i) { return 2 * (i & 3) + (i >> 2); }
 // The split pass: one CTA per (64-key tile j, batch * head) stages the tile's
 // keys and values (zeros past nk) and writes its four planes, split
 // into tf32 hi and lo, to kv[bh][j] (4 * 64 * DH values).
+// The tile is staged through shared memory in column blocks of at most 80
+// (at dh 160 the whole tile's 82 KB would pass the 48 KB of static shared
+// memory); K's rows of a block are whole 8-column groups.
 template <int DH>
 __global__ void __launch_bounds__(256)
 split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ kv, int nk, int heads) {
-  __shared__ float sk[kBlockK][DH + 1], sv[kBlockK][DH + 1];
+  constexpr int CW = DH <= 80 ? DH : 80;  // columns staged at once
+  __shared__ float sk[kBlockK][CW + 1], sv[kBlockK][CW + 1];
   const int j = blockIdx.x, bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
   const long long cols = (long long)heads * DH;
-  for (int i = threadIdx.x; i < kBlockK * DH; i += blockDim.x) {
-    const int r = i / DH, d = i - r * DH, key = j * kBlockK + r;
-    float kx = 0.f, vx = 0.f;
-    if (key < nk) {
-      const long long off = ((long long)b * nk + key) * cols + h * DH + d;
-      kx = k[off];
-      vx = v[off];
-    }
-    sk[r][d] = kx;
-    sv[r][d] = vx;
-  }
-  __syncthreads();
   constexpr int P = kBlockK * DH;  // values per plane
   float* out = kv + ((long long)bh * gridDim.x + j) * 4 * P;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    const int row = i >> 3, c = i & 7;
-    uint32_t hi, lo;
-    split_tf32(sk[row & 63][8 * (row >> 6) + c], hi, lo);  // K: row = column block * 64 + key
-    out[i] = __uint_as_float(hi);
-    out[P + i] = __uint_as_float(lo);
-    const int kg = row / DH, d = row - kg * DH;  // V^T: row = key group * DH + column
-    split_tf32(sv[8 * kg + perm8(c)][d], hi, lo);
-    out[2 * P + i] = __uint_as_float(hi);
-    out[3 * P + i] = __uint_as_float(lo);
+  for (int c0 = 0; c0 < DH; c0 += CW) {
+    if (c0) __syncthreads();  // the last block's reads are done
+    for (int i = threadIdx.x; i < kBlockK * CW; i += blockDim.x) {
+      const int r = i / CW, d = i - r * CW, key = j * kBlockK + r;
+      float kx = 0.f, vx = 0.f;
+      if (key < nk) {
+        const long long off = ((long long)b * nk + key) * cols + h * DH + c0 + d;
+        kx = k[off];
+        vx = v[off];
+      }
+      sk[r][d] = kx;
+      sv[r][d] = vx;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kBlockK * CW; i += blockDim.x) {
+      uint32_t hi, lo;
+      // K: plane row = column block * 64 + key; this block's rows start at c0 / 8 * 64
+      const int o = c0 * kBlockK + i, row = i >> 3, c = i & 7;
+      split_tf32(sk[row & 63][8 * (row >> 6) + c], hi, lo);
+      out[o] = __uint_as_float(hi);
+      out[P + o] = __uint_as_float(lo);
+      // V^T: plane row = key group * DH + column; this block holds columns c0 .. c0 + CW
+      const int kg = row / CW, d = row - kg * CW, ov = (kg * DH + c0 + d) * 8 + c;
+      split_tf32(sv[8 * kg + perm8(c)][d], hi, lo);
+      out[2 * P + ov] = __uint_as_float(hi);
+      out[3 * P + ov] = __uint_as_float(lo);
+    }
   }
 }
 
@@ -155,7 +179,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restrict__ q, float* __restrict__ out,
                   float* __restrict__ m_out, float* __restrict__ l_out, int nq, int nk, int heads, float scale) {
   constexpr int NB = DH / 8;  // k8 steps of Q.K^T
-  constexpr int S = kStages<DH>;
+  constexpr int SL = kSlots<DH>, PT = kParts<DH>;
   extern __shared__ uint8_t smem_raw[];
   Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
 
@@ -166,7 +190,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   const int active = min(kNC, (nq - q0 + 63) / 64);  // warpgroups with a row below nq
 
   if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < SL; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], 4 * active);  // one arrival per consumer warp
     }
@@ -177,12 +201,13 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   if (tid >= 128 * kNC) {  // the producer warpgroup: its first thread issues every load
     setmaxnreg_dec<kProducerRegs>();
     if (tid == 128 * kNC) {
-      for (int j = 0; j < n_kt; ++j) {
-        const int st = j % S;
-        mbar_wait(&sm.empty[st], ((j / S) & 1) ^ 1);
+      constexpr int kItemRows = 32 / PT * DH;  // a tile's 32 * DH scratch rows, in PT items
+      for (int i = 0; i < PT * n_kt; ++i) {
+        const int st = i % SL;
+        mbar_wait(&sm.empty[st], ((i / SL) & 1) ^ 1);
         mbar_expect_tx(&sm.full[st], sizeof(sm.kv[0]));
-        for (int c = 0; c < 32 * DH / kBoxRows; ++c)
-          tma_load(&sm.kv[st][0][0][0] + c * kBoxRows * 8, &tkv, &sm.full[st], 0, j * 32 * DH + c * kBoxRows, bh);
+        for (int c = 0; c < kItemRows / kBoxRows; ++c)
+          tma_load(&sm.kv[st][0][0][0] + c * kBoxRows * 8, &tkv, &sm.full[st], 0, i * kItemRows + c * kBoxRows, bh);
       }
     }
     return;
@@ -198,24 +223,26 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   // Q's hi and lo A fragments: k8 step cb in registers 4cb .. 4cb + 3, rows
   // (row0, row0 + 8, row0, row0 + 8) at columns (t4, t4, t4 + 4, t4 + 4).
   // Loaded once at dh <= 40; at dh 80 their 80 registers do not fit beside
-  // the rest (ptxas spilled 136 bytes), and each tile reloads them (L1 hits).
+  // the rest (ptxas spilled 136 bytes), and each tile reloads them (L1 hits);
+  // at dh 160 each of S's QC groups loads its CB steps' (L1 hits).
   constexpr bool kQResident = DH <= 40;
-  uint32_t qhi[4 * NB], qlo[4 * NB];
+  constexpr int QC = DH == 160 ? 10 : 1, CB = NB / QC;  // S's groups, k8 steps each (at dh 160 five groups spilled)
+  uint32_t qhi[4 * CB], qlo[4 * CB];
   const float* qb = q + (long long)b * nq * cols + h * DH;
-  auto load_q = [&] {
+  auto load_q = [&](int qc) {
 #pragma unroll
-    for (int cb = 0; cb < NB; ++cb) {
+    for (int cb = 0; cb < CB; ++cb) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + 8 * (e & 1);
-        const float x = row < nq ? qb[row * cols + 8 * cb + t4 + 4 * (e >> 1)] : 0.f;
+        const float x = row < nq ? qb[row * cols + 8 * (qc * CB + cb) + t4 + 4 * (e >> 1)] : 0.f;
         split_tf32(x, qhi[4 * cb + e], qlo[4 * cb + e]);
       }
     }
     pin(qhi);
     pin(qlo);
   };
-  if constexpr (kQResident) load_q();
+  if constexpr (kQResident) load_q(0);
 
   // Descriptors in 16-byte units: K's k8 steps are its column blocks, 64
   // keys * 32 bytes apart; V^T's are its key groups, DH rows * 32 bytes apart.
@@ -225,26 +252,43 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   uint32_t one = 1, zero = 0;
   asm volatile("" : "+r"(one), "+r"(zero));
   const uint64_t d0 = sdesc(&sm.kv[0][0][0][0], 16, 256);
-  constexpr uint64_t kPlane = sizeof(sm.kv[0][0]) >> 4, kStage = sizeof(sm.kv[0]) >> 4;
-  uint64_t dk[2 * NB], dv[16];  // hi steps, then lo steps
-  // P.V in NH blocks of DN output columns: at dh 80 two of 40, for
+  constexpr uint64_t kPlane = sizeof(sm.kv[0][0]) >> 4, kSlot = sizeof(sm.kv[0]) >> 4;
+  uint64_t dk[2 * CB], dv[16];  // hi steps, then lo steps
+  // P.V in NH blocks of DN output columns: at dh 80 and 160 blocks of 40, for
   // registers (one of 80 spilled 88 bytes)
-  constexpr int NH = DH == 80 ? 2 : 1, DN = DH / NH;
-  auto k_descs = [&](int st) {
+  constexpr int NH = DH >= 80 ? DH / 40 : 1, DN = DH / NH;
+  auto k_descs = [&](int st, int qc) {  // K's k8 steps qc * CB .. qc * CB + CB - 1
 #pragma unroll
-    for (int cb = 0; cb < NB; ++cb) {
-      dk[cb] = d0 + st * kStage + cb * (kBlockK * 32 >> 4);
-      dk[NB + cb] = dk[cb] + kPlane;
+    for (int cb = 0; cb < CB; ++cb) {
+      dk[cb] = d0 + st * kSlot + (qc * CB + cb) * (kBlockK * 32 >> 4);
+      dk[CB + cb] = dk[cb] + kPlane;
     }
     pin(dk);
   };
   auto v_descs = [&](int st, int hb) {  // column block hb: DN rows of each key group
 #pragma unroll
     for (int kg = 0; kg < 8; ++kg) {
-      dv[kg] = d0 + st * kStage + 2 * kPlane + kg * (DH * 32 >> 4) + hb * (DN * 32 >> 4);
+      dv[kg] = d0 + st * kSlot + (PT == 1 ? 2 * kPlane : 0) + kg * (DH * 32 >> 4) + hb * (DN * 32 >> 4);
       dv[8 + kg] = dv[kg] + kPlane;
     }
     pin(dv);
+  };
+  // one group of S's terms over Q's loaded steps: Q_lo.K_hi^T + Q_hi.K_lo^T +
+  // Q_hi.K_hi^T, the small terms first, into sc (sc's old values unread)
+  auto qk = [&](float (&sc)[32]) {
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) {
+      if (cb == 0) wgmma_tf32_n64_zero(sc, &qlo[0], dk[0], zero);
+      else wgmma_tf32_n64(sc, &qlo[4 * cb], dk[cb], one);
+    }
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) wgmma_tf32_n64(sc, &qhi[4 * cb], dk[CB + cb], one);
+#pragma unroll
+    for (int cb = 0; cb < CB; ++cb) wgmma_tf32_n64(sc, &qhi[4 * cb], dk[cb], one);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(sc);
   };
 
   const float c = scale * kLog2e;             // scores to log2 units in the exponent's FFMA
@@ -260,26 +304,29 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   uint32_t phi[32], plo[32];
 
   for (int j = 0; j < n_kt; ++j) {
-    const int st = j % S;
-    mbar_wait(&sm.full[st], (j / S) & 1);
+    const int sk = (PT * j) % SL, sv = (PT * j + PT - 1) % SL;
+    mbar_wait(&sm.full[sk], ((PT * j) / SL) & 1);
     __syncwarp();
 
     // S = Q_lo.K_hi^T + Q_hi.K_lo^T + Q_hi.K_hi^T
-    if constexpr (!kQResident) load_q();
-    k_descs(st);
-    wgmma_fence();
+    if constexpr (QC == 1) {
+      if constexpr (!kQResident) load_q(0);
+      k_descs(sk, 0);
+      qk(s);
+    } else {  // QC groups of CB steps, each into sc, added to s on the CUDA cores
+      float sc[32];
+#pragma unroll 1
+      for (int qc = 0; qc < QC; ++qc) {
+        load_q(qc);
+        k_descs(sk, qc);
+        qk(sc);
 #pragma unroll
-    for (int cb = 0; cb < NB; ++cb) {
-      if (cb == 0) wgmma_tf32_n64_zero(s, &qlo[0], dk[0], zero);
-      else wgmma_tf32_n64(s, &qlo[4 * cb], dk[cb], one);
+        for (int i = 0; i < 32; ++i) s[i] = qc ? s[i] + sc[i] : sc[i];
+      }
     }
-#pragma unroll
-    for (int cb = 0; cb < NB; ++cb) wgmma_tf32_n64(s, &qhi[4 * cb], dk[NB + cb], one);
-#pragma unroll
-    for (int cb = 0; cb < NB; ++cb) wgmma_tf32_n64(s, &qhi[4 * cb], dk[cb], one);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(s);
+    if constexpr (PT == 2) {
+      if (lane == 0) mbar_arrive(&sm.empty[sk]);  // K(j)'s slot is free
+    }
 
     if (j == n_kt - 1 && tail < kBlockK) softmax_tile<true>(s, mr, l, al, c, tail, t4);
     else softmax_tile<false>(s, mr, l, al, c, kBlockK, t4);
@@ -295,11 +342,15 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
 
     // acc = P_lo.V^T_hi + P_hi.V^T_lo + P_hi.V^T_hi; o = o * alpha + acc,
     // per block of DN columns
+    if constexpr (PT == 2) {
+      mbar_wait(&sm.full[sv], ((2 * j + 1) / SL) & 1);
+      __syncwarp();
+    }
     pin(phi);
     pin(plo);
 #pragma unroll
     for (int hb = 0; hb < NH; ++hb) {
-      v_descs(st, hb);
+      v_descs(sv, hb);
       wgmma_fence();
 #pragma unroll
       for (int kg = 0; kg < 8; ++kg) {
@@ -317,7 +368,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
       for (int i = 0; i < DN / 2; ++i)
         o[hb * DN / 2 + i] = fmaf(o[hb * DN / 2 + i], al[(i >> 1) & 1], acc[i]);
     }
-    if (lane == 0) mbar_arrive(&sm.empty[st]);
+    if (lane == 0) mbar_arrive(&sm.empty[sv]);  // V^T(j)'s slot (K(j)'s too below dh 160) is free
   }
 
   // ---- out = o / l (the TPU kernel's division), written strided into
@@ -377,6 +428,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, void* m, 
     case 32: return launch<32, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     case 40: return launch<40, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     case 80: return launch<80, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
+    case 160: return launch<160, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -388,7 +440,7 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, void* m, 
 // dh fp32 values. Each launches the split pass, then the attention kernel,
 // and returns cudaGetLastError() after them.
 
-// fp32, dh one of 16, 32, 40, 80.
+// fp32, dh one of 16, 32, 40, 80, 160.
 extern "C" int vface_flash_attention_v1_f32(const void* q, const void* k, const void* v, void* o, void* kv, int b,
                                             int nq, int nk, int heads, int dh, float scale, void* stream) {
   return dispatch_f32<false>(q, k, v, o, nullptr, nullptr, kv, b, nq, nk, heads, dh, scale, stream);
@@ -409,6 +461,7 @@ extern "C" int vface_flash_attention_f32_smem_bytes(int dh) {
     case 32: return kSmemBytes<32>;
     case 40: return kSmemBytes<40>;
     case 80: return kSmemBytes<80>;
+    case 160: return kSmemBytes<160>;
     default: return 0;
   }
 }

@@ -145,3 +145,17 @@ def safe_l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """x / max(||x||, eps) along the last dim, with a finite gradient at x = 0."""
     n2 = (x * x).sum(dim=-1, keepdim=True)
     return x / torch.sqrt(torch.clamp(n2, min=eps * eps))
+
+
+def id_embedding(model: IRSE50, images01: torch.Tensor) -> torch.Tensor:
+    """The L2-normalised 512-d ID embedding of (B, H, W, 3) images in [0, 1]
+    through ``model`` (JAX's ``id_embedding(params, images01, model)``; the
+    parameters are the module's)."""
+    return safe_l2_normalize(model(arcface_preprocess(images01)))
+
+
+def id_loss(feats_a: torch.Tensor, feats_b: torch.Tensor) -> torch.Tensor:
+    """1 - the cosine similarity of two feature batches along the last dim,
+    averaged over the batch."""
+    a, b = safe_l2_normalize(feats_a), safe_l2_normalize(feats_b)
+    return (1.0 - (a * b).sum(dim=-1)).mean()

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from vface_torch.models.arcface import IR_50_STAGES, IRSE50, arcface_preprocess, safe_l2_normalize
+from vface_torch.models.arcface import IR_50_STAGES, IRSE50, id_embedding
 from vface_torch.models.clip import CLIPConditioner, CLIPVisionConfig
 from vface_torch.models.layers import Dense
 
@@ -98,7 +98,7 @@ class Conditioner(nn.Module):
         c2 = torch.zeros_like(c)
         if cfg.id_weight > 0 and src_face01 is not None:
             # ID_proj_out consumes the normalised embedding
-            feats = safe_l2_normalize(self.arcface(arcface_preprocess(src_face01)))
+            feats = id_embedding(self.arcface, src_face01)
             c2 = self.id_proj_out(feats)[:, None, :]
         lm_raw, lm = None, torch.zeros_like(c)
         if landmarks136 is not None:

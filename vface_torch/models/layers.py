@@ -56,6 +56,13 @@ def nonlinearity(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2 x 2 average pool with stride 2 of NCHW ``x``, as
+    :func:`upsample_nearest_2x` takes it (Flax's ``nn.avg_pool`` on NHWC, with
+    its VALID padding: an odd last row or column is dropped)."""
+    return F.avg_pool2d(x, 2, stride=2)
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample of NCHW x."""
     return F.interpolate(x, scale_factor=2.0, mode="nearest")

@@ -35,7 +35,8 @@ replacing a TPU kernel of ``vface_tpu/ops/pallas_attention.py``:
   to fp32 for the tf32 kernel (bf16 values are exact in tf32) and its output
   is rounded once to bf16.
 
-At the UNet's shapes (ds1 N = 4096, dh = 40; ds2 N = 1024, dh = 80) K1,
+At the UNet's shapes (ds1 N = 4096, dh = 40; ds2 N = 1024, dh = 80; above
+512^2 also ds4, N >= 576, dh = 160) K1,
 K4, K6 and K5 are bound by the exponentials and the tensor cores together;
 they run every product on ``wgmma`` with a TMA ring of streamed tiles, and
 all take Nq != Nk. All keep S, P and dS on chip and read the heads strided
@@ -64,12 +65,14 @@ not copied: K6 and K7 stream K/V tiles at any N.
 
 Each wrapper launches its kernel for a CUDA tensor and calls its plain
 version (``*_ref``) for a CPU tensor; on the card it raises for widths, dtypes
-or gradients its kernel does not take (bf16 kernels: dh padding to 16, 48 or
-80; fp32: dh 16, 32, 40, 80).
+or gradients its kernel does not take (bf16 kernels: dh padding to 16, 48, 80
+or 160; fp32: dh 16, 32, 40, 80, 160).
 """
 
 from __future__ import annotations
 
+import collections
+import collections.abc
 import ctypes
 import functools
 
@@ -81,20 +84,46 @@ from vface_torch.ops.attention import multi_head_attention
 
 BLOCK_K = 64  # the kernels' K/V (and query) tile; the plain versions walk the same blocks
 # head widths padded to the MMA k-step that the kernels are instantiated for:
-# ds1's dh = 40 (as 48), ds2's dh = 80, and 16 for small test shapes
-PADDED_DH = (16, 48, 80)
+# ds1's dh = 40 (as 48), ds2's dh = 80, ds4's dh = 160 (its self-attention
+# takes the kernels above 512^2, at N >= 576), and 16 for small test shapes
+PADDED_DH = (16, 48, 80, 160)
 # the tf32 kernel's head widths: the JAX tests' 16, 32 and 40, and the UNet's
-# 40 and 80; K8 on bf16 operands casts them to fp32 for it at 32, the one of
-# these that K6's kernel is not built for
-F32_DH = (16, 32, 40, 80)
+# 40, 80 and 160; K8 on bf16 operands casts them to fp32 for it at 32, the one
+# of these that K6's kernel is not built for
+F32_DH = (16, 32, 40, 80, 160)
 
-# kernel launches since the last reset (read by chip_smoke.py)
-LAUNCHES = dict.fromkeys(
-    ("flash_attention", "flash_attention_stats", "flash_attention_fp32",
-     "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_v2_stats",
-     "flash_attention_v1", "flash_attention_v3", "flash_attention_v4", "flash_attention_v6",
-     "flash_attention_stats_f32", "flash_attention_fp32_f32", "flash_attention_bwd_dq_f32",
-     "flash_attention_bwd_dkv_f32"), 0)
+# the kernels whose launches are counted
+KERNELS = ("flash_attention", "flash_attention_stats", "flash_attention_fp32",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv", "flash_attention_v2_stats",
+           "flash_attention_v1", "flash_attention_v3", "flash_attention_v4", "flash_attention_v6",
+           "flash_attention_stats_f32", "flash_attention_fp32_f32", "flash_attention_bwd_dq_f32",
+           "flash_attention_bwd_dkv_f32")
+# kernel launches by (kernel, head width) since the last reset (read and
+# cleared by chip_smoke.py): the one count the wrappers keep
+DH_LAUNCHES = collections.Counter()
+
+
+class _Launches(collections.abc.Mapping):
+    """Launches by kernel name, summed over :data:`DH_LAUNCHES`'s head widths."""
+
+    def __getitem__(self, kernel: str) -> int:
+        if kernel not in KERNELS:
+            raise KeyError(kernel)
+        return sum(n for (name, _), n in DH_LAUNCHES.items() if name == kernel)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+LAUNCHES = _Launches()
+
+
+def _count(kernel: str, dh: int) -> None:
+    DH_LAUNCHES[(kernel, dh)] += 1
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 4 + [_I] * 5 + [_F, _I, _P]
@@ -109,8 +138,10 @@ CONSUMERS = (2, 3)  # the forward kernel's consumer warpgroups per CTA: 128 or 1
 
 def built_consumers(split: bool, dh: int) -> tuple:
     """The forward kernel's query tiles built for head width ``dh``: both, but
-    only 128 rows for K6 and K7 (``split``) at dh 80, which spill at 192."""
-    return (2,) if split and -(-dh // 16) * 16 == 80 else CONSUMERS
+    only 128 rows for K6 and K7 (``split``) at dh 80, which spill at 192, and
+    for every form at dh 160 (a producer warpgroup and two consumers)."""
+    dhp = -(-dh // 16) * 16
+    return (2,) if dhp == 160 or (split and dhp == 80) else CONSUMERS
 
 
 def k1_consumers(rows: int, nq: int, device: torch.device, split: bool, dh: int) -> int:
@@ -288,7 +319,7 @@ def _launch_bwd(kernel: str, symbol: str, argtypes, q, k, v, do, num_heads: int,
     ptrs = [t.data_ptr() for t in (q, k, v, do, *stats, *outs)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
-    LAUNCHES[kernel] += 1
+    _count(kernel, dh)
 
 
 def _launch_fwd(kernel: str, q, k, v, num_heads: int, outs, split: bool = False, consumers: int | None = None) -> None:
@@ -316,7 +347,7 @@ def _launch_fwd(kernel: str, q, k, v, num_heads: int, outs, split: bool = False,
     ptrs = [t.data_ptr() for t in (q, k, v, *outs)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), consumers, stream), kernel)
-    LAUNCHES[kernel] += 1
+    _count(kernel, dh)
 
 
 def _stats(n_rows: int, q: torch.Tensor):
@@ -422,7 +453,7 @@ def _launch_bwd_f32(kernel: str, planes, q, k, num_heads: int, stats, outs) -> N
     ptrs = [t.data_ptr() for t in (planes, *stats, *outs)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
-    LAUNCHES[kernel] += 1
+    _count(kernel, dh)
 
 
 def _launch_f32(kernel: str, stats: bool, q, k, v, num_heads: int, outs) -> None:
@@ -449,7 +480,7 @@ def _launch_f32(kernel: str, stats: bool, q, k, v, num_heads: int, outs) -> None
     ptrs = [t.data_ptr() for t in (q, k, v, *outs, kv)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
-    LAUNCHES[kernel] += 1
+    _count(kernel, dh)
 
 
 def _launch_k8(kernel: str, q, k, v, num_heads: int, out) -> None:

@@ -40,7 +40,7 @@ from typing import Callable, Optional
 
 import torch
 
-from vface_torch.models.arcface import arcface_preprocess, safe_l2_normalize
+from vface_torch.models.arcface import id_embedding
 from vface_torch.models.clip import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, clip_preprocess
 from vface_torch.ops.pooling import adaptive_avg_pool
 from vface_torch.ops.warp import resize_bilinear
@@ -223,7 +223,7 @@ def p_losses_face(model, batch: dict, generator: Optional[torch.Generator] = Non
         # the face region from the latent mask, applied in [-1, 1]
         face_region = 1.0 - resize_bilinear(mask_lat, hh, ww, antialias=False)
         arcface = model.conditioner.arcface
-        id_feats = lambda img01: safe_l2_normalize(arcface(arcface_preprocess(img01)))
+        id_feats = lambda img01: id_embedding(arcface, img01)
         if ref_face01_f is not None:
             ref01_f = ref_face01_f
         else:

@@ -22,7 +22,7 @@ import contextlib
 
 import torch
 
-from vface_torch.models.arcface import arcface_preprocess, safe_l2_normalize
+from vface_torch.models.arcface import id_embedding
 from vface_torch.utils.schedule import DDIMSchedule
 
 
@@ -30,7 +30,7 @@ def id_similarity(model, pred_x0, src_emb, keep_mask_img) -> torch.Tensor:
     """Decode pred_x0, mask it to the face region (``1 - keep_mask_img``), embed
     it with the conditioner's ArcFace and return the cosine with ``src_emb``, (B,)."""
     img01 = torch.clamp((model.decode_first_stage(pred_x0) + 1.0) * 0.5, 0.0, 1.0)
-    emb = safe_l2_normalize(model._conditioner().arcface(arcface_preprocess(img01 * (1.0 - keep_mask_img))))
+    emb = id_embedding(model._conditioner().arcface, img01 * (1.0 - keep_mask_img))
     return (emb * src_emb).sum(dim=-1)
 
 
