@@ -441,7 +441,8 @@ def phase_build() -> None:
     log("geglu_dynamic_smem", **{f"fused_c{c}_tm{tm}": smem(c, tm, 0) for c, tm in ((64, 128), (320, 64), (320, 128))},
         **{f"gemm{gm}": smem(0, 128, gm) for gm in (1, 2)})
     smem = _native.function("flash_attention_bwd_f32", "vface_flash_attention_bwd_f32_smem_bytes", [ctypes.c_int] * 2)
-    log("k5_f32_dynamic_smem", **{f"dh{dh}_{k}": smem(dh, i) for dh in (16, 32, 40, 80) for i, k in enumerate(("dq", "dkv"))})
+    log("k5_f32_dynamic_smem", **{f"dh{dh}_{k}": smem(dh, i) for dh in (16, 32, 40, 80, 160)
+                                   for i, k in enumerate(("dq", "dkv"))})
     wgmma_sources = ("flash_attention", "flash_attention_bwd", "flash_attention_bwd_f32", "flash_attention_f32", "geglu_ff")
     spilled = [name for name in wgmma_sources if spills[name]]
     if spilled:

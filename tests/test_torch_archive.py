@@ -31,6 +31,7 @@ from vface_tpu.ops import _archive_attention as JAA
 from vface_tpu.ops.attention import multi_head_attention as jax_mha
 from vface_tpu.ops.pallas_ff import _pallas_impl
 from vface_torch.bench import attention as bench_attention
+from vface_torch.bench import attn_bwd_wide as bench_bwd
 from vface_torch.bench import attn_f32 as bench_f32
 from vface_torch.bench import attn_v56 as bench_v56
 from vface_torch.bench import ff_tile as bench_ff
@@ -171,7 +172,7 @@ def test_attention_bench_variants_agree_on_the_cpu():
 def test_attn_f32_bench_entries_agree_on_the_cpu():
     """The fp32 bench's entries (K8, K4, K6, K7; plain versions on the CPU)
     compute one attention: at a small fp32 shape of each of its head widths
-    each output is within 1e-5 of the einsum path's, and none launches."""
+    each output is within 1e-5 of the einsum path's (SDPA's too), and none launches."""
     assert {c // bench_f32.H for _, _, c in bench_f32.CASES} == {40, 80}
     before = dict(FA.LAUNCHES)
     for c in (320, 640):
@@ -194,3 +195,22 @@ def test_ff_tile_bench_operands_and_cases():
     got = FF.geglu_ff_split(x, wp, bp, wo, bo, FF.SPLIT_TILES[320][0])
     want = FF.geglu_ff_unfused(x, wp, bp, wo, bo)
     close(got, want.float().numpy(), atol=_ulps(want.float().numpy()))
+
+
+def test_attn_bwd_wide_bench_entries_agree_on_the_cpu():
+    """The K5 bench's shapes are ds4's dh 160 (split into kernels, beside
+    SDPA's backward) and ds1/ds2's dh 40/80; on the CPU its K5 entry (the plain
+    version) and its SDPA-backward entry give the same fp32 gradients, within
+    1e-5 of each one's peak, at a ragged N of each width, and none launches."""
+    assert {c // bench_bwd.H for _, _, c in bench_bwd.WIDE} == {160}
+    assert {c // bench_bwd.H for _, _, c in bench_bwd.NARROW} == {40, 80}
+    before = dict(FA.LAUNCHES)
+    for n, c in ((65, 320), (65, 1280)):
+        entries = bench_bwd._entries(*bench_bwd._inputs(1, n, c, torch.float32, "cpu"), split=True)
+        assert set(entries) == {"K5", "SDPA backward"}
+        b, h = 1, bench_bwd.H
+        merge = lambda t: t.transpose(1, 2).reshape(b, n, c)
+        for got, want in zip(entries["K5"](), (merge(t) for t in entries["SDPA backward"]())):
+            assert got.shape == (b, n, c) and got.dtype == torch.float32
+            close(got, want, atol=1e-5 * float(want.abs().max()))
+    assert FA.LAUNCHES == before

@@ -189,6 +189,9 @@ TRAIN_SHAPES = [(300, 2, 40), (130, 3, 16), (300, 2, 80), (130, 2, 48), (576, 2,
 CROSS_SHAPES = [(2, n, n, heads, dh) for n, heads, dh in TRAIN_SHAPES] + [
     (2, 300, 130, 2, 40), (2, 128, 320, 2, 80), (2, 130, 300, 3, 16), (1, 1000, 257, 2, 48), (2, 300, 130, 2, 160),
     (1, 130, 1000, 3, 160)]
+# K5 at dh 160 (64-row CTAs, 64-row streamed tiles): one row past a tile both
+# ways, an odd count of tiles, and dh 152 (padded to 160 in shared memory)
+WIDE_BWD_SHAPES = [(1, 65, 577, 2, 160), (1, 577, 65, 2, 160), (2, 191, 191, 2, 160), (1, 130, 300, 2, 152)]
 
 
 def _qkv(gen, b, nq, nk, heads, dh, count=3):
@@ -229,7 +232,7 @@ def test_flash_attention_fp32_kernel(gen, b, nq, nk, heads, dh):
     assert _rel_l2(got, want) <= PRECISION_GATE * _rel_l2(yard, want)
 
 
-@pytest.mark.parametrize("b,nq,nk,heads,dh", CROSS_SHAPES)
+@pytest.mark.parametrize("b,nq,nk,heads,dh", CROSS_SHAPES + WIDE_BWD_SHAPES)
 def test_flash_attention_bwd_kernels(gen, b, nq, nk, heads, dh):
     """K5 (dQ and dK/dV kernels) vs the plain version on the same m, l and D:
     each gradient within 2 bf16 ulps of its peak, and the precision gate
@@ -249,7 +252,8 @@ def test_flash_attention_bwd_kernels(gen, b, nq, nk, heads, dh):
         assert _rel_l2(gi, wi) <= PRECISION_GATE * _rel_l2(yi, wi)
 
 
-@pytest.mark.parametrize("b,nq,nk,heads,dh", [(1, 4096, 4096, 8, 40), (2, 300, 130, 2, 80), (1, 1024, 1024, 8, 160)])
+@pytest.mark.parametrize("b,nq,nk,heads,dh", [(1, 4096, 4096, 8, 40), (2, 300, 130, 2, 80), (1, 1024, 1024, 8, 160),
+                                             (1, 577, 65, 2, 160), (2, 65, 577, 2, 160)])
 def test_flash_attention_bwd_kernels_are_deterministic(gen, b, nq, nk, heads, dh):
     """K5 sums each output in a fixed order in one CTA: two launches on the same
     inputs give the same bits."""
@@ -603,7 +607,8 @@ def test_unet_wide_feed_forward_takes_k9_only_without_a_gradient(gen):
 # tile, Nq != Nk both ways, Nq and Nk below one tile
 F32_BWD_SHAPES = [(2, 300, 300, 2, 40), (2, 130, 70, 3, 16), (2, 257, 1000, 2, 80), (2, 64, 200, 4, 32),
                   (2, 300, 130, 2, 40), (1, 1000, 257, 2, 80), (2, 17, 33, 2, 16), (1, 1024, 1024, 8, 80),
-                  (2, 576, 576, 2, 160), (2, 130, 300, 2, 160), (1, 1024, 1024, 8, 160)]
+                  (2, 576, 576, 2, 160), (2, 130, 300, 2, 160), (1, 1024, 1024, 8, 160), (1, 65, 577, 2, 160),
+                  (1, 577, 65, 2, 160), (2, 191, 191, 2, 160), (1, 33, 33, 1, 160)]
 
 
 @pytest.mark.parametrize("b,nq,nk,heads,dh", F32_BWD_SHAPES)

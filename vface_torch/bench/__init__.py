@@ -8,7 +8,11 @@
   tile sweep against the unfused route, ending with one JSON line;
 * :mod:`vface_torch.bench.attn_f32` (no JAX counterpart): the tf32 forward
   kernel's entry points (K8, and K4, K6, K7 on fp32) at the UNet's dh 40 and
-  80, ending with one JSON line, to compare two trees' kernels.
+  80 beside SDPA, ending with one JSON line, to compare two trees' kernels;
+* :mod:`vface_torch.bench.attn_bwd_wide` (no JAX counterpart): K5 on bf16
+  and fp32 at ds4's dh 160 (its dQ, dK/dV and split kernels apart, beside
+  SDPA's backward) and at dh 40 / 80, by CUDA events and by the profiler's
+  device time, ending with one JSON line, to compare two trees' kernels.
 
 Run each with ``python -m vface_torch.bench.<name>`` on a CUDA device; times
 are CUDA events over ``--reps`` calls after one warm-up call.

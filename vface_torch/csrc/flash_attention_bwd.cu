@@ -76,9 +76,8 @@
 // tiles' padding columns land only in output columns that are not stored.
 // Keys past Nk are masked out of P in the dQ kernel's last tile.
 //
-// dh 160 (SD-v1's ds4 sites above 512^2) runs on the staged kernels below
-// the others (flash_bwd_dq_wide_kernel, flash_bwd_dkv_wide_kernel), with
-// three streamed stages: see there.
+// dh 160 (SD-v1's ds4 sites above 512^2) runs on flash_bwd_wide_kernel below
+// the others: 64-row CTAs whose two consumer warpgroups split the products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,10 +92,8 @@
 namespace {
 
 constexpr int kBlock = 64;       // rows of each streamed tile (keys for dQ, queries for dK/dV)
-// streamed tiles in flight: at dh 160 the resident rows (80 KB) and four
-// stages (160 KB) would pass 227 KB
 template <int DHP>
-constexpr int kStages = DHP > 80 ? 3 : 4;
+constexpr int kStages = 4;       // streamed tiles in flight (dh <= 80)
 constexpr int kNC = 2;           // consumer warpgroups, 64 resident rows each
 constexpr int kRows = 64 * kNC;  // resident rows per CTA
 // The consumers and a producer warpgroup that gives its registers to them
@@ -533,237 +530,327 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_consta
 
 // ---- K5 at dh 160 (SD-v1's ds4 sites above 512^2)
 //
-// At dh 160 a consumer of the kernels above would hold, while S and dP run,
-// 80 descriptor registers (ten k16 steps of four operands) beside its output
-// accumulators (80 for dQ; 160 for dK and dV) and S and dP (64): past the 240
-// registers setmaxnreg gives it. So each tile runs in stages, each waited
-// before the next is issued: S in two groups of five k16 steps (Q's and K's
-// descriptors of those steps), then dP likewise (dO's and V's: P is computed
-// while dP's second group runs), then the products over the tile's rows. The
-// resident operands' descriptors are remade each group from an opaque base,
-// so that ptxas keeps none of them live across the loop. The dK/dV kernel
-// gives each CTA one of four parts of its key rows' outputs: dV's or dK's
-// first or last 80 columns (grid.x is four times the key tiles). It
-// recomputes S^T and dP^T over the whole width and keeps one 40-register
-// accumulator; its product takes P^T against dO or dS^T against Q, chosen by
-// a select of values, not a branch (ptxas serializes the wgmma of a kernel
-// that has one in a runtime branch, C7520). Each CTA recomputes S^T and dP^T
-// for one product; two parts a key tile (both products, 80 accumulator
-// registers) would recompute them half as often and were not tried on the
-// card. Every output is still summed in one fixed order by one CTA.
+// What bounds it on the H100: at (1, 1024, 1280) h8 the five N^2-products
+// (S, dP in each kernel, dQ, dK and dV as hi + lo pairs) are 0.0136 ms on the
+// tensor cores; the 64 resident rows' 160 columns leave a consumer of the
+// kernels above no registers to hold two tiles' work in flight (output
+// accumulators of 80 registers for dQ, 160 for dK and dV, S and dP 64, the
+// descriptors of ten k16 steps of four operands 80), and the first form at
+// this width (four CTAs a key tile: dK or dV, half of dh's columns each;
+// every stage drained before the next) recomputed S^T and dP^T four times a
+// tile pair.
 //
-// The producer's loop over a stage's column blocks is not unrolled: at dh 160
-// (ten blocks of two operands) the unrolled loads spilled the 24-register
-// producer warp that also writes the statistics (20 bytes).
+// The design: one CTA owns 64 rows of one (batch, head), and its two
+// consumer warpgroups split the products, not the rows:
+// * dK/dV (64 keys): the first warpgroup computes S^T = K.Q^T, P^T and owns
+//   dV += P^T.dO (80 accumulator registers); the second computes dP^T =
+//   V.dO^T, takes P^T from the first through shared memory (fp32, each
+//   thread's 32 values where the other's same thread reads them), forms dS^T
+//   and owns dK += dS^T.Q. S^T and dP^T are computed once a tile pair.
+// * dQ (64 queries): the first warpgroup computes S and P, the second dP;
+//   each hands its values to the other through shared memory, both form the
+//   same dS (the same operations on the same values) and each owns half of
+//   dQ's columns (dQ += dS.K over 80 columns, 40 registers). With 64-row CTAs
+//   the grid is twice the first form's: 128 CTAs at (1, 1024, 1280), 72 at
+//   (1, 576, 1280), on 132 SMs.
+// * Both warpgroups run one instruction stream: operands and roles are chosen
+//   by values (descriptors, pointers), not by branches around a wgmma (C7520).
+//   dQ: each warpgroup issues its tile's product over dh together with the
+//   previous tile's product over the rows, as K1's loop does, and exchanges
+//   and forms dS while the latter runs; the exchange is double-buffered and
+//   takes one named barrier over both warpgroups a tile (a warpgroup writes
+//   buffer j & 1 again only after the barrier of tile j + 1, which the other
+//   passes once it has read tile j's). dK/dV: 80 accumulator registers and two
+//   tiles' fragments do not fit in 240 (ptxas spilled and serialized every
+//   wgmma, C7512), so each tile's product follows its S^T or dP^T; the first
+//   warpgroup arrives on a named barrier once P^T is written and goes on, the
+//   second waits there and frees the buffer on another, so one warpgroup's
+//   tensor work runs while the other computes.
+// * A ring of 3 streamed stages (both warpgroups read both streamed operands:
+//   one over dh, the other over the tile's rows); the producer warp writes the
+//   dK/dV kernel's query statistics into each stage, as above. Every output is
+//   summed in one fixed order by one warpgroup.
+// On the card (device time, the first form in the same call; NVIDIA H100
+// 80GB HBM3 at 700 W, vface_torch/bench/attn_bwd_wide.py): dK/dV 0.038 ms
+// against 0.074 at (1, 1024, 1280) and 0.023 against 0.042 at (1, 576,
+// 1280); dQ 0.030 against 0.037 and 0.017 against 0.023. A train step's
+// call at these shapes is bound by the host's dispatch of the two launches
+// (~0.04 ms each), not by the kernels.
 
-// d = A . B^T over dh in two groups of NB / 2 k16 steps, the first waited:
-// A is the resident operand from `base` (an sdesc of its warpgroup's first
-// row; column blocks kRows * 32 bytes apart), B the streamed tile in stage
-// `st` from `str0` (kBlock * 32 bytes apart). Each group's descriptors are
-// made before its fence; the caller waits for the second group.
-template <int DHP>
-__device__ __forceinline__ void ss_dh_halves(float (&d)[32], uint64_t base, uint64_t str0, int st, uint32_t one,
-                                             uint32_t zero) {
-  constexpr int NH = DHP / kAtom / 2;
-  constexpr uint64_t kStage = (uint64_t)(DHP / kAtom) * kBlock * kAtom * 2 >> 4;
-  uint64_t a[NH], b[NH];
-  auto group = [&](auto first) {
-    constexpr bool kFirst = decltype(first)::value;
-    uint64_t ra = base;
-    asm volatile("" : "+l"(ra));  // remade every group, never hoisted
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      const int cb = (kFirst ? 0 : NH) + i;
-      a[i] = ra + cb * (kRows * 32 >> 4);
-      b[i] = str0 + st * kStage + cb * (kBlock * 32 >> 4);
-    }
-    pin(a);
-    pin(b);
-    wgmma_fence();
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      if (kFirst && i == 0) wgmma_ss_n64_zero(d, a[0], b[0], zero);
-      else wgmma_ss_n64(d, a[i], b[i], one);
-    }
-    wgmma_commit();
-  };
-  group(std::true_type{});
-  wgmma_wait<0>();
-  pin(d);
-  group(std::false_type{});
-}
+constexpr int kWideStages = 3;
+constexpr int kWideNB = 160 / kAtom;  // k16 steps over dh
 
-// ---- K5, dQ at dh 160: 128 query rows, a loop over 64-key tiles in stages
-template <int DHP>
+// res[0] is the first warpgroup's operand over dh (Q for dQ, K for dK/dV),
+// res[1] the second's (dO, V); str[s][0] K or Q, str[s][1] V or dO; x the
+// exchange: dK/dV P^T in two buffers, dQ P (x[0], x[1]) and dP (x[2], x[3]),
+// each [8][128 threads] float4.
+template <bool DKV>
+struct WideSmem {
+  __nv_bfloat16 res[2][kWideNB][kBlock][kAtom];
+  __nv_bfloat16 str[kWideStages][2][kWideNB][kBlock][kAtom];
+  float4 x[DKV ? 2 : 4][8][128];
+  float lse[kWideStages][kBlock], dd[kWideStages][kBlock];
+  uint64_t res_full, full[kWideStages], empty[kWideStages];
+};
+template <bool DKV>
+constexpr int kWideSmemBytes = sizeof(WideSmem<DKV>) + 1024;  // + the slack to align it to 1024 bytes
+
+// ---- K5 at dh 160: dQ (!DKV: 64 query rows, a loop over 64-key tiles) or dK
+// and dV (64 key rows, a loop over 64-query tiles); out0/out1 = dq/- or dk/dv
+template <bool DKV>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                         const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                         const float* __restrict__ m, const float* __restrict__ l, const float* __restrict__ dd,
-                         __nv_bfloat16* __restrict__ dq, int nq, int nk, int heads, int dh, float scale) {
-  constexpr int S = kStages<DHP>;
+flash_bwd_wide_kernel(const __grid_constant__ CUtensorMap tr0, const __grid_constant__ CUtensorMap tr1,
+                      const __grid_constant__ CUtensorMap ts0, const __grid_constant__ CUtensorMap ts1,
+                      const float* __restrict__ m, const float* __restrict__ l, const float* __restrict__ dd,
+                      __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1, int nq, int nk,
+                      int heads, int dh, float scale) {
+  constexpr int S = kWideStages, NB = kWideNB;
+  constexpr int DO = DKV ? 160 : 80;  // output columns per warpgroup
   extern __shared__ uint8_t smem_raw[];
-  Smem<DHP>& sm = *reinterpret_cast<Smem<DHP>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  WideSmem<DKV>& sm =
+      *reinterpret_cast<WideSmem<DKV>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
   const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int q0 = blockIdx.x * kRows, n_kt = (nk + kBlock - 1) / kBlock, col0 = h * dh;
+  const int r0 = blockIdx.x * kBlock, col0 = h * dh;
+  const int n_t = ((DKV ? nq : nk) + kBlock - 1) / kBlock;  // streamed tiles
   const long long st0 = (long long)bh * nq;
-  // res0 = Q, res1 = dO; str0 = K, str1 = V
-  if (!prologue<DHP, false>(sm, &tq, &tdo, &tk, &tv, q0, nq, n_kt, col0, b, m, l, dd, st0, nq, dh)) return;
+  const int tid = threadIdx.x;
 
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int row0 = q0 + wg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
-  float lse[2], drow[2];  // P = 0 on rows past nq
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lse[r] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
-    drow[r] = row < nq ? dd[st0 + row] : 0.f;
-  }
-
-  uint32_t one = 1, zero = 0;
-  asm volatile("" : "+r"(one), "+r"(zero));
-  const uint64_t dq0 = sdesc(&sm.res0[0][wg * 64][0], 16, 256), ddo0 = sdesc(&sm.res1[0][wg * 64][0], 16, 256);
-  const uint64_t dk0 = sdesc(&sm.str0[0][0][0][0], 16, 256), dv0 = sdesc(&sm.str1[0][0][0][0], 16, 256);
-  const uint64_t dkm0 = sdesc(&sm.str0[0][0][0][0], kBlock * 32, 256);
-  constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
-
-  const float c = scale * kLog2e;
-  const int tail = nk - (n_kt - 1) * kBlock;  // valid keys of the last tile
-  float acc[DHP / 2];
-#pragma unroll
-  for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
-  float s[32], dp[32];
-  uint32_t hi[16], lo[16];
-  uint64_t dkm[4];
-
-  for (int j = 0; j < n_kt; ++j) {
-    const int st = j % S;
-    mbar_wait(&sm.full[st], (j / S) & 1);
-    __syncwarp();
-    pin(acc);
-    ss_dh_halves<DHP>(s, dq0, dk0, st, one, zero);  // S = Q . K(j)^T
-    wgmma_wait<0>();
-    pin(s);
-    ss_dh_halves<DHP>(dp, ddo0, dv0, st, one, zero);  // dP = dO . V(j)^T
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], c, -lse[(i >> 1) & 1]));  // P, while dP's second group runs
-    if (j == n_kt - 1 && tail < kBlock) {  // keys past nk
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if (8 * (i >> 2) + 2 * t4 + (i & 1) >= tail) s[i] = 0.f;
+  if (tid == 0) {
+    mbar_init(&sm.res_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&sm.full[s], DKV ? 33 : 1);  // the TMA bytes (and the producer warp's statistics)
+      mbar_init(&sm.empty[s], 8);            // one arrival per consumer warp
     }
-    wgmma_wait<0>();
-    pin(dp);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] *= dp[i] - drow[(i >> 1) & 1];  // dS
-    split16(s, hi, lo);
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) dkm[kc] = dkm0 + st * kStage + kc * (16 * 32 >> 4);  // K(j), MN-major
-    pin(dkm);
-    pin(acc);
-    pin(hi);
-    pin(lo);
-    wgmma_fence();
-    rs_split<DHP>(acc, hi, lo, dkm, one);  // dQ += dS . K(j)
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(acc);
-    pin(hi);
-    pin(lo);
-    if (lane == 0) mbar_arrive(&sm.empty[st]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  store_rows<DHP>(dq, acc, scale, (long long)b * nq * heads * dh + col0, (long long)heads * dh, row0, nq, dh, t4);
-}
+  __syncthreads();
 
-// ---- K5, dK or dV at dh 160: 128 key rows and half of dh's output columns
-// of one of the two, a loop over 64-query tiles in stages
-template <int DHP>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
-                          const float* __restrict__ m, const float* __restrict__ l, const float* __restrict__ dd,
-                          __nv_bfloat16* __restrict__ dk_out, __nv_bfloat16* __restrict__ dv_out, int nq, int nk,
-                          int heads, int dh, float scale) {
-  constexpr int S = kStages<DHP>;
-  constexpr int DO = DHP / 2;  // output columns per CTA
-  extern __shared__ uint8_t smem_raw[];
-  Smem<DHP>& sm = *reinterpret_cast<Smem<DHP>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
-  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int half = blockIdx.x & 1, grad_k = (blockIdx.x >> 1) & 1;  // columns half * DO on; dK (1) or dV (0)
-  const int k0 = (blockIdx.x >> 2) * kRows, n_qt = (nq + kBlock - 1) / kBlock, col0 = h * dh;
-  // res0 = K, res1 = V; str0 = Q, str1 = dO, with each query tile's lse and D
-  if (!prologue<DHP, true>(sm, &tk, &tv, &tq, &tdo, k0, nk, n_qt, col0, b, m, l, dd, (long long)bh * nq, nq, dh))
+  if (tid >= 256) {  // the producer warpgroup: its first warp works, lane 0 issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = tid & 31;
+    if (tid >= 256 + 32 || (!DKV && lane != 0)) return;
+    if (lane == 0) {
+      mbar_expect_tx(&sm.res_full, sizeof(sm.res));
+#pragma unroll 1
+      for (int c = 0; c < NB; ++c) {
+        tma_load(&sm.res[0][c][0][0], &tr0, &sm.res_full, col0 + c * kAtom, r0, b);
+        tma_load(&sm.res[1][c][0][0], &tr1, &sm.res_full, col0 + c * kAtom, r0, b);
+      }
+    }
+    for (int j = 0; j < n_t; ++j) {
+      const int st = j % S;
+      if (lane == 0 || DKV) mbar_wait(&sm.empty[st], ((j / S) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full[st], sizeof(sm.str[0]));
+#pragma unroll 1
+        for (int c = 0; c < NB; ++c) {
+          tma_load(&sm.str[st][0][c][0][0], &ts0, &sm.full[st], col0 + c * kAtom, j * kBlock, b);
+          tma_load(&sm.str[st][1][c][0][0], &ts1, &sm.full[st], col0 + c * kAtom, j * kBlock, b);
+        }
+      }
+      if (DKV) {  // P = ex2(s * scale * log2(e) - lse): 0 past nq
+        for (int c = lane; c < kBlock; c += 32) {
+          const int row = j * kBlock + c;
+          float lse = INFINITY, d = 0.f;
+          if (row < nq) {
+            lse = fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row]));
+            d = dd[st0 + row];
+          }
+          sm.lse[st][c] = lse;
+          sm.dd[st][c] = d;
+        }
+        mbar_arrive(&sm.full[st]);
+      }
+    }
     return;
+  }
 
-  const int tid = threadIdx.x, wg = tid >> 7;
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = tid >> 7, t = tid & 127;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+  mbar_wait(&sm.res_full, 0);
+  __syncwarp();
+  if (dh < 160) zero_pad<160, kBlock>(sm.res[wg], 0, dh, t, 1 + wg);  // the operand over dh's padding columns
+  float lse[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f};  // dQ: this thread's rows' statistics, P = 0 past nq
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse[r] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
+      drow[r] = row < nq ? dd[st0 + row] : 0.f;
+    }
+  }
 
+  // descriptors (16-byte units): this warpgroup's operand over dh and the
+  // streamed tile it contracts with (their k16 steps are column blocks,
+  // kBlock * 32 bytes apart); the product's streamed operand read MN-major
+  // (16-key steps 512 bytes apart): dO for dV and Q for dK (the other
+  // warpgroup's streamed operand), K from column block 5 * wg for dQ. (The
+  // operand over dh held as register fragments instead, 40 registers, spilled
+  // and serialized both kernels' wgmmas, C7512, and ran slower.)
   uint32_t one = 1, zero = 0;
   asm volatile("" : "+r"(one), "+r"(zero));
-  const uint64_t dk0 = sdesc(&sm.res0[0][wg * 64][0], 16, 256), dv0 = sdesc(&sm.res1[0][wg * 64][0], 16, 256);
-  const uint64_t dq0 = sdesc(&sm.str0[0][0][0][0], 16, 256), ddo0 = sdesc(&sm.str1[0][0][0][0], 16, 256);
-  // the product's streamed operand, MN-major from this CTA's first output
-  // column block on: Q(j) for dK += dS^T . Q, dO(j) for dV += P^T . dO
-  const uint64_t dym0 = grad_k ? sdesc(&sm.str0[0][half * DO / kAtom][0][0], kBlock * 32, 256)
-                               : sdesc(&sm.str1[0][half * DO / kAtom][0][0], kBlock * 32, 256);
-  constexpr uint64_t kStage = sizeof(sm.str0[0]) >> 4;
+  const uint64_t dres = sdesc(&sm.res[wg][0][0][0], 16, 256), dstr = sdesc(&sm.str[0][wg][0][0][0], 16, 256);
+  const uint64_t dprod = DKV ? sdesc(&sm.str[0][1 - wg][0][0][0], kBlock * 32, 256)
+                             : sdesc(&sm.str[0][0][5 * wg][0][0], kBlock * 32, 256);
+  constexpr uint64_t kStage = sizeof(sm.str[0]) >> 4, kCb = kBlock * 32 >> 4;
+  uint64_t da[NB], db[NB], dm[4];
+  auto dh_descs = [&](int st) {  // remade every tile from opaque bases, never hoisted
+    uint64_t ra = dres, rb = dstr + st * kStage;
+    asm volatile("" : "+l"(ra), "+l"(rb));
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      da[cb] = ra + cb * kCb;
+      db[cb] = rb + cb * kCb;
+    }
+    pin(da);
+    pin(db);
+  };
+  auto prod_descs = [&](int st) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) dm[kc] = dprod + st * kStage + kc * (16 * 32 >> 4);
+    pin(dm);
+  };
 
   const float c = scale * kLog2e;
+  const int tail = nk - (n_t - 1) * kBlock;  // dQ: valid keys of the last tile
   float acc[DO / 2];
 #pragma unroll
   for (int i = 0; i < DO / 2; ++i) acc[i] = 0.f;
-  float st[32], dpt[32];
+  pin(acc);
+  float s[32];
   uint32_t hi[16], lo[16];
-  uint64_t dym[4];
 
-  for (int j = 0; j < n_qt; ++j) {
-    const int stage = j % S;
-    mbar_wait(&sm.full[stage], (j / S) & 1);
+  // Tile j (dQ): the product over dh of tile j and the product over the rows
+  // of tile j-1 go to the tensor cores together (tile 0's second group is
+  // empty); the exchange and dS run while the latter does. No group is in
+  // flight across the loop's back edge (C7515) and no wgmma sits in a branch
+  // (C7520): `prev` is a compile-time flag, tile 0 is peeled. dK/dV: its 80
+  // accumulator registers and both tiles' fragments pass 240 (ptxas spilled
+  // and serialized every wgmma, C7512), so tile j's product follows in a
+  // group of its own, and the two warpgroups are decoupled instead: the
+  // first hands P^T over (bar_arrive) and goes on, the second waits for it
+  // (bar_sync) and releases the buffer the same way, so either's tensor work
+  // runs while the other computes.
+  constexpr bool kOverlap = !DKV;
+  auto tile = [&](int j, auto prev) {
+    constexpr bool kPrev = decltype(prev)::value;
+    const int st = j % S;
+    mbar_wait(&sm.full[st], (j / S) & 1);
     __syncwarp();
-    pin(acc);
-    ss_dh_halves<DHP>(st, dk0, dq0, stage, one, zero);  // S^T = K . Q(j)^T
-    wgmma_wait<0>();
-    pin(st);
-    ss_dh_halves<DHP>(dpt, dv0, ddo0, stage, one, zero);  // dP^T = V . dO(j)^T
-    // this thread's columns: queries 8jj + 2*t4 + {0, 1} of the tile
-    const float* lse = sm.lse[stage];
-    const float* dcol = sm.dd[stage];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {  // P^T, while dP^T's second group runs
-      const float2 ls = *reinterpret_cast<const float2*>(&lse[8 * jj + 2 * t4]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[4 * jj + e] = ex2(fmaf(st[4 * jj + e], c, -(e & 1 ? ls.y : ls.x)));
-    }
-    wgmma_wait<0>();
-    pin(dpt);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {  // dS^T for dK, P^T for dV: a select, no branch
-      const float2 d = *reinterpret_cast<const float2*>(&dcol[8 * jj + 2 * t4]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = st[4 * jj + e];
-        st[4 * jj + e] = grad_k ? p * (dpt[4 * jj + e] - (e & 1 ? d.y : d.x)) : p;
-      }
-    }
-    split16(st, hi, lo);
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) dym[kc] = dym0 + stage * kStage + kc * (16 * 32 >> 4);
-    pin(dym);
+    dh_descs(st);
+    if constexpr (kPrev) prod_descs((j - 1) % S);
     pin(acc);
     pin(hi);
     pin(lo);
     wgmma_fence();
-    rs_split<DO>(acc, hi, lo, dym, one);  // dK += dS^T . Q(j) or dV += P^T . dO(j)
+    ss_n64<NB>(s, da, db, one, zero);  // S^T or dP^T (dK/dV); S or dP (dQ)
     wgmma_commit();
-    wgmma_wait<0>();
+    if constexpr (kPrev) {
+      rs_split<DO>(acc, hi, lo, dm, one);  // the product of tile j-1
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    pin(s);
+    if constexpr (DKV) {
+      // this thread's columns: queries 8q + 2*t4 + {0, 1} of the tile; buffer
+      // j & 1 is full on barrier 4 + (j & 1), read on 6 + (j & 1)
+      float4* xb = &sm.x[j & 1][0][t];
+      if (wg == 0) {  // P^T, handed to the second warpgroup
+        if (j >= 2) bar_sync(6 + (j & 1), 256);
+        const float* lsec = sm.lse[st];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float2 ls = *reinterpret_cast<const float2*>(&lsec[8 * q + 2 * t4]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[4 * q + e] = ex2(fmaf(s[4 * q + e], c, -(e & 1 ? ls.y : ls.x)));
+          xb[q * 128] = make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+        }
+        bar_arrive(4 + (j & 1), 256);
+      } else {  // dS^T = P^T * (dP^T - D)
+        bar_sync(4 + (j & 1), 256);
+        const float* dcol = sm.dd[st];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float4 p = xb[q * 128];
+          const float2 d = *reinterpret_cast<const float2*>(&dcol[8 * q + 2 * t4]);
+          s[4 * q] = p.x * (s[4 * q] - d.x);
+          s[4 * q + 1] = p.y * (s[4 * q + 1] - d.y);
+          s[4 * q + 2] = p.z * (s[4 * q + 2] - d.x);
+          s[4 * q + 3] = p.w * (s[4 * q + 3] - d.y);
+        }
+        if (j + 2 < n_t) bar_arrive(6 + (j & 1), 256);
+      }
+    } else {
+      if (wg == 0) {  // P; keys past nk dropped
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = ex2(fmaf(s[i], c, -lse[(i >> 1) & 1]));
+        if (j == n_t - 1 && tail < kBlock) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            if (8 * (i >> 2) + 2 * t4 + (i & 1) >= tail) s[i] = 0.f;
+        }
+      }
+      float4* mine = &sm.x[2 * wg + (j & 1)][0][t];
+      const float4* other = &sm.x[2 - 2 * wg + (j & 1)][0][t];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) mine[q * 128] = make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]);
+      bar_sync(3, 256);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {  // dS = P * (dP - D), the same operations in both warpgroups
+        const float4 o = other[q * 128];
+        const float ov[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = wg ? ov[e] : s[4 * q + e], dp = wg ? s[4 * q + e] : ov[e];
+          s[4 * q + e] = p * (dp - drow[e >> 1]);
+        }
+      }
+    }
+    if constexpr (kPrev) {
+      wgmma_wait<0>();  // the product of tile j-1 is done: its stage and the fragments are free
+      pin(acc);
+      pin(hi);
+      pin(lo);
+      if (lane == 0) mbar_arrive(&sm.empty[(j - 1) % S]);
+    }
+    split16(s, hi, lo);
+    if constexpr (!kOverlap) {  // tile j's product, in a group of its own
+      prod_descs(st);
+      pin(acc);
+      pin(hi);
+      pin(lo);
+      wgmma_fence();
+      rs_split<DO>(acc, hi, lo, dm, one);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      pin(hi);
+      pin(lo);
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+    }
+  };
+  tile(0, std::false_type{});
+  for (int j = 1; j < n_t; ++j) tile(j, std::integral_constant<bool, kOverlap>{});
+  if constexpr (kOverlap) {
+    prod_descs((n_t - 1) % S);
     pin(acc);
     pin(hi);
     pin(lo);
-    if (lane == 0) mbar_arrive(&sm.empty[stage]);
+    wgmma_fence();
+    rs_split<DO>(acc, hi, lo, dm, one);  // the last tile's product
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
   }
-  const long long base = (long long)b * nk * heads * dh + col0 + half * DO, cols = (long long)heads * dh;
-  const int row0 = k0 + wg * 64 + warp * 16 + g;
-  store_rows<DO>(grad_k ? dk_out : dv_out, acc, grad_k ? scale : 1.f, base, cols, row0, nk, dh - half * DO, t4);
+  const long long cols = (long long)heads * dh;
+  if constexpr (DKV)  // the first warpgroup's dV, the second's dK
+    store_rows<DO>(wg ? out0 : out1, acc, wg ? scale : 1.f, (long long)b * nk * cols + col0, cols, row0, nk, dh, t4);
+  else  // dQ's columns 80 * wg on
+    store_rows<DO>(out0, acc, scale, (long long)b * nq * cols + col0 + DO * wg, cols, row0, nq, dh - DO * wg, t4);
 }
 
 // ---- host side (tensor maps: hopper.cuh)
@@ -780,20 +867,26 @@ template <int DHP, bool DKV>
 int launch(const Args& a, cudaStream_t stream) {
   if (const cudaError_t err = bind_device(a.q); err != cudaSuccess) return static_cast<int>(err);
   const int cols = a.heads * a.dh;
+  constexpr bool kWide = DHP > 80;  // flash_bwd_wide_kernel: 64-row boxes throughout
   // the resident operands in boxes of kRows rows, the streamed ones of kBlock
-  const int rq = DKV ? kBlock : kRows, rk = DKV ? kRows : kBlock;
+  const int rq = DKV || kWide ? kBlock : kRows, rk = DKV && !kWide ? kRows : kBlock;
   CUtensorMap tq, tdo, tk, tv;
   if (!tensor_map(&tq, a.q, a.b, a.nq, cols, rq) || !tensor_map(&tdo, a.dout, a.b, a.nq, cols, rq) ||
       !tensor_map(&tk, a.k, a.b, a.nk, cols, rk) || !tensor_map(&tv, a.v, a.b, a.nk, cols, rk))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kSmem = kSmemBytes<DHP>;
-  constexpr bool kWide = DHP > 80;  // the staged kernels; dK/dV in four parts (dK or dV, half of dh's columns)
-  const int n_res = DKV ? a.nk : a.nq;
-  dim3 grid((n_res + kRows - 1) / kRows * (DKV && kWide ? 4 : 1), a.b * a.heads);
+  constexpr int kSmem = kWide ? kWideSmemBytes<DKV> : kSmemBytes<DHP>;
+  const int n_res = DKV ? a.nk : a.nq, res_rows = kWide ? kBlock : kRows;
+  dim3 grid((n_res + res_rows - 1) / res_rows, a.b * a.heads);
   auto run = [&](auto kernel) {
     static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (attr != cudaSuccess) return attr;
-    if constexpr (DKV)
+    if constexpr (kWide && DKV)
+      kernel<<<grid, kThreads, kSmem, stream>>>(tk, tv, tq, tdo, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dk),
+                                                static_cast<__nv_bfloat16*>(a.dv), a.nq, a.nk, a.heads, a.dh, a.scale);
+    else if constexpr (kWide)
+      kernel<<<grid, kThreads, kSmem, stream>>>(tq, tdo, tk, tv, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dq),
+                                                nullptr, a.nq, a.nk, a.heads, a.dh, a.scale);
+    else if constexpr (DKV)
       kernel<<<grid, kThreads, kSmem, stream>>>(tk, tv, tq, tdo, a.m, a.l, a.dd, static_cast<__nv_bfloat16*>(a.dk),
                                                 static_cast<__nv_bfloat16*>(a.dv), a.nq, a.nk, a.heads, a.dh, a.scale);
     else
@@ -802,9 +895,8 @@ int launch(const Args& a, cudaStream_t stream) {
     return cudaSuccess;
   };
   cudaError_t err;
-  if constexpr (DKV && kWide) err = run(flash_bwd_dkv_wide_kernel<DHP>);
+  if constexpr (kWide) err = run(flash_bwd_wide_kernel<DKV>);
   else if constexpr (DKV) err = run(flash_bwd_dkv_kernel<DHP>);
-  else if constexpr (kWide) err = run(flash_bwd_dq_wide_kernel<DHP>);
   else err = run(flash_bwd_dq_kernel<DHP>);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -849,14 +941,14 @@ extern "C" int vface_flash_attention_bwd_dkv_bf16(const void* q, const void* k, 
   return dispatch<true>(a, stream);
 }
 
-// Dynamic shared memory of either kernel at head width dh, in bytes (0 if no
-// instantiation takes it).
+// Dynamic shared memory of either kernel at head width dh, in bytes (the
+// larger of the two at dh 160; 0 if no instantiation takes it).
 extern "C" int vface_flash_attention_bwd_smem_bytes(int dh) {
   switch ((dh + 15) / 16 * 16) {
     case 16: return kSmemBytes<16>;
     case 48: return kSmemBytes<48>;
     case 80: return kSmemBytes<80>;
-    case 160: return kSmemBytes<160>;
+    case 160: return kWideSmemBytes<false> > kWideSmemBytes<true> ? kWideSmemBytes<false> : kWideSmemBytes<true>;
     default: return 0;
   }
 }

@@ -39,7 +39,8 @@
 //   filled by bulk copies completed on mbarriers (full: the bytes landed and,
 //   for dK/dV, the stage's statistics are written; empty: every consumer warp
 //   is done with it). A tile is T = 64 rows, 32 at dh 80, where two 64-row
-//   tiles' planes leave no room for a second stage (227 KB), and at dh 160.
+//   tiles' planes leave no room for a second stage (227 KB), and in the
+//   halves of dh 160.
 // * The products over dh (S, dP; S^T, dP^T) read both operands from shared
 //   memory (ss); the products over the tile's rows take P or dS, split in
 //   registers into hi and lo A fragments, against the transposed planes.
@@ -59,8 +60,9 @@
 //   descriptors do not fit beside each other, and the row products run in two
 //   halves of 40 columns.
 // dh is one of 16, 32, 40, 80 and 160 (the JAX tests' widths and the UNet's
-// ds1, ds2 and ds4); other widths are refused. dh 160 runs on the wide
-// kernels below the others: see there.
+// ds1, ds2 and ds4); other widths are refused. dh 160 runs on a cluster of
+// two CTAs per 64 resident rows, each over half of dh (bwd_f32_cluster_kernel
+// below the others): see there.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -533,246 +535,266 @@ bwd_dkv_f32_kernel(const float* __restrict__ pk, const float* __restrict__ pv, c
   store_rows<DH>(dv_out, run_v, 1.f, base, cols, row0, nk, t4);
 }
 
-// ---- dh 160 (SD-v1's ds4 sites above 512^2): the resident operands as
-// register fragments
+// ---- dh 160 (SD-v1's ds4 sites above 512^2): a cluster of two CTAs per 64
+// resident rows, each over half of dh's columns
 //
-// At dh 160 the 64 resident rows' four tf32 planes are 160 KB, and beside
-// them no streamed stage fits (the dQ kernel's six planes of 16 rows are
-// 60 KB, the dK/dV kernel's eight 80 KB). These kernels keep no resident
-// plane in shared memory: each product over dh takes the resident operand's
-// hi and lo A fragments straight from its split planes in global memory (L2
-// hits), two k8 steps at a time, into a fresh accumulator that the CUDA cores
-// add to S (or dP), as the fp32 forward does with Q at dh 160. One streamed
-// stage of 32-row tiles (dQ: 120 KB; dK/dV: 160 KB). The dK/dV kernel gives
-// each CTA half of dh's output columns of both dK and dV (grid.x is twice the
-// key blocks): 40 + 40 running-output registers, S^T and dP^T recomputed by
-// both halves. Every output is still summed in one fixed order by one CTA.
+// What bounds it on the H100: at (1, 1024, 1280) h8 the five products as
+// three tf32 terms each are 0.081 ms on the tensor cores (0.200 on the CUDA
+// cores' FFMA line), and each CTA streams its operands' planes (16 bytes an
+// element) from L2. At dh 160 the 64 resident rows' four tf32 planes are 160
+// KB, and beside them no streamed stage fits; the first form at this width
+// read the resident operand's fragments from its planes in global memory two
+// k8 steps at a time, each group drained before the next, one 32-row stage in
+// flight, and split dK/dV by output columns into two CTAs that both computed
+// S^T and dP^T: 1.017-1.047 ms in all at (1, 1024, 1280) against SDPA's
+// backward at 0.539-0.638 (NVIDIA H100 80GB HBM3 at 700 W).
+//
+// The design (route (a) of three weighed: a two-CTA cluster, the resident
+// operand stored once as raw fp32, or two consumer warpgroups that split the
+// products; only the cluster leaves room for two stages of 32-row tiles):
+// * CTA r of a cluster of two owns dh's columns 80r .. 80r + 79 of 64
+//   resident rows: the split pass writes each operand as two heads of width
+//   80 (split_planes_kernel<80> over 2 * heads), so a CTA's planes are the
+//   dh-80 kernels' and its products over the tile's rows are theirs.
+// * The resident operands stay in shared memory for the whole loop, each
+//   thread's A fragments of every k8 step as fp32 hi + lo (40 KB for both
+//   operands), split into tf32 hi and lo in registers as they are read. The
+//   streamed planes come in two rings of two slots, the planes over dh and
+//   the transposed planes (40 + 40 KB a tile for dK/dV, 40 + 20 for dQ), so
+//   tile j + 1's planes over dh land while tile j's transposed ones are used.
+// * S (S^T) and dP (dP^T) over the CTA's 80 columns run in five groups of two
+//   k8 steps, both products a group, accumulated on the tensor cores over the
+//   80 columns as the dh-80 kernels accumulate theirs. Each CTA sends its two
+//   partial tiles into the other's shared memory with asynchronous stores
+//   that complete on the other's mbarrier (st.async: no release fence on the
+//   data's way) and adds the other's: a + b on one CTA and b + a on the other
+//   are the same bits, so both compute the same P and dS, S^T and dP^T once
+//   per tile pair across the cluster. Tile j + 1's products over dh run
+//   while tile j's partials cross; a second mbarrier tells a CTA that its
+//   peer has read the last partials, before it writes the next (and before
+//   it leaves). On the card (NVIDIA H100 80GB HBM3 at 700 W), the exchange
+//   as plain stores released by every thread right after them cost each
+//   kernel ~40 % (0.262 -> 0.157 ms for dQ at (1, 1024, 1280) without it);
+//   asynchronous stores a tile ahead cost ~25 % (0.204 ms).
+// * Each CTA then adds its 80 columns of dQ (or dK and dV) as the dh-80
+//   kernels do: each tile's product into a fresh accumulator that the CUDA
+//   cores add to the running output. Every output is summed in one fixed
+//   order by one CTA.
+// * Each kernel is 144 CTAs on 132 SMs at (1, 576, 1280): the dK/dV kernel
+//   is launched as the dQ kernel's programmatic dependent (it reads only the
+//   split pass's planes), so it starts on the SMs that dQ's last wave leaves
+//   idle, and waits for dQ before it completes.
+// At (1, 1024, 1280): dQ 0.200, dK/dV 0.227, the split pass 0.043 ms, the
+// whole call 0.464 ms of device time against the first form's 0.997-1.000 and
+// SDPA's backward 0.508-0.509; at (1, 576, 1280) 0.222-0.224 against 0.555-
+// 0.558 and 0.288-0.289 (NVIDIA H100 80GB HBM3 at 700 W;
+// vface_torch/bench/attn_bwd_wide.py, both forms in one run). Still one
+// consumer warpgroup per SM: its chain per tile (five drained groups, the
+// exchange, two or four drained groups over the rows) keeps the tensor
+// cores ~20 % busy.
 
-// Shared memory of the wide dQ (!DKV) or dK/dV kernel: one stage.
-template <int DH, bool DKV>
-struct WideCfg {
-  static constexpr int T = kT<DH>;
-  static constexpr int kPlane = T * DH;
-  static constexpr int kStrPlanes = DKV ? 8 : 6;
+constexpr int kHalf = 80;  // dh columns per CTA of a cluster
+
+// Shared memory of the cluster dQ (!DKV) or dK/dV kernel, the streamed
+// planes first (1024-byte aligned, as the bulk copies land them) in two rings
+// of two slots: dh[slot] the streamed operands' planes over dh (Y0 hi, lo,
+// Y1 hi, lo: K and V, or Q and dO), rw[slot] their transposed planes (K^T
+// hi, lo; or Q^T hi, lo, dO^T hi, lo) with, for dK/dV, the queries'
+// statistics; then the resident A fragments ([operand][k8 step][thread],
+// fp32 hi + lo) and the peer's partials (x[0..3] S, x[4..7] dP, [8][thread]).
+template <bool DKV>
+struct ClusterCfg {
+  static constexpr int T = kT<kHalf>, P = T * kHalf, S = 2;
+  static constexpr int kRwPlanes = DKV ? 4 : 2;
   static constexpr int kStatT = DKV ? T : 1;
   struct Smem {
-    float str[kStrPlanes][kPlane];
-    float lse[kStatT], dd[kStatT];
-    uint64_t full, empty;
+    float dh[S][4][P];
+    float rw[S][kRwPlanes][P];
+    float4 res[2][kHalf / 8][128];
+    float4 x[8][128];
+    float lse[S][kStatT], dd[S][kStatT];
+    uint64_t dh_full[S], dh_empty[S], rw_full[S], rw_empty[S], xfull, xempty;
   };
   static constexpr int kSmemBytes = sizeof(Smem) + 1024;
+  static_assert(kSmemBytes <= kSmemMax, "over the shared memory of a block");
 };
 
-// The hi and lo tf32 A fragments of k8 steps cb0 .. cb0 + CB - 1 of a
-// resident operand, read from its split planes x (planes[bh][tile][4][T * DH]):
-// this thread's rows rr and rr + 8 of the 64 from tile tile0 on. Row R of a
-// plane is column block * T + the tile's row; its slot c ^ 4 * (bit 2 of R)
-// holds column 8 * block + c (the pass writes TMA's 32-byte swizzle).
-template <int DH, int CB>
-__device__ __forceinline__ void load_frags(const float* __restrict__ x, long long tile0, int rr, int t4, int cb0,
-                                           uint32_t (&hi)[4 * CB], uint32_t (&lo)[4 * CB]) {
+// The hi and lo tf32 A fragments of k8 step cb of a resident operand, read
+// from its split planes x (planes[bh][tile][4][T * DH]): this thread's rows
+// rr and rr + 8 of the 64 from tile tile0 on. Row R of a plane is column
+// block * T + the tile's row; its slot c ^ 4 * (bit 2 of R) holds column
+// 8 * block + c (the pass writes TMA's 32-byte swizzle).
+template <int DH>
+__device__ __forceinline__ void load_frags(const float* __restrict__ x, long long tile0, int rr, int t4, int cb,
+                                           uint32_t (&hi)[4], uint32_t (&lo)[4]) {
   constexpr int T = kT<DH>, P = T * DH;
 #pragma unroll
-  for (int cb = 0; cb < CB; ++cb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = rr + 8 * (e & 1), c = t4 + 4 * (e >> 1);
-      const int R = (cb0 + cb) * T + row % T;
-      const float* at = x + (tile0 + row / T) * 4 * P + R * 8 + (c ^ (((R >> 2) & 1) << 2));
-      hi[4 * cb + e] = __float_as_uint(at[0]);
-      lo[4 * cb + e] = __float_as_uint(at[P]);
-    }
-}
-
-// d = X . Y^T over dh (T / 2 registers, N = T): X the resident operand from
-// its planes x at tile tile0, two k8 steps a group; Y the streamed plane pair
-// from shared memory descriptor y (hi, then lo kPl later). Each group's three
-// tf32 terms go to `part`, added to d on the CUDA cores.
-template <int DH>
-__device__ __forceinline__ void dh_product(float (&d)[kT<DH> / 2], float (&part)[kT<DH> / 2], const float* x,
-                                           long long tile0, int rr, int t4, uint64_t y, uint64_t kPl, uint32_t one,
-                                           uint32_t zero) {
-  constexpr int T = kT<DH>, CB = 2, QC = DH / 8 / CB;
-  static_assert(T == 32, "the wide kernels' tiles are 32 rows");
-  uint32_t ahi[4 * CB], alo[4 * CB];
-  uint64_t db[2 * CB];
-#pragma unroll 1
-  for (int qc = 0; qc < QC; ++qc) {
-    load_frags<DH, CB>(x, tile0, rr, t4, qc * CB, ahi, alo);
-#pragma unroll
-    for (int cb = 0; cb < CB; ++cb) {
-      db[cb] = y + (qc * CB + cb) * (T * 32 >> 4);
-      db[CB + cb] = db[cb] + kPl;
-    }
-    pin(ahi);
-    pin(alo);
-    pin(db);
-    wgmma_fence();
-#pragma unroll
-    for (int cb = 0; cb < CB; ++cb) {  // X_lo.Y_hi + X_hi.Y_lo + X_hi.Y_hi, the small terms first
-      if (cb == 0) wgmma_tf32_n32_zero(part, &alo[0], db[0], zero);
-      else wgmma_tf32_n32(part, &alo[4 * cb], db[cb], one);
-    }
-#pragma unroll
-    for (int cb = 0; cb < CB; ++cb) wgmma_tf32_n32(part, &ahi[4 * cb], db[CB + cb], one);
-#pragma unroll
-    for (int cb = 0; cb < CB; ++cb) wgmma_tf32_n32(part, &ahi[4 * cb], db[cb], one);
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(part);
-#pragma unroll
-    for (int i = 0; i < T / 2; ++i) d[i] = qc ? d[i] + part[i] : part[i];
+  for (int e = 0; e < 4; ++e) {
+    const int row = rr + 8 * (e & 1), c = t4 + 4 * (e >> 1);
+    const int R = cb * T + row % T;
+    const float* at = x + (tile0 + row / T) * 4 * P + R * 8 + (c ^ (((R >> 2) & 1) << 2));
+    hi[e] = __float_as_uint(at[0]);
+    lo[e] = __float_as_uint(at[P]);
   }
 }
 
-// ---- dQ at dh 160: 64 query rows, a loop over 32-key tiles
-template <int DH>
+// ---- K5 on fp32 at dh 160: dQ (!DKV: 64 query rows, a loop over 32-key
+// tiles) or dK and dV (64 key rows, a loop over 32-query tiles), dh's columns
+// 80 * rank on, rank = this CTA's in its cluster of two. x0, x1: the resident
+// operands' planes (Q and dO, or K and V), y0, y1 the streamed ones (K and V,
+// or Q and dO), each [b * heads * 2][tiles][4][T * 80]
+template <bool DKV>
 __global__ void __launch_bounds__(kThreads, 1)
-bwd_dq_f32_wide_kernel(const float* __restrict__ pq, const float* __restrict__ pdo, const float* __restrict__ pk,
-                       const float* __restrict__ pv, const float* __restrict__ m, const float* __restrict__ l,
-                       const float* __restrict__ dd, float* __restrict__ dq, int nq, int nk, int heads, float scale) {
-  using C = WideCfg<DH, false>;
-  constexpr int T = C::T, P = C::kPlane, KG = T / 8, DN = 40, NH = DH / DN;
+bwd_f32_cluster_kernel(const float* __restrict__ x0, const float* __restrict__ x1, const float* __restrict__ y0,
+                       const float* __restrict__ y1, const float* __restrict__ m, const float* __restrict__ l,
+                       const float* __restrict__ dd, float* __restrict__ out0, float* __restrict__ out1, int nq,
+                       int nk, int heads, float scale) {
+  using C = ClusterCfg<DKV>;
+  constexpr int T = C::T, P = C::P, S = C::S, NB = kHalf / 8, KG = T / 8, DN = 40, NH = kHalf / DN;
   extern __shared__ uint8_t smem_raw[];
   auto& sm = *reinterpret_cast<typename C::Smem*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
   const int tid = threadIdx.x, bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int q0 = blockIdx.x * kRes, n_kt = (nk + T - 1) / T;
-  const long long kt0 = (long long)bh * tiles<DH>(nk), qt0 = (long long)bh * tiles<DH>(nq) + q0 / T;
-
-  if (tid == 0) {
-    mbar_init(&sm.full, 1);
-    mbar_init(&sm.empty, 4);  // one arrival per consumer warp
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (tid >= 128) {  // the producer warpgroup: its first thread issues every copy
-    if (tid == 128) {
-      for (int j = 0; j < n_kt; ++j) {
-        mbar_wait(&sm.empty, (j & 1) ^ 1);
-        mbar_expect_tx(&sm.full, 6 * P * 4);
-        bulk_load(sm.str[0], pk + (kt0 + j) * 4 * P, 4 * P * 4, &sm.full);  // K: hi, lo, T hi, T lo
-        bulk_load(sm.str[4], pv + (kt0 + j) * 4 * P, 2 * P * 4, &sm.full);  // V: hi, lo
-      }
-    }
-    return;
-  }
-
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int rr = warp * 16 + g, row0 = q0 + rr;  // this thread's rows: row0 and row0 + 8
-  const long long st0 = (long long)bh * nq;
-  float lse[2], drow[2];  // P = 0 on rows past nq
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    lse[r] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
-    drow[r] = row < nq ? dd[st0 + row] : 0.f;
-  }
-  uint32_t one = 1, zero = 0;
-  asm volatile("" : "+r"(one), "+r"(zero));
-  const uint64_t dstr = sdesc(&sm.str[0][0], 16, 256);
-  constexpr uint64_t kPl = P * 4 >> 4;
-
-  const float c = scale * kLog2e;
-  const int tail = nk - (n_kt - 1) * T;  // valid keys of the last tile
-  float run[DH / 2], acc[DN / 2], s[T / 2], dp[T / 2], part[T / 2];
-#pragma unroll
-  for (int i = 0; i < DH / 2; ++i) run[i] = 0.f;
-  uint32_t fhi[T / 2], flo[T / 2];
-
-  for (int j = 0; j < n_kt; ++j) {
-    mbar_wait(&sm.full, j & 1);
-    __syncwarp();
-    dh_product<DH>(s, part, pq, qt0, rr, t4, dstr, kPl, one, zero);             // S = Q.K^T
-    dh_product<DH>(dp, part, pdo, qt0, rr, t4, dstr + 4 * kPl, kPl, one, zero);  // dP = dO.V^T
-#pragma unroll
-    for (int i = 0; i < T / 2; ++i) s[i] = ex2(fmaf(s[i], c, -lse[(i >> 1) & 1]));  // P
-    if (j == n_kt - 1 && tail < T) {  // keys past nk
-#pragma unroll
-      for (int i = 0; i < T / 2; ++i)
-        if (8 * (i >> 2) + 2 * t4 + (i & 1) >= tail) s[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < T / 2; ++i) s[i] *= dp[i] - drow[(i >> 1) & 1];  // dS
-    split_frags<T>(s, fhi, flo);
-    pin(fhi);
-    pin(flo);
-    // dQ += dS . K, K^T's planes (2: hi, 3: lo), in NH groups of DN columns
-#pragma unroll
-    for (int hb = 0; hb < NH; ++hb) {
-      uint64_t dk[2 * KG];
-#pragma unroll
-      for (int kg = 0; kg < KG; ++kg)
-#pragma unroll
-        for (int p = 0; p < 2; ++p) dk[p * KG + kg] = dstr + (2 + p) * kPl + kg * (DH * 32 >> 4) + hb * (DN * 32 >> 4);
-      pin(dk);
-      wgmma_fence();
-      rs_rows<DN, KG>(acc, fhi, flo, dk, one, zero);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(acc);
-#pragma unroll
-      for (int i = 0; i < DN / 2; ++i) run[hb * DN / 2 + i] += acc[i];
-    }
-    if (lane == 0) mbar_arrive(&sm.empty);
-  }
-  store_rows<DH>(dq, run, scale, (long long)b * nq * heads * DH + h * DH, (long long)heads * DH, row0, nq, t4);
-}
-
-// ---- dK and dV at dh 160: 64 key rows and half of dh's output columns, a
-// loop over 32-query tiles
-template <int DH>
-__global__ void __launch_bounds__(kThreads, 1)
-bwd_dkv_f32_wide_kernel(const float* __restrict__ pk, const float* __restrict__ pv, const float* __restrict__ pq,
-                        const float* __restrict__ pdo, const float* __restrict__ m, const float* __restrict__ l,
-                        const float* __restrict__ dd, float* __restrict__ dk_out, float* __restrict__ dv_out,
-                        int nq, int nk, int heads, float scale) {
-  using C = WideCfg<DH, true>;
-  constexpr int T = C::T, P = C::kPlane, KG = T / 8, DO = DH / 2, DN = 40, NH = DO / DN;
-  extern __shared__ uint8_t smem_raw[];
-  auto& sm = *reinterpret_cast<typename C::Smem*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
-  const int tid = threadIdx.x, bh = blockIdx.y, b = bh / heads, h = bh - b * heads, half = blockIdx.x & 1;
-  const int k0 = (blockIdx.x >> 1) * kRes, n_qt = (nq + T - 1) / T;
-  const long long qt0 = (long long)bh * tiles<DH>(nq), kt0 = (long long)bh * tiles<DH>(nk) + k0 / T;
+  const uint32_t rank = cluster_ctarank(), peer = rank ^ 1u;
+  const int r0 = (blockIdx.x >> 1) * kRes, n_t = ((DKV ? nq : nk) + T - 1) / T;
+  const long long bhv = 2LL * bh + rank;  // the split pass's head of this CTA's columns
+  const long long rt0 = bhv * tiles<kHalf>(DKV ? nk : nq) + r0 / T;  // the resident rows' first tile
+  const long long yt0 = bhv * tiles<kHalf>(DKV ? nq : nk);            // the streamed operands' first tile
   const long long st0 = (long long)bh * nq;
 
   if (tid == 0) {
-    mbar_init(&sm.full, 33);  // the copies' bytes, and the producer warp's statistics
-    mbar_init(&sm.empty, 4);  // one arrival per consumer warp
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&sm.dh_full[s], 1);           // the copies' bytes
+      mbar_init(&sm.rw_full[s], DKV ? 33 : 1);  // the copies' bytes (and the producer warp's statistics)
+      mbar_init(&sm.dh_empty[s], 4);          // one arrival per consumer warp
+      mbar_init(&sm.rw_empty[s], 4);
+    }
+    mbar_init(&sm.xfull, 1);   // the peer's partials: their bytes (st_async_peer), armed by thread 0
+    mbar_init(&sm.xempty, 4);  // the peer has read this CTA's partials: one arrival per peer consumer warp
+    mbar_expect_tx(&sm.xfull, sizeof(sm.x));  // tile 0's
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  cluster_sync();  // both CTAs' barriers are initialised before either arrives on the other's
+  if constexpr (!DKV) dependents_may_start();  // the dK/dV kernel may start on idle SMs
 
   if (tid >= 128) {  // the producer warpgroup: its first warp works, lane 0 issues every copy
-    if (tid >= 160) return;
+    if (tid >= 160 || (!DKV && tid != 128)) return;
     const int lane = tid & 31;
-    for (int j = 0; j < n_qt; ++j) {
-      mbar_wait(&sm.empty, (j & 1) ^ 1);
+    for (int j = 0; j < n_t; ++j) {  // tile j's planes over dh, then its transposed planes
+      const int st = j % S;
+      const uint32_t parity = ((j / S) & 1) ^ 1;
+      const float* t0 = y0 + (yt0 + j) * 4 * P;
+      const float* t1 = y1 + (yt0 + j) * 4 * P;
       if (lane == 0) {
-        mbar_expect_tx(&sm.full, 8 * P * 4);
-        bulk_load(sm.str[0], pq + (qt0 + j) * 4 * P, 4 * P * 4, &sm.full);   // Q: hi, lo, T hi, T lo
-        bulk_load(sm.str[4], pdo + (qt0 + j) * 4 * P, 4 * P * 4, &sm.full);  // dO: the same
+        mbar_wait(&sm.dh_empty[st], parity);
+        mbar_expect_tx(&sm.dh_full[st], 4 * P * 4);
+        bulk_load(sm.dh[st][0], t0, 2 * P * 4, &sm.dh_full[st]);  // Y0 hi, lo
+        bulk_load(sm.dh[st][2], t1, 2 * P * 4, &sm.dh_full[st]);  // Y1 hi, lo
       }
-      for (int cq = lane; cq < T; cq += 32) {  // P = ex2(s * scale * log2(e) - lse): 0 past nq
-        const int row = j * T + cq;
-        sm.lse[cq] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
-        sm.dd[cq] = row < nq ? dd[st0 + row] : 0.f;
+      if (lane == 0 || DKV) mbar_wait(&sm.rw_empty[st], parity);
+      if (lane == 0) {
+        mbar_expect_tx(&sm.rw_full[st], C::kRwPlanes * P * 4);
+        bulk_load(sm.rw[st][0], t0 + 2 * P, 2 * P * 4, &sm.rw_full[st]);                // Y0^T hi, lo
+        if (DKV) bulk_load(sm.rw[st][2], t1 + 2 * P, 2 * P * 4, &sm.rw_full[st]);  // Y1^T hi, lo
       }
-      mbar_arrive(&sm.full);
+      if (DKV) {  // P = ex2(s * scale * log2(e) - lse): 0 past nq
+        for (int cq = lane; cq < T; cq += 32) {
+          const int row = j * T + cq;
+          sm.lse[st][cq] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
+          sm.dd[st][cq] = row < nq ? dd[st0 + row] : 0.f;
+        }
+        mbar_arrive(&sm.rw_full[st]);
+      }
     }
     return;
   }
 
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int rr = warp * 16 + g;
+  const int rr = warp * 16 + g, row0 = r0 + rr;  // this thread's rows: row0 and row0 + 8
+  // the resident A fragments, once: each k8 step's hi + lo (exact in fp32), split again as read
+#pragma unroll 1
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int op = 0; op < 2; ++op) {
+      uint32_t hi[4], lo[4];
+      load_frags<kHalf>(op ? x1 : x0, rt0, rr, t4, cb, hi, lo);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(hi[e]) + __uint_as_float(lo[e]);
+      sm.res[op][cb][tid] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  float lse[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f};  // dQ: this thread's rows' statistics, P = 0 past nq
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse[r] = row < nq ? fmaf(m[st0 + row], kLog2e, log2f(l[st0 + row])) : INFINITY;
+      drow[r] = row < nq ? dd[st0 + row] : 0.f;
+    }
+  }
   uint32_t one = 1, zero = 0;
   asm volatile("" : "+r"(one), "+r"(zero));
-  const uint64_t dstr = sdesc(&sm.str[0][0], 16, 256);
-  constexpr uint64_t kPl = P * 4 >> 4;
-  // out += X . Y over the tile's queries: Y the transposed planes from y (2:
-  // Q^T, 6: dO^T), this CTA's DO columns in NH groups of DN
-  auto rows_product = [&](float (&out)[DO / 2], float (&acc)[DN / 2], uint32_t (&hi)[T / 2], uint32_t (&lo)[T / 2],
-                          int y) {
+  const uint64_t ddh = sdesc(&sm.dh[0][0][0], 16, 256), drw = sdesc(&sm.rw[0][0][0], 16, 256);
+  constexpr uint64_t kPl = P * 4 >> 4, kDhSlot = sizeof(sm.dh[0]) >> 4, kRwSlot = sizeof(sm.rw[0]) >> 4;
+  const uint32_t x_peer = peer_addr(&sm.x[0][tid], peer), xfull_peer = peer_addr(&sm.xfull, peer),
+                 xempty_peer = peer_addr(&sm.xempty, peer);
+
+  // Partial S = X0 . Y0^T and dP = X1 . Y1^T over this CTA's 80 columns (the
+  // dh slot's planes 0, 1 and 2, 3): a group per two k8 steps, both
+  // products, X_lo.Y_hi + X_hi.Y_lo + X_hi.Y_hi each, accumulated on the
+  // tensor cores.
+  auto dh_products = [&](float (&s)[T / 2], float (&dp)[T / 2], int st) {
+#pragma unroll
+    for (int gq = 0; gq < NB / 2; ++gq) {
+      uint32_t ah[2][8], al[2][8];
+      uint64_t db[2][2][2];  // [operand][k8 step][plane: hi, lo]
+#pragma unroll
+      for (int op = 0; op < 2; ++op)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float4 a = sm.res[op][2 * gq + c][tid];
+          split_tf32(a.x, ah[op][4 * c], al[op][4 * c]);
+          split_tf32(a.y, ah[op][4 * c + 1], al[op][4 * c + 1]);
+          split_tf32(a.z, ah[op][4 * c + 2], al[op][4 * c + 2]);
+          split_tf32(a.w, ah[op][4 * c + 3], al[op][4 * c + 3]);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            db[op][c][p] = ddh + st * kDhSlot + (2 * op + p) * kPl + (2 * gq + c) * (T * 32 >> 4);
+        }
+#pragma unroll
+      for (int op = 0; op < 2; ++op) {
+        pin(ah[op]);
+        pin(al[op]);
+        pin(db[op][0]);
+        pin(db[op][1]);
+      }
+      pin(s);
+      pin(dp);
+      auto terms = [&](float (&d)[T / 2], const uint32_t (&h)[8], const uint32_t (&lw)[8],
+                       const uint64_t (&b)[2][2]) {  // the small terms first
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (gq == 0 && c == 0) wgmma_tf32_n32_zero(d, &lw[0], b[0][0], zero);
+          else wgmma_tf32_n32(d, &lw[4 * c], b[c][0], one);
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) wgmma_tf32_n32(d, &h[4 * c], b[c][1], one);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) wgmma_tf32_n32(d, &h[4 * c], b[c][0], one);
+      };
+      wgmma_fence();
+      terms(s, ah[0], al[0], db[0]);
+      terms(dp, ah[1], al[1], db[1]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      pin(dp);
+    }
+  };
+  // out += X . Y over the tile's rows: X's hi and lo fragments, Y the rows
+  // slot's transposed planes from y (0: Y0^T, 2: Y1^T), this CTA's 80
+  // columns in NH groups of DN
+  auto rows_product = [&](float (&out)[kHalf / 2], float (&acc)[DN / 2], uint32_t (&hi)[T / 2],
+                          uint32_t (&lo)[T / 2], int y, int st) {
     pin(hi);
     pin(lo);
 #pragma unroll
@@ -782,7 +804,7 @@ bwd_dkv_f32_wide_kernel(const float* __restrict__ pk, const float* __restrict__ 
       for (int kg = 0; kg < KG; ++kg)
 #pragma unroll
         for (int p = 0; p < 2; ++p)
-          dy[p * KG + kg] = dstr + (y + p) * kPl + kg * (DH * 32 >> 4) + (half * DO + hb * DN) * 32 / 16;
+          dy[p * KG + kg] = drw + st * kRwSlot + (y + p) * kPl + kg * (kHalf * 32 >> 4) + hb * (DN * 32 >> 4);
       pin(dy);
       wgmma_fence();
       rs_rows<DN, KG>(acc, hi, lo, dy, one, zero);
@@ -793,39 +815,111 @@ bwd_dkv_f32_wide_kernel(const float* __restrict__ pk, const float* __restrict__ 
       for (int i = 0; i < DN / 2; ++i) out[hb * DN / 2 + i] += acc[i];
     }
   };
+  // Tile j + 1's partials go to the peer (into its x, once it has read tile
+  // j's) after tile j's products over the rows; the peer's come back after
+  // tile j + 2's products over dh. The stores complete their bytes on the
+  // peer's xfull, which the peer's thread 0 arms for each tile once the last
+  // has landed (before its warp's lane 0 lets this CTA write again). Each
+  // warp's lane 0 tells the peer that the warp has read its partials
+  // (__syncwarp orders the reads before the release).
+  auto store = [&](const float (&s)[T / 2], const float (&dp)[T / 2], int j) {
+    if (j > 0) mbar_wait<true>(&sm.xempty, (j - 1) & 1);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      st_async_peer(x_peer + q * 128 * 16, make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2], s[4 * q + 3]),
+                    xfull_peer);
+      st_async_peer(x_peer + (4 + q) * 128 * 16,
+                    make_float4(dp[4 * q], dp[4 * q + 1], dp[4 * q + 2], dp[4 * q + 3]), xfull_peer);
+    }
+  };
+  auto receive = [&](float (&s)[T / 2], float (&dp)[T / 2], int j) {  // adds the peer's partials
+    mbar_wait(&sm.xfull, j & 1);
+    if (tid == 0 && j + 1 < n_t) mbar_expect_tx(&sm.xfull, sizeof(sm.x));  // tile j + 1's
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 ps = sm.x[q][tid], pd = sm.x[4 + q][tid];
+      s[4 * q] += ps.x;
+      s[4 * q + 1] += ps.y;
+      s[4 * q + 2] += ps.z;
+      s[4 * q + 3] += ps.w;
+      dp[4 * q] += pd.x;
+      dp[4 * q + 1] += pd.y;
+      dp[4 * q + 2] += pd.z;
+      dp[4 * q + 3] += pd.w;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive_peer(xempty_peer);
+  };
+  auto dh_tile = [&](float (&s)[T / 2], float (&dp)[T / 2], int j) {
+    const int st = j % S;
+    if (j < n_t) {
+      mbar_wait(&sm.dh_full[st], (j / S) & 1);
+      __syncwarp();
+    }
+    dh_products(s, dp, st);
+    if (lane == 0) mbar_arrive(&sm.dh_empty[st]);
+  };
 
   const float c = scale * kLog2e;
-  float run_k[DO / 2], run_v[DO / 2], acc[DN / 2], s[T / 2], dp[T / 2], part[T / 2];
+  const int tail = nk - (n_t - 1) * T;  // dQ: valid keys of the last tile
+  float run0[kHalf / 2], run1[kHalf / 2], acc[DN / 2], s[T / 2], dp[T / 2], s2[T / 2], dp2[T / 2];
 #pragma unroll
-  for (int i = 0; i < DO / 2; ++i) run_k[i] = run_v[i] = 0.f;
+  for (int i = 0; i < kHalf / 2; ++i) run0[i] = run1[i] = 0.f;
   uint32_t fhi[T / 2], flo[T / 2];
 
-  for (int j = 0; j < n_qt; ++j) {
-    mbar_wait(&sm.full, j & 1);
+  dh_tile(s, dp, 0);
+  store(s, dp, 0);
+  for (int j = 0; j < n_t; ++j) {
+    const int st = j % S;
+    dh_tile(s2, dp2, j + 1);
+    receive(s, dp, j);
+    mbar_wait(&sm.rw_full[st], (j / S) & 1);
     __syncwarp();
-    dh_product<DH>(s, part, pk, kt0, rr, t4, dstr, kPl, one, zero);             // S^T = K.Q^T
-    dh_product<DH>(dp, part, pv, kt0, rr, t4, dstr + 4 * kPl, kPl, one, zero);  // dP^T = V.dO^T
-    // this thread's columns: queries 8jj + 2*t4 + {0, 1} of the tile
+    if constexpr (DKV) {
+      // this thread's columns: queries 8jj + 2*t4 + {0, 1} of the tile
 #pragma unroll
-    for (int jj = 0; jj < KG; ++jj) {
-      const float2 ls = *reinterpret_cast<const float2*>(&sm.lse[8 * jj + 2 * t4]);
-      const float2 d = *reinterpret_cast<const float2*>(&sm.dd[8 * jj + 2 * t4]);
+      for (int jj = 0; jj < KG; ++jj) {
+        const float2 ls = *reinterpret_cast<const float2*>(&sm.lse[st][8 * jj + 2 * t4]);
+        const float2 d = *reinterpret_cast<const float2*>(&sm.dd[st][8 * jj + 2 * t4]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[4 * jj + e] = ex2(fmaf(s[4 * jj + e], c, -(e & 1 ? ls.y : ls.x)));       // P^T
-        dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - (e & 1 ? d.y : d.x));  // dS^T
+        for (int e = 0; e < 4; ++e) {
+          s[4 * jj + e] = ex2(fmaf(s[4 * jj + e], c, -(e & 1 ? ls.y : ls.x)));       // P^T
+          dp[4 * jj + e] = s[4 * jj + e] * (dp[4 * jj + e] - (e & 1 ? d.y : d.x));  // dS^T
+        }
       }
+      split_frags<T>(s, fhi, flo);
+      rows_product(run1, acc, fhi, flo, 2, st);  // dV += P^T . dO
+      split_frags<T>(dp, fhi, flo);
+      rows_product(run0, acc, fhi, flo, 0, st);  // dK += dS^T . Q
+    } else {
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) s[i] = ex2(fmaf(s[i], c, -lse[(i >> 1) & 1]));  // P
+      if (j == n_t - 1 && tail < T) {  // keys past nk
+#pragma unroll
+        for (int i = 0; i < T / 2; ++i)
+          if (8 * (i >> 2) + 2 * t4 + (i & 1) >= tail) s[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < T / 2; ++i) s[i] *= dp[i] - drow[(i >> 1) & 1];  // dS
+      split_frags<T>(s, fhi, flo);
+      rows_product(run0, acc, fhi, flo, 0, st);  // dQ += dS . K
     }
-    split_frags<T>(s, fhi, flo);
-    rows_product(run_v, acc, fhi, flo, 6);  // dV += P^T . dO
-    split_frags<T>(dp, fhi, flo);
-    rows_product(run_k, acc, fhi, flo, 2);  // dK += dS^T . Q
-    if (lane == 0) mbar_arrive(&sm.empty);
+    if (lane == 0) mbar_arrive(&sm.rw_empty[st]);
+    if (j + 1 < n_t) store(s2, dp2, j + 1);
+#pragma unroll
+    for (int i = 0; i < T / 2; ++i) {
+      s[i] = s2[i];
+      dp[i] = dp2[i];
+    }
   }
-  const long long base = (long long)b * nk * heads * DH + h * DH + half * DO, cols = (long long)heads * DH;
-  const int row0 = k0 + warp * 16 + g;
-  store_rows<DO>(dk_out, run_k, scale, base, cols, row0, nk, t4);
-  store_rows<DO>(dv_out, run_v, 1.f, base, cols, row0, nk, t4);
+  mbar_wait<true>(&sm.xempty, (n_t - 1) & 1);  // the peer has read our last partials: nothing more comes in
+  const long long cols = (long long)heads * 2 * kHalf;
+  const long long base = (long long)b * (DKV ? nk : nq) * cols + h * 2 * kHalf + rank * kHalf;
+  store_rows<kHalf>(out0, run0, scale, base, cols, row0, DKV ? nk : nq, t4);  // dQ or dK
+  if constexpr (DKV) {
+    store_rows<kHalf>(out1, run1, 1.f, base, cols, row0, nk, t4);  // dV
+    grid_dependency_wait();  // the dQ kernel before it on the stream is done
+  }
 }
 
 // ---- host side
@@ -853,12 +947,14 @@ template <int DH>
 int split(const Args& a, cudaStream_t stream) {
   float *pq, *pk, *pv, *pdo;
   plane_ptrs<DH>(a, pq, pk, pv, pdo);
-  const int bh = a.b * a.heads;
-  split_planes_kernel<DH><<<dim3(tiles<DH>(a.nq), bh), 256, 0, stream>>>(static_cast<const float*>(a.q), pq, a.nq, a.heads);
-  split_planes_kernel<DH><<<dim3(tiles<DH>(a.nk), bh), 256, 0, stream>>>(static_cast<const float*>(a.k), pk, a.nk, a.heads);
-  split_planes_kernel<DH><<<dim3(tiles<DH>(a.nk), bh), 256, 0, stream>>>(static_cast<const float*>(a.v), pv, a.nk, a.heads);
-  split_planes_kernel<DH><<<dim3(tiles<DH>(a.nq), bh), 256, 0, stream>>>(static_cast<const float*>(a.dout), pdo, a.nq,
-                                                                        a.heads);
+  // dh 160: two heads of 80 columns each, the cluster kernel's CTAs' halves
+  constexpr int DS = DH > 80 ? kHalf : DH, hs = DH / DS;
+  const int bh = a.b * a.heads * hs, heads = a.heads * hs;
+  split_planes_kernel<DS><<<dim3(tiles<DS>(a.nq), bh), 256, 0, stream>>>(static_cast<const float*>(a.q), pq, a.nq, heads);
+  split_planes_kernel<DS><<<dim3(tiles<DS>(a.nk), bh), 256, 0, stream>>>(static_cast<const float*>(a.k), pk, a.nk, heads);
+  split_planes_kernel<DS><<<dim3(tiles<DS>(a.nk), bh), 256, 0, stream>>>(static_cast<const float*>(a.v), pv, a.nk, heads);
+  split_planes_kernel<DS><<<dim3(tiles<DS>(a.nq), bh), 256, 0, stream>>>(static_cast<const float*>(a.dout), pdo, a.nq,
+                                                                        heads);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -866,27 +962,53 @@ template <int DH, bool DKV>
 int launch(const Args& a, cudaStream_t stream) {
   float *pq, *pk, *pv, *pdo;
   plane_ptrs<DH>(a, pq, pk, pv, pdo);
-  constexpr bool kWide = DH > 80;  // the register-fragment kernels; dK/dV by half of dh's columns
   const int n_res = DKV ? a.nk : a.nq;
-  const dim3 grid((n_res + kRes - 1) / kRes * (DKV && kWide ? 2 : 1), a.b * a.heads);
-  auto run = [&](auto kernel, int smem) {
-    static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (attr != cudaSuccess) return attr;
-    if constexpr (DKV)
-      kernel<<<grid, kThreads, smem, stream>>>(pk, pv, pq, pdo, a.m, a.l, a.dd, static_cast<float*>(a.dk),
-                                               static_cast<float*>(a.dv), a.nq, a.nk, a.heads, a.scale);
-    else
-      kernel<<<grid, kThreads, smem, stream>>>(pq, pdo, pk, pv, a.m, a.l, a.dd, static_cast<float*>(a.dq), a.nq, a.nk,
-                                               a.heads, a.scale);
-    return cudaSuccess;
-  };
-  cudaError_t err;
-  if constexpr (DKV && kWide) err = run(bwd_dkv_f32_wide_kernel<DH>, WideCfg<DH, true>::kSmemBytes);
-  else if constexpr (DKV) err = run(bwd_dkv_f32_kernel<DH>, Cfg<DH, true>::kSmemBytes);
-  else if constexpr (kWide) err = run(bwd_dq_f32_wide_kernel<DH>, WideCfg<DH, false>::kSmemBytes);
-  else err = run(bwd_dq_f32_kernel<DH>, Cfg<DH, false>::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (DH > 80) {  // the cluster kernel: two CTAs per 64 resident rows
+    constexpr int smem = ClusterCfg<DKV>::kSmemBytes;
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(bwd_f32_cluster_kernel<DKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(2 * ((n_res + kRes - 1) / kRes), a.b * a.heads);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attrs[2];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = 2;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;  // dK/dV may overlap the dQ kernel's tail
+    attrs[1].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attrs;
+    cfg.numAttrs = DKV ? 2 : 1;
+    const cudaError_t err =
+        DKV ? cudaLaunchKernelEx(&cfg, bwd_f32_cluster_kernel<DKV>, (const float*)pk, (const float*)pv,
+                                 (const float*)pq, (const float*)pdo, a.m, a.l, a.dd, static_cast<float*>(a.dk),
+                                 static_cast<float*>(a.dv), a.nq, a.nk, a.heads, a.scale)
+            : cudaLaunchKernelEx(&cfg, bwd_f32_cluster_kernel<DKV>, (const float*)pq, (const float*)pdo,
+                                 (const float*)pk, (const float*)pv, a.m, a.l, a.dd, static_cast<float*>(a.dq),
+                                 static_cast<float*>(nullptr), a.nq, a.nk, a.heads, a.scale);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  } else {
+    const dim3 grid((n_res + kRes - 1) / kRes, a.b * a.heads);
+    auto run = [&](auto kernel, int smem) {
+      static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (attr != cudaSuccess) return attr;
+      if constexpr (DKV)
+        kernel<<<grid, kThreads, smem, stream>>>(pk, pv, pq, pdo, a.m, a.l, a.dd, static_cast<float*>(a.dk),
+                                                 static_cast<float*>(a.dv), a.nq, a.nk, a.heads, a.scale);
+      else
+        kernel<<<grid, kThreads, smem, stream>>>(pq, pdo, pk, pv, a.m, a.l, a.dd, static_cast<float*>(a.dq), a.nq,
+                                                 a.nk, a.heads, a.scale);
+      return cudaSuccess;
+    };
+    cudaError_t err;
+    if constexpr (DKV) err = run(bwd_dkv_f32_kernel<DH>, Cfg<DH, true>::kSmemBytes);
+    else err = run(bwd_dq_f32_kernel<DH>, Cfg<DH, false>::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // what: 0 the split pass, 1 dQ, 2 dK/dV
@@ -950,7 +1072,7 @@ extern "C" int vface_flash_attention_bwd_f32_smem_bytes(int dh, int dkv) {
     case 32: return dkv ? Cfg<32, true>::kSmemBytes : Cfg<32, false>::kSmemBytes;
     case 40: return dkv ? Cfg<40, true>::kSmemBytes : Cfg<40, false>::kSmemBytes;
     case 80: return dkv ? Cfg<80, true>::kSmemBytes : Cfg<80, false>::kSmemBytes;
-    case 160: return dkv ? WideCfg<160, true>::kSmemBytes : WideCfg<160, false>::kSmemBytes;
+    case 160: return dkv ? ClusterCfg<true>::kSmemBytes : ClusterCfg<false>::kSmemBytes;
     default: return 0;
   }
 }

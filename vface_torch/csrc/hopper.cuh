@@ -2,7 +2,8 @@
 // flash_attention.cu (K1, K4, K6, K7, K12), flash_attention_bwd.cu (K5),
 // flash_attention_f32.cu (K7, K8, K10-K12 on fp32), flash_attention_bwd_f32.cu
 // (K5 on fp32) and geglu_ff.cu (K2, K9, K13): mbarriers, TMA loads and 1-D bulk
-// copies, wgmma descriptors and instructions (bf16, and
+// copies, a cluster's distributed shared memory (stores and mbarrier arrivals
+// into a peer CTA), wgmma descriptors and instructions (bf16, and
 // tf32 for fp32 operands split into hi + lo), register pins, the bf16 and
 // tf32 splits of fp32 values, the attention forward's online softmax, and the
 // host's tensor maps. Every operand lands in shared memory as TMA's 32-byte
@@ -43,17 +44,27 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 
 // Wait for the phase of parity `parity` to complete. try_wait may suspend the
 // thread for a while, sparing the issue slots. A lost arrival traps after
-// ~4 s, failing the launch, rather than hang the card.
+// ~4 s, failing the launch, rather than hang the card. CLUSTER: acquire what
+// arrivals from the cluster's other CTAs released (mbar_arrive_peer).
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint64_t t0 = 0;
   for (uint32_t spin = 1;; ++spin) {
     uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if constexpr (CLUSTER)
+      asm volatile(
+          "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
     if (done) return;
     if ((spin & 1023) == 0) {
       uint64_t t;
@@ -62,6 +73,53 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       else if (t - t0 > 4000000000ull) __trap();
     }
   }
+}
+
+// ---- thread-block clusters: distributed shared memory between the CTAs of a cluster
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster (the CTAs' earlier shared-memory
+// writes, mbarrier inits included, visible to the others)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `p` (this CTA's shared memory) in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// an asynchronous store into a peer CTA's shared memory that completes its 16
+// bytes on the peer's mbarrier `bar` (both peer_addr), as a bulk copy's bytes
+// complete: no fence, the peer's wait on `bar` sees them
+__device__ __forceinline__ void st_async_peer(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+               : "memory");
+}
+
+// Programmatic dependent launch: a kernel lets the next one on its stream,
+// launched with cudaLaunchAttributeProgrammaticStreamSerialization, start
+// once every CTA of it has called dependents_may_start (or exited); the next
+// one's grid_dependency_wait returns once this kernel has completed and its
+// writes are visible (at once when it was launched without the attribute)
+__device__ __forceinline__ void dependents_may_start() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// arrive on a peer CTA's mbarrier (a peer_addr), releasing this thread's
+// earlier memory operations to the cluster
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr) : "memory");
 }
 
 // one box of a 3-D tensor map (column, row, batch) into shared memory
@@ -98,6 +156,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 // named barrier `id` (1-15) over `threads` threads, a multiple of 32
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive at named barrier `id` without waiting (its waiters bar_sync on the
+// same id and count): this thread's earlier shared-memory writes are visible
+// to them once the barrier completes
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // a warpgroup's registers per thread, raised or lowered (every warp of the
