@@ -33,6 +33,7 @@ from vface_tpu.ops.pallas_ff import _pallas_impl
 from vface_torch.bench import attention as bench_attention
 from vface_torch.bench import attn_bwd_wide as bench_bwd
 from vface_torch.bench import attn_f32 as bench_f32
+from vface_torch.bench import attn_fwd_wide as bench_fwd
 from vface_torch.bench import attn_v56 as bench_v56
 from vface_torch.bench import ff_tile as bench_ff
 from vface_torch.ops import _archive_attention as AA
@@ -213,4 +214,29 @@ def test_attn_bwd_wide_bench_entries_agree_on_the_cpu():
         for got, want in zip(entries["K5"](), (merge(t) for t in entries["SDPA backward"]())):
             assert got.shape == (b, n, c) and got.dtype == torch.float32
             close(got, want, atol=1e-5 * float(want.abs().max()))
+    assert FA.LAUNCHES == before
+
+
+def test_attn_fwd_wide_bench_entries_agree_on_the_cpu():
+    """The forward bench's cases are ds4's dh 160 (the bf16 and fp32 rows of
+    PERF.md) and ds1/ds2's dh 40/80 as the guard; on the CPU each of its
+    entries (the plain versions, and SDPA) computes the einsum path's
+    attention at a ragged N of each width, bf16 within 0.04 as
+    test_attention_bench_variants_agree_on_the_cpu, fp32 within 1e-5 of the
+    peak; none launches."""
+    widths = lambda cases: {c // bench_fwd.H for _, _, c in cases}
+    assert widths(bench_fwd.BF16_WIDE) == widths(bench_fwd.F32_WIDE) == {160}
+    assert widths(bench_fwd.BF16_GUARD) == widths(bench_fwd.F32_GUARD) == {40, 80}
+    assert len(bench_fwd.CASES) == 10
+    before = dict(FA.LAUNCHES)
+    for dtype, entries in ((torch.bfloat16, bench_fwd.BF16_ENTRIES), (torch.float32, bench_fwd.F32_ENTRIES)):
+        for c in (320, 640, 1280):
+            q, k, v = (bench_fwd.randn((2, 65, c), seed=s, device="cpu", dtype=dtype) for s in range(3))
+            want = multi_head_attention(q, k, v, bench_fwd.H, dtype=dtype).float()
+            for name, fn in entries.items():
+                got = fn(q, k, v, bench_fwd.H)
+                got = got[0] if isinstance(got, tuple) else got
+                assert got.shape == q.shape and got.dtype == dtype, name
+                tol = 0.04 if dtype == torch.bfloat16 else 1e-5 * float(want.abs().max())
+                close(got, want, atol=tol)
     assert FA.LAUNCHES == before

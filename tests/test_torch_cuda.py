@@ -653,6 +653,67 @@ def test_fp32_forward_forms_of_k4_and_k6(gen, b, nq, nk, heads, dh):
     assert ((l - wl).abs() / wl).max() <= 1e-5
 
 
+# The dh-160 forwards' schedules: a half-empty last query tile (576 rows are
+# 4.5 tiles of 128) and a ragged last key tile, both ways; more tiles than the
+# card has SMs (12 x 8 heads x 5 tiles: a persistent CTA walks several); dh 152
+# (padded to 160 in shared memory)
+WIDE_FWD_SHAPES = [(1, 65, 577, 2, 160), (1, 577, 65, 2, 160), (2, 576, 576, 2, 160), (12, 576, 576, 8, 160),
+                   (1, 300, 577, 3, 152)]
+# the tf32 forward at dh 160 on clusters of two CTAs per 128 query rows (b =
+# 1 at 1024^2, ragged both ways, a half-empty last tile) and, past one wave,
+# one CTA per 128 rows (flash_attention.f32_cluster)
+WIDE_F32_FWD_SHAPES = [(1, 1024, 1024, 8, 160), (1, 65, 577, 2, 160), (1, 577, 65, 2, 160), (2, 576, 576, 2, 160),
+                       (12, 576, 576, 8, 160)]
+
+
+def _check_ml(m, l, wm, wl):
+    assert ((m - wm).abs() / wm.abs().clamp(min=1e-30)).max() <= 1e-5
+    assert ((l - wl).abs() / wl).max() <= 1e-5
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,dh", WIDE_FWD_SHAPES)
+def test_wide_bf16_forward_forms(gen, b, nq, nk, heads, dh):
+    """The bf16 forward kernel at dh 160: K4's output is K1's and K7's is
+    K6's bit for bit, a second launch gives the same bits, K1 and K6 are
+    within 2 bf16 ulps of their plain versions (P rounded to bf16, P at fp32),
+    m and l within 1e-5 relative."""
+    q = _randn(gen, b, nq, heads * dh)
+    k, v = (_randn(gen, b, nk, heads * dh) for _ in range(2))
+    k1 = FA.flash_attention(q, k, v, heads)
+    o4, m4, l4 = FA.flash_attention_stats(q, k, v, heads)
+    k6 = FA.flash_attention_fp32(q, k, v, heads)
+    o7, m7, l7 = FA.flash_attention_v2_stats(q, k, v, heads)
+    k1b, k6b = FA.flash_attention(q, k, v, heads), FA.flash_attention_fp32(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(o4, k1) and torch.equal(o7, k6) and torch.equal(k1b, k1) and torch.equal(k6b, k6)
+    want, wm, wl = FA.flash_attention_stats_ref(q, k, v, heads)
+    want6 = FA.flash_attention_fp32_ref(q, k, v, heads)
+    assert bool(torch.isfinite(k1).all()) and bool(torch.isfinite(k6).all())
+    assert (k1.float() - want.float()).abs().max() <= _ulps(want)
+    assert (k6.float() - want6.float()).abs().max() <= _ulps(want6)
+    _check_ml(m4, l4, wm, wl)
+    _check_ml(m7, l7, wm, wl)
+
+
+@pytest.mark.parametrize("b,nq,nk,heads,dh", WIDE_F32_FWD_SHAPES)
+def test_wide_tf32_forward_forms(gen, b, nq, nk, heads, dh):
+    """The tf32 forward kernel at dh 160 on fp32 operands: K8, K4, K6 and K7
+    give the same output bit for bit, a second launch the same bits, within
+    1e-5 of the plain version's peak; m and l within 1e-5 relative."""
+    q, k, v = _rand(gen, b, nq, heads * dh), *(_rand(gen, b, nk, heads * dh) for _ in "kv")
+    o8 = FA._flash_attention_v1(q, k, v, heads)
+    o4, m4, l4 = FA.flash_attention_stats(q, k, v, heads)
+    o6 = FA.flash_attention_fp32(q, k, v, heads)
+    o7, m7, l7 = FA.flash_attention_v2_stats(q, k, v, heads)
+    again = FA._flash_attention_v1(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, o8) for o in (o4, o6, o7, again))
+    want, wm, wl = FA.flash_attention_stats_ref(q, k, v, heads)
+    assert (o8 - want).abs().max() <= 1e-5 * want.abs().max()
+    _check_ml(m4, l4, wm, wl)
+    _check_ml(m7, l7, wm, wl)
+
+
 def _ff_args_f32(gen, m, c):
     inner = 4 * c
     return (_rand(gen, m, c), _rand(gen, 2 * inner, c) * c**-0.5, _rand(gen, 2 * inner) * 0.1,

@@ -183,6 +183,18 @@ def test_forward_query_tile_rule(monkeypatch, b, n, dh, k1, k6):
     assert FA.built_consumers(True, dh) == ((2,) if dh == 80 else (2, 3)) and FA.built_consumers(False, dh) == (2, 3)
 
 
+# The tf32 forward's route at dh 160 (8 heads, an H100's 132 SMs): clusters of
+# two CTAs over dh's halves where their grid fits in one wave (a train step's
+# b = 1 at 576 and 1024 tokens: 80 and 128 CTAs), else one CTA per 128 rows
+# (the 768^2 fp32 eval's batch of 2: 160 CTAs as clusters); never below dh 160.
+@pytest.mark.parametrize("b,n,dh,cluster", [
+    (1, 1024, 160, True), (1, 576, 160, True), (2, 576, 160, False), (12, 576, 160, False), (2, 1024, 160, False),
+    (1, 1024, 80, False), (1, 4096, 40, False), (1, 1056, 160, False)])
+def test_tf32_forward_cluster_rule(monkeypatch, b, n, dh, cluster):
+    monkeypatch.setattr(FA, "_sm_count", lambda device: 132)
+    assert FA.f32_cluster(b * 8, n, dh, "cuda") == cluster
+
+
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """x rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it: to nearest, ties away
     from zero, the 13 low mantissa bits cleared (wgmma reads only the top 19)."""

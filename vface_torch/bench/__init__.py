@@ -12,7 +12,10 @@
 * :mod:`vface_torch.bench.attn_bwd_wide` (no JAX counterpart): K5 on bf16
   and fp32 at ds4's dh 160 (its dQ, dK/dV and split kernels apart, beside
   SDPA's backward) and at dh 40 / 80, by CUDA events and by the profiler's
-  device time, ending with one JSON line, to compare two trees' kernels.
+  device time, ending with one JSON line, to compare two trees' kernels;
+* :mod:`vface_torch.bench.attn_fwd_wide` (no JAX counterpart): the forward
+  kernels at ds4's dh 160 (K1, K4, K6 on bf16; the tf32 forms on fp32)
+  beside SDPA, and at dh 40 / 80 as the guard, timed as attn_bwd_wide.
 
 Run each with ``python -m vface_torch.bench.<name>`` on a CUDA device; times
 are CUDA events over ``--reps`` calls after one warm-up call.

@@ -41,13 +41,8 @@
 //   the card's SM count (flash_attention.py::k1_consumers): 128-row tiles
 //   where 192-row ones give fewer than two CTAs per SM (the train step's
 //   b = 1). With the producer warp, NC = 3 is 13 warps, which ptxas caps at
-//   128 registers a thread (NC = 2: 168). At dh 160 (SD-v1's ds4 sites above
-//   512^2) a consumer holds a 64 x 160 fp32 output (80 registers), S (32), P
-//   (16, SPLIT 32) and 48 descriptor registers, past 168: that width is built
-//   at NC = 2 with a producer warpgroup instead of the warp, which hands its
-//   registers to the consumers (setmaxnreg 24 / 240, as K5's kernels do;
-//   Q's 40 KB and four 40 KB K/V stages fit in 227 KB of shared memory).
-//   A producer warp keeps a ring of 4 K/V stages filled by TMA,
+//   128 registers a thread (NC = 2: 168). dh 160 has a kernel of its own
+//   (below). A producer warp keeps a ring of 4 K/V stages filled by TMA,
 //   completed on mbarriers (full: the bytes landed; empty: every consumer warp
 //   is done with the stage), so later tiles load while this one computes.
 // * Both products run on wgmma with fp32 accumulators: S = Q.K^T with Q and K
@@ -72,6 +67,31 @@
 // first columns (zeros past the last head, and past N, which TMA fills), so
 // the kernel zeroes Q's padding columns; K's then multiply zeros (the inputs
 // are finite), and V's land only in output columns that are not stored.
+//
+// dh 160 (SD-v1's ds4 sites above 512^2: flash_fwd_wide_kernel):
+// * What bounds it: the two products (4*Nq*Nk*160 FLOPs a head; 0.043 ms at
+//   (8, 1024, 1280), the 1024^2 test bench's CFG batch, at the bf16 peak),
+//   and registers: a consumer warpgroup holds a 64 x 160 fp32 output (80
+//   registers), S (32), P (16, SPLIT 32) and the descriptors, so a CTA has
+//   two consumer warpgroups and a producer warpgroup that hands them its
+//   registers (setmaxnreg 24 / 240); Q's 40 KB and four 40 KB K/V stages
+//   fill the shared memory, one CTA an SM. The first form (K1's layout:
+//   16-column boxes, one CTA a tile) took 0.110 ms there, 0.072 at (12, 576,
+//   1280), against SDPA's 0.091 / 0.065 (NVIDIA H100 80GB HBM3 at 700 W,
+//   vface_torch/bench/attn_fwd_wide.py). Removing its products over V, its
+//   exponentials or nine of S's ten k16 steps barely moved it; removing its
+//   K/V loads did: the load path, twenty 2 KB boxes of 32-byte rows a K/V
+//   tile, held it.
+// * What the design does: the operands arrive in 32-column boxes (64-byte
+//   rows) with TMA's 64-byte swizzle, five a K or V tile, read by wgmma in
+//   that swizzle (sdesc64: 0.088 / 0.057 ms); one CTA an SM walks (head,
+//   query tile) in order, so its producer loads the next tile's Q and first
+//   K/V stages while the consumers finish this one (without: 0.096 /
+//   0.062); K1 and K4 keep Q's A fragments in registers, and S reads only K
+//   from shared memory (without: 0.093 / 0.061; K6 and K7, whose P has a lo
+//   half, read Q from shared memory). Two consumer warpgroups taking turns on
+//   the tensor cores (FlashAttention-3's ping-pong) gained nothing and were
+//   left out. Without the loads it would take 0.084 / 0.053.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,15 +106,9 @@ namespace {
 constexpr int kBlockK = 64;  // keys per K/V tile: the softmax block
 constexpr int kStages = 4;   // K/V tiles in flight
 
-// dh 160: a producer warpgroup that gives its registers to the consumers
-template <int DHP>
-constexpr bool kWide = DHP > 80;
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 24 + 2 * 240 = 3 * 168: the pool stays whole
-
-// NC consumer warpgroups of 64 q rows each, and one producer warp (a
-// producer warpgroup at dh 160)
-template <int DHP, int NC>
-constexpr int kThreads = 128 * NC + (kWide<DHP> ? 128 : 32);
+// NC consumer warpgroups of 64 q rows each, and one producer warp
+template <int NC>
+constexpr int kThreads = 128 * NC + 32;
 
 // [column block][row][16 columns]; TMA swaps the two 16-byte halves of rows
 // 4-7 of every 8 (32-byte swizzle: address bit 4 ^= bit 7)
@@ -109,7 +123,7 @@ template <int DHP, int NC>
 constexpr int kSmemBytes = sizeof(Smem<DHP, NC>) + 1024;  // + the slack to align it to 1024 bytes
 
 template <int DHP, int NC, bool STATS, bool SPLIT>
-__global__ void __launch_bounds__(kThreads<DHP, NC>, 1)
+__global__ void __launch_bounds__(kThreads<NC>, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out, int nq, int nk, int heads, int dh,
@@ -136,8 +150,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   }
   __syncthreads();
 
-  if (tid >= 128 * NC) {  // the producer warp (warpgroup): one thread issues every load
-    if constexpr (kWide<DHP>) setmaxnreg_dec<kProducerRegs>();
+  if (tid >= 128 * NC) {  // the producer warp: one thread issues every load
     if (tid == 128 * NC) {
       mbar_expect_tx(&sm.q_full, sizeof(sm.q));
       for (int c = 0; c < NB; ++c) tma_load(&sm.q[c][0][0], &tq, &sm.q_full, col0 + c * kAtom, q0, b);
@@ -154,7 +167,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
     return;
   }
 
-  if constexpr (kWide<DHP>) setmaxnreg_inc<kConsumerRegs>();
   const int wg = tid >> 7;
   if (wg >= active) return;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
@@ -304,6 +316,287 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
   }
 }
 
+// ---- dh 160 (SD-v1's ds4 sites above 512^2): a persistent kernel (the header's notes)
+
+constexpr int kWideDH = 160, kWideNB = kWideDH / kAtom;  // k16 steps of Q.K^T
+constexpr int kWideBox = 32, kWideNBox = kWideDH / kWideBox;  // 64-byte TMA boxes (64-byte swizzle), 5 a row
+constexpr int kWideRows = 128;                           // query rows of a tile: two consumer warpgroups
+constexpr int kWideThreads = 3 * 128;                    // and a producer warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;   // 24 + 2 * 240 = 3 * 168: the pool stays whole
+
+// [box][row][32 columns]; TMA's 64-byte swizzle puts 16-byte chunk c of row
+// r at c ^ ((r >> 1) & 3)
+struct WideSmem {
+  __nv_bfloat16 q[kWideNBox][kWideRows][kWideBox];
+  __nv_bfloat16 k[kStages][kWideNBox][kBlockK][kWideBox];
+  __nv_bfloat16 v[kStages][kWideNBox][kBlockK][kWideBox];
+  uint64_t q_full, q_empty, full[kStages], empty[kStages];
+};
+constexpr int kWideSmemBytes = sizeof(WideSmem) + 1024;  // + the slack to align it to 1024 bytes
+
+// zero_pad (hopper.cuh) for the wide kernel's Q: its padding columns [dh,
+// 160) of rows [r0, r0 + 64), then a named barrier `bar` over the warpgroup
+__device__ __forceinline__ void zero_pad_wide(__nv_bfloat16 (&tile)[kWideNBox][kWideRows][kWideBox], int r0, int dh,
+                                              int t, int bar) {
+  for (int i = t; i < 64 * (kWideDH - dh) / 8; i += 128) {
+    const int r = r0 + (i & 63), col = dh + 8 * (i >> 6);
+    const int chunk = ((col & 31) >> 3) ^ ((r >> 1) & 3);
+    *reinterpret_cast<uint4*>(&tile[col / kWideBox][r][8 * chunk]) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_proxy_async();
+  bar_sync(bar, 128);
+}
+
+// Tiles of 128 query rows of one (batch, head), t = bh * n_qt + query tile,
+// walked by CTA blockIdx.x at t = blockIdx.x, + gridDim.x, ...; n_bh = B*H.
+template <bool STATS, bool SPLIT>
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ m_out, float* __restrict__ l_out, int nq, int nk, int heads, int dh,
+                      int n_bh, float scale) {
+  constexpr int DHP = kWideDH, NB = kWideNB;
+  extern __shared__ uint8_t smem_raw[];
+  WideSmem& sm = *reinterpret_cast<WideSmem*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+
+  const int tid = threadIdx.x;
+  const int n_qt = (nq + kWideRows - 1) / kWideRows, n_tiles = n_qt * n_bh;
+  const int n_kt = (nk + kBlockK - 1) / kBlockK;
+
+  if (tid == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, 8);  // one arrival per consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= 2 * 128) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 2 * 128) {
+      int it = 0;  // K/V tiles loaded so far: the ring's position
+#pragma unroll 1
+      for (int t = blockIdx.x, n = 0; t < n_tiles; t += gridDim.x, ++n) {
+        const int bh = t / n_qt, b = bh / heads, col0 = (bh - b * heads) * dh;
+        if (n > 0) mbar_wait(&sm.q_empty, (n - 1) & 1);  // the last tile's S products are done
+        mbar_expect_tx(&sm.q_full, sizeof(sm.q));
+#pragma unroll 1
+        for (int c = 0; c < kWideNBox; ++c)
+          tma_load(&sm.q[c][0][0], &tq, &sm.q_full, col0 + c * kWideBox, (t - bh * n_qt) * kWideRows, b);
+#pragma unroll 1
+        for (int j = 0; j < n_kt; ++j, ++it) {
+          const int st = it % kStages;
+          mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&sm.full[st], sizeof(sm.k[0]) + sizeof(sm.v[0]));
+#pragma unroll 1
+          for (int c = 0; c < kWideNBox; ++c) {
+            tma_load(&sm.k[st][c][0][0], &tk, &sm.full[st], col0 + c * kWideBox, j * kBlockK, b);
+            tma_load(&sm.v[st][c][0][0], &tv, &sm.full[st], col0 + c * kWideBox, j * kBlockK, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+
+  // Descriptors (sdesc64: Q's and K's k16 step cb is 32-column box cb / 2,
+  // 32 bytes in for an odd cb; V's k16 steps are 16 keys, 1024 bytes, its
+  // boxes kBlockK * 64 bytes apart) and pins as in flash_fwd_bf16_kernel.
+  // K1 and K4 (QREG) hold this warpgroup's Q as the A fragments of S in
+  // registers, loaded once a tile (S then reads only K from shared memory);
+  // K6 and K7, whose P's lo half takes 16 registers more, read Q from shared
+  // memory.
+  constexpr bool QREG = !SPLIT;
+  uint32_t one = 1, zero = 0;
+  uint64_t dq[QREG ? 1 : NB];
+  uint32_t qf[QREG ? 4 * NB : 1];
+  if constexpr (!QREG) {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) dq[cb] = sdesc64(&sm.q[cb >> 1][wg * 64][0], 16, 512) + 2 * (cb & 1);
+    pin(dq);
+  }
+  asm volatile("" : "+r"(one), "+r"(zero));
+  const uint64_t dk0 = sdesc64(&sm.k[0][0][0][0], 16, 512);
+  const uint64_t dv0 = sdesc64(&sm.v[0][0][0][0], kBlockK * 64, 512);
+  constexpr uint64_t kStage = sizeof(sm.k[0]) >> 4;
+  uint64_t dk[NB], dv[4];
+  auto qk = [&](float (&s)[32]) {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) {
+      if constexpr (QREG) {
+        if (cb == 0) wgmma_rs_n64_k<true>(s, &qf[0], dk[0], zero);
+        else wgmma_rs_n64_k<false>(s, &qf[4 * cb], dk[cb], one);
+      } else {
+        if (cb == 0) wgmma_ss_n64_zero(s, dq[0], dk[0], zero);
+        else wgmma_ss_n64(s, dq[cb], dk[cb], one);
+      }
+    }
+  };
+  // QREG: k16 step cb of rows (g, g + 8) at columns 16cb + (2t4, 2t4 + 8)
+  // in registers 4cb .. 4cb + 3 (each a bf16 pair), read through the
+  // swizzle (rows g and g + 8 share it)
+  auto load_qf = [&] {
+    const int r0 = wg * 64 + warp * 16 + g, x = (r0 >> 1) & 3;
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 16 * (cb & 1) + 8 * (e >> 1) + 2 * t4;  // in box cb / 2
+        qf[4 * cb + e] = *reinterpret_cast<const uint32_t*>(
+            &sm.q[cb >> 1][r0 + 8 * (e & 1)][8 * ((col >> 3) ^ x) + (col & 7)]);
+      }
+    pin(qf);
+  };
+  constexpr int NL = SPLIT ? 16 : 1;
+  auto pv = [&](float (&acc)[DHP / 2], const uint32_t (&p)[16], const uint32_t (&pl)[NL]) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_rs_mn<DHP>(acc, &p[4 * kc], dv[kc], one);
+      if constexpr (SPLIT) wgmma_rs_mn<DHP>(acc, &pl[4 * kc], dv[kc], one);
+    }
+  };
+  auto k_descs = [&](int st) {
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) dk[cb] = dk0 + st * kStage + (cb >> 1) * (kBlockK * 64 >> 4) + 2 * (cb & 1);
+    pin(dk);
+  };
+  auto v_descs = [&](int st) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) dv[kc] = dv0 + st * kStage + kc * (16 * 64 >> 4);
+    pin(dv);
+  };
+
+  const float c = scale * 1.4426950408889634f;
+  const int tail = nk - (n_kt - 1) * kBlockK;
+  const long long cols = (long long)heads * dh;
+  int it = 0;  // K/V tiles consumed so far: the ring's position
+#pragma unroll 1
+  for (int t = blockIdx.x, n = 0; t < n_tiles; t += gridDim.x, ++n, it += n_kt) {
+    const int bh = t / n_qt, q0 = (t - bh * n_qt) * kWideRows, b = bh / heads, col0 = (bh - b * heads) * dh;
+    const int active = min(2, (nq - q0 + 63) / 64);  // warpgroups with a row below nq
+    const int it0 = it;
+    auto stage = [&](int j) { return (it0 + j) % kStages; };
+    auto wait_full = [&](int j) {
+      mbar_wait(&sm.full[stage(j)], ((it0 + j) / kStages) & 1);
+      __syncwarp();
+    };
+    if (wg >= active) {  // no rows in this tile: release its stages as they land
+#pragma unroll 1
+      for (int j = 0; j < n_kt; ++j) {
+        wait_full(j);
+        if (lane == 0) mbar_arrive(&sm.empty[stage(j)]);
+      }
+      if (lane == 0) mbar_arrive(&sm.q_empty);
+      continue;
+    }
+    mbar_wait(&sm.q_full, n & 1);
+    __syncwarp();
+    if (dh < DHP) zero_pad_wide(sm.q, wg * 64, dh, tid & 127, 1 + wg);  // Q's padding columns
+    if constexpr (QREG) {
+      load_qf();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.q_empty);  // this warp's last read of Q is done
+    }
+
+    float acc[DHP / 2];
+#pragma unroll
+    for (int i = 0; i < DHP / 2; ++i) acc[i] = 0.f;
+    float s[32], mr[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, al[2];
+    uint32_t p[16], pl[NL];
+    auto pack = [&] {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if constexpr (SPLIT) split_pack(s[2 * i], s[2 * i + 1], p[i], pl[i]);
+        else p[i] = pack_bf16x2(s[2 * i], s[2 * i + 1]);
+      }
+    };
+
+    // Tile j: S(j) = Q.K(j)^T and P(j-1).V(j-1) go to the tensor cores
+    // together; the softmax of S(j) runs while P(j-1).V(j-1) is in flight.
+    wait_full(0);
+    k_descs(stage(0));
+    wgmma_fence();
+    qk(s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(s);
+    if (!QREG && n_kt == 1 && lane == 0) mbar_arrive(&sm.q_empty);  // this warp's last read of Q is done
+    if (n_kt == 1 && tail < kBlockK) softmax_tile<true>(s, mr, l, al, c, tail, t4);
+    else softmax_tile<false>(s, mr, l, al, c, kBlockK, t4);
+    pack();
+
+#pragma unroll 1
+    for (int j = 1; j < n_kt; ++j) {
+      wait_full(j);
+      k_descs(stage(j));
+      v_descs(stage(j - 1));
+      pin(acc);
+      pin(p);
+      if constexpr (SPLIT) pin(pl);
+      wgmma_fence();
+      qk(s);
+      wgmma_commit();
+      pv(acc, p, pl);
+      wgmma_commit();
+      wgmma_wait<1>();  // S(j) is ready; P(j-1).V(j-1) may still run
+      pin(s);
+      if (!QREG && j == n_kt - 1 && lane == 0) mbar_arrive(&sm.q_empty);
+      if (j == n_kt - 1 && tail < kBlockK) softmax_tile<true>(s, mr, l, al, c, tail, t4);
+      else softmax_tile<false>(s, mr, l, al, c, kBlockK, t4);
+      wgmma_wait<0>();
+      pin(acc);
+      pin(p);
+      if constexpr (SPLIT) pin(pl);
+      if (lane == 0) mbar_arrive(&sm.empty[stage(j - 1)]);
+#pragma unroll
+      for (int i = 0; i < DHP / 2; ++i) acc[i] *= al[(i >> 1) & 1];
+      pack();
+    }
+    v_descs(stage(n_kt - 1));
+    pin(acc);
+    pin(p);
+    if constexpr (SPLIT) pin(pl);
+    wgmma_fence();
+    pv(acc, p, pl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+    if (lane == 0) mbar_arrive(&sm.empty[stage(n_kt - 1)]);
+
+    // ---- out = bf16(acc / l), written strided into (B, Nq, H*dh)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const int row0 = q0 + wg * 64 + warp * 16 + g;
+    const float il[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= nq) continue;
+      __nv_bfloat16* orow = o + ((long long)b * nq + row) * cols + col0;
+#pragma unroll
+      for (int j = 0; j < DHP / 8; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col < dh)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] * il[r], acc[4 * j + 2 * r + 1] * il[r]);
+      }
+      if (STATS && t4 == 0) {
+        m_out[(long long)bh * nq + row] = mr[r] * scale;
+        l_out[(long long)bh * nq + row] = l[r];
+      }
+    }
+  }
+}
+
 // ---- host side (tensor maps: hopper.cuh)
 
 template <int DHP, int NC, bool STATS, bool SPLIT>
@@ -320,18 +613,41 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m, float
                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((nq + 64 * NC - 1) / (64 * NC), b * heads);
-  flash_fwd_bf16_kernel<DHP, NC, STATS, SPLIT><<<grid, kThreads<DHP, NC>, kSmem, stream>>>(
+  flash_fwd_bf16_kernel<DHP, NC, STATS, SPLIT><<<grid, kThreads<NC>, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), m, l, nq, nk, heads, dh, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dh 160: one CTA per SM (or per tile, where there are fewer), each walking its tiles
+template <bool STATS, bool SPLIT>
+int launch_wide(const void* q, const void* k, const void* v, void* o, float* m, float* l, int b, int nq, int nk,
+                int heads, int dh, float scale, cudaStream_t stream) {
+  if (const cudaError_t err = bind_device(q); err != cudaSuccess) return static_cast<int>(err);
+  const int cols = heads * dh;
+  CUtensorMap tq, tk, tv;
+  constexpr CUtensorMapSwizzle kSw64 = CU_TENSOR_MAP_SWIZZLE_64B;
+  if (!tensor_map(&tq, q, b, nq, cols, kWideRows, kWideBox, kSw64) ||
+      !tensor_map(&tk, k, b, nk, cols, kBlockK, kWideBox, kSw64) ||
+      !tensor_map(&tv, v, b, nk, cols, kBlockK, kWideBox, kSw64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(flash_fwd_wide_kernel<STATS, SPLIT>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int dev = 0, sms = 0;
+  if (const cudaError_t err = cudaGetDevice(&dev); err != cudaSuccess) return static_cast<int>(err);
+  if (const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev); err != cudaSuccess)
+    return static_cast<int>(err);
+  const int tiles = (nq + kWideRows - 1) / kWideRows * b * heads;
+  flash_fwd_wide_kernel<STATS, SPLIT><<<tiles < sms ? tiles : sms, kWideThreads, kWideSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), m, l, nq, nk, heads, dh, b * heads, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Three consumer warpgroups and the producer warp are 13 warps, which ptxas
 // caps at 128 registers a thread; at dh 80 the SPLIT form spills there, so
-// it is built with two (168 registers). dh 160 is built with two only: three
-// and a producer warpgroup leave 160 registers a consumer, below its 80-register
-// output and the rest.
+// it is built with two (168 registers).
 template <int DHP, bool SPLIT>
-constexpr bool kBuilt3 = !(SPLIT && DHP == 80) && !kWide<DHP>;
+constexpr bool kBuilt3 = !(SPLIT && DHP == 80);
 
 template <int DHP, bool STATS, bool SPLIT>
 int by_consumers(int consumers, const void* q, const void* k, const void* v, void* o, float* m, float* l, int b,
@@ -351,7 +667,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* m, flo
     case 16: return by_consumers<16, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
     case 48: return by_consumers<48, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
     case 80: return by_consumers<80, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
-    case 160: return by_consumers<160, STATS, SPLIT>(consumers, q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
+    case 160:  // two consumer warpgroups only: three would leave 160 registers a consumer
+      if (consumers != 2) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_wide<STATS, SPLIT>(q, k, v, o, m, l, b, nq, nk, heads, dh, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -404,7 +722,7 @@ extern "C" int vface_flash_attention_smem_bytes(int dh, int consumers) {
     case 16: return consumers == 2 ? kSmemBytes<16, 2> : kSmemBytes<16, 3>;
     case 48: return consumers == 2 ? kSmemBytes<48, 2> : kSmemBytes<48, 3>;
     case 80: return consumers == 2 ? kSmemBytes<80, 2> : kSmemBytes<80, 3>;
-    case 160: return consumers == 2 ? kSmemBytes<160, 2> : 0;
+    case 160: return consumers == 2 ? kWideSmemBytes : 0;
     default: return 0;
   }
 }

@@ -65,7 +65,23 @@
 //   do not fit beside the 80-register output: S is issued in ten groups of
 //   16 columns, each loading its Q fragments (L1 hits) into a fresh
 //   accumulator that the CUDA cores add to S, as the P.V tiles are summed
-//   (five groups of 32 columns spilled 168 bytes).
+//   (five groups of 32 columns spilled 168 bytes). That chain runs one CTA
+//   per 128 query rows, 64 CTAs on 132 SMs at a train step's (1, 1024,
+//   1280): 0.193 ms against SDPA's 0.188 (NVIDIA H100 80GB HBM3 at 700 W,
+//   vface_torch/bench/attn_fwd_wide.py).
+// * So at dh 160, where the grid of two CTAs per 128 query rows fits in one
+//   wave (flash_attention.f32_cluster), the kernel runs on clusters of two
+//   CTAs, each over 80 of dh's columns (CLUSTER): the split pass writes dh
+//   160 as two heads of 80, so each CTA's slots, Q fragments and products
+//   are the dh-80 kernel's and S runs in one group. Each consumer
+//   warpgroup stores its partial S in shared memory, one thread copies it
+//   into the peer CTA's with one bulk copy completing on the peer's
+//   mbarrier, and each adds the other's partial to its own (a + b and b + a,
+//   the same bits), so both form the same P; each then computes P.V for its
+//   own 80 output columns. At (1, 1024, 1280): 0.136 ms (0.108 without the
+//   exchange). Where the grid is larger, the SMs are full either way and the
+//   chain above, at half the CTAs, is faster: at (12, 576, 1280) 0.487 ms
+//   against the clusters' 0.534 (0.438 without the exchange).
 // * Per tile each warpgroup issues S = Q_lo.K_hi^T + Q_hi.K_lo^T +
 //   Q_hi.K_hi^T (3 * dh / 8 wgmma of m64n64k8, the small terms first) as one
 //   group, waits, runs the softmax (one FFMA and one ex2 a score; only a
@@ -88,6 +104,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -121,8 +139,20 @@ struct Smem {
   float kv[kSlots<DH>][4 / kParts<DH>][8 * DH][8];
   uint64_t full[kSlots<DH>], empty[kSlots<DH>];
 };
-template <int DH>
-constexpr int kSmemBytes = sizeof(Smem<DH>) + 1024;  // + the slack to align it to 1024 bytes
+// dh 160 when one wave holds the grid: two halves of 80 columns, one on each CTA of a cluster of two
+constexpr int kHalf = 80;
+// The cluster form's: beside the slots, each consumer warpgroup's partial S
+// (mine) and the peer CTA's (x), [warpgroup][register quad][thread], and x's
+// barriers.
+struct ClusterSmem : Smem<kHalf> {
+  float4 mine[kNC][8][128], x[kNC][8][128];
+  uint64_t xfull[kNC], xempty[kNC];
+};
+template <int DH, bool CLUSTER>
+using SmemOf = std::conditional_t<CLUSTER, ClusterSmem, Smem<DH>>;
+template <int DH, bool CLUSTER = false>
+constexpr int kSmemBytes = sizeof(SmemOf<DH, CLUSTER>) + 1024;  // + the slack to align it to 1024 bytes
+static_assert(kSmemBytes<kHalf, true> <= 232448, "over the shared memory of a block");
 
 // Position i of a group of 8 keys of V^T holds key perm8(i): 0 2 4 6 1 3 5 7,
 // so that the tf32 A fragment's columns t4 and t4 + 4 are the accumulator's
@@ -174,18 +204,23 @@ split_kv_kernel(const float* __restrict__ k, const float* __restrict__ v, float*
   }
 }
 
-template <int DH, bool STATS>
+// CLUSTER (dh 160 when one wave holds the grid): CTA `rank` of a cluster of
+// two over one tile of query rows computes dh's columns DH * rank .. DH *
+// rank + DH - 1 (DH = 80), from the split pass's head 2 * bh + rank, and
+// exchanges its partial S with the other CTA.
+template <int DH, bool STATS, bool CLUSTER = false>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restrict__ q, float* __restrict__ out,
                   float* __restrict__ m_out, float* __restrict__ l_out, int nq, int nk, int heads, float scale) {
   constexpr int NB = DH / 8;  // k8 steps of Q.K^T
   constexpr int SL = kSlots<DH>, PT = kParts<DH>;
   extern __shared__ uint8_t smem_raw[];
-  Smem<DH>& sm = *reinterpret_cast<Smem<DH>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  auto& sm = *reinterpret_cast<SmemOf<DH, CLUSTER>*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
-  const int q0 = blockIdx.x * kRows;
+  const uint32_t rank = CLUSTER ? cluster_ctarank() : 0u;
+  const int q0 = (CLUSTER ? blockIdx.x >> 1 : blockIdx.x) * kRows;
   const int n_kt = (nk + kBlockK - 1) / kBlockK;
   const int active = min(kNC, (nq - q0 + 63) / 64);  // warpgroups with a row below nq
 
@@ -194,20 +229,29 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], 4 * active);  // one arrival per consumer warp
     }
+    if constexpr (CLUSTER) {
+      for (int w = 0; w < kNC; ++w) {
+        mbar_init(&sm.xfull[w], 1);   // the peer's partial S: its bytes, armed here and by wg's thread 0
+        mbar_init(&sm.xempty[w], 4);  // the peer has read this CTA's partial: one arrival per peer consumer warp
+        mbar_expect_tx(&sm.xfull[w], sizeof(sm.x[0]));  // tile 0's
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (CLUSTER) cluster_sync();  // both CTAs' barriers are initialised before either uses the other's
+  else __syncthreads();
 
   if (tid >= 128 * kNC) {  // the producer warpgroup: its first thread issues every load
     setmaxnreg_dec<kProducerRegs>();
     if (tid == 128 * kNC) {
       constexpr int kItemRows = 32 / PT * DH;  // a tile's 32 * DH scratch rows, in PT items
+      const int hv = CLUSTER ? 2 * bh + static_cast<int>(rank) : bh;  // the split pass's head
       for (int i = 0; i < PT * n_kt; ++i) {
         const int st = i % SL;
         mbar_wait(&sm.empty[st], ((i / SL) & 1) ^ 1);
         mbar_expect_tx(&sm.full[st], sizeof(sm.kv[0]));
         for (int c = 0; c < kItemRows / kBoxRows; ++c)
-          tma_load(&sm.kv[st][0][0][0] + c * kBoxRows * 8, &tkv, &sm.full[st], 0, i * kItemRows + c * kBoxRows, bh);
+          tma_load(&sm.kv[st][0][0][0] + c * kBoxRows * 8, &tkv, &sm.full[st], 0, i * kItemRows + c * kBoxRows, hv);
       }
     }
     return;
@@ -218,7 +262,8 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   if (wg >= active) return;
   const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int row0 = q0 + wg * 64 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
-  const long long cols = (long long)heads * DH;
+  const long long cols = (long long)heads * DH * (CLUSTER ? 2 : 1);
+  const int col0 = CLUSTER ? (2 * h + static_cast<int>(rank)) * DH : h * DH;  // this CTA's first column
 
   // Q's hi and lo A fragments: k8 step cb in registers 4cb .. 4cb + 3, rows
   // (row0, row0 + 8, row0, row0 + 8) at columns (t4, t4, t4 + 4, t4 + 4).
@@ -228,7 +273,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   constexpr bool kQResident = DH <= 40;
   constexpr int QC = DH == 160 ? 10 : 1, CB = NB / QC;  // S's groups, k8 steps each (at dh 160 five groups spilled)
   uint32_t qhi[4 * CB], qlo[4 * CB];
-  const float* qb = q + (long long)b * nq * cols + h * DH;
+  const float* qb = q + (long long)b * nq * cols + col0;
   auto load_q = [&](int qc) {
 #pragma unroll
     for (int cb = 0; cb < CB; ++cb) {
@@ -291,6 +336,46 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
     pin(sc);
   };
 
+  // CLUSTER: this warpgroup's partial S goes to the peer's x[wg] (once the
+  // peer has read the last one, and so its copy has read mine[wg]) by one
+  // bulk copy of mine[wg] that completes on the peer's xfull[wg], and the
+  // peer's comes into this CTA's x[wg]; each CTA adds the other's to its own,
+  // a + b on one and b + a on the other, which are the same bits, so both
+  // form the same P. Each warp's lane 0 tells the peer that the warp has read
+  // its partial (__syncwarp orders the reads before the release); the
+  // warpgroup's thread 0 arms xfull[wg] for the next tile before its warp's
+  // release, so no copy of that tile can come first. (Stores of 16 bytes
+  // each straight into the peer, st_async_peer, took 4 % longer.)
+  uint32_t x_peer = 0, xfull_peer = 0, xempty_peer = 0;
+  if constexpr (CLUSTER) {
+    x_peer = peer_addr(&sm.x[wg][0][0], rank ^ 1u);
+    xfull_peer = peer_addr(&sm.xfull[wg], rank ^ 1u);
+    xempty_peer = peer_addr(&sm.xempty[wg], rank ^ 1u);
+  }
+  auto exchange = [&](float (&s)[32], int j) {
+    if constexpr (CLUSTER) {
+      const int t = tid & 127;
+      if (j > 0) mbar_wait<true>(&sm.xempty[wg], (j - 1) & 1);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) sm.mine[wg][r][t] = make_float4(s[4 * r], s[4 * r + 1], s[4 * r + 2], s[4 * r + 3]);
+      fence_proxy_async();
+      bar_sync(1 + wg, 128);
+      if (t == 0) bulk_copy_peer(x_peer, &sm.mine[wg][0][0], sizeof(sm.mine[0]), xfull_peer);
+      mbar_wait(&sm.xfull[wg], j & 1);
+      if (t == 0 && j + 1 < n_kt) mbar_expect_tx(&sm.xfull[wg], sizeof(sm.x[0]));
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float4 x = sm.x[wg][r][t];
+        s[4 * r] += x.x;
+        s[4 * r + 1] += x.y;
+        s[4 * r + 2] += x.z;
+        s[4 * r + 3] += x.w;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive_peer(xempty_peer);
+    }
+  };
+
   const float c = scale * kLog2e;             // scores to log2 units in the exponent's FFMA
   const int tail = nk - (n_kt - 1) * kBlockK;  // valid keys of the last tile
   // o: the running output, summed over tiles on the CUDA cores (fp32, round
@@ -313,6 +398,7 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
       if constexpr (!kQResident) load_q(0);
       k_descs(sk, 0);
       qk(s);
+      exchange(s, j);
     } else {  // QC groups of CB steps, each into sc, added to s on the CUDA cores
       float sc[32];
 #pragma unroll 1
@@ -370,6 +456,8 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
     }
     if (lane == 0) mbar_arrive(&sm.empty[sv]);  // V^T(j)'s slot (K(j)'s too below dh 160) is free
   }
+  if constexpr (CLUSTER)
+    mbar_wait<true>(&sm.xempty[wg], (n_kt - 1) & 1);  // the peer has read the last partial: nothing more comes in
 
   // ---- out = o / l (the TPU kernel's division), written strided into
   // (B, Nq, H*dh)
@@ -382,12 +470,12 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= nq) continue;
-    float* orow = out + ((long long)b * nq + row) * cols + h * DH;
+    float* orow = out + ((long long)b * nq + row) * cols + col0;
 #pragma unroll
     for (int jc = 0; jc < DH / 8; ++jc)
       *reinterpret_cast<float2*>(orow + 8 * jc + 2 * t4) =
           make_float2(o[4 * jc + 2 * r] / l[r], o[4 * jc + 2 * r + 1] / l[r]);
-    if (STATS && t4 == 0) {  // the quad's four lanes hold the same m and l
+    if (STATS && t4 == 0 && rank == 0) {  // the quad's four lanes (and both CTAs) hold the same m and l
       m_out[(long long)bh * nq + row] = mr[r] * scale;
       l_out[(long long)bh * nq + row] = l[r];
     }
@@ -396,39 +484,62 @@ flash_tf32_kernel(const __grid_constant__ CUtensorMap tkv, const float* __restri
 
 // ---- host side (tensor maps: hopper.cuh)
 
-template <int DH, bool STATS>
+// CL (dh 160 only): the split pass writes two heads of 80 columns, one for
+// each CTA of a cluster of two
+template <int DH, bool STATS, bool CL = false>
 int launch(const void* q, const void* k, const void* v, void* o, float* m, float* l, float* kv, int b, int nq,
            int nk, int heads, float scale, cudaStream_t stream) {
   if (const cudaError_t err = bind_device(q); err != cudaSuccess) return static_cast<int>(err);
-  const int n_kt = (nk + kBlockK - 1) / kBlockK;
-  CUtensorMap tkv;  // the scratch tensor as (b * heads) x (n_kt * 32 * DH rows) x 8 fp32 values
-  if (!tensor_map(&tkv, kv, b * heads, n_kt * 32 * DH, 8, kBoxRows, 8, CU_TENSOR_MAP_SWIZZLE_32B,
+  constexpr int DS = CL ? kHalf : DH, HS = DH / DS;
+  const int n_kt = (nk + kBlockK - 1) / kBlockK, n_qt = (nq + kRows - 1) / kRows;
+  CUtensorMap tkv;  // the scratch tensor as (b * heads * HS) x (n_kt * 32 * DS rows) x 8 fp32 values
+  if (!tensor_map(&tkv, kv, b * heads * HS, n_kt * 32 * DS, 8, kBoxRows, 8, CU_TENSOR_MAP_SWIZZLE_32B,
                   CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kSmem = kSmemBytes<DH>;
-  static const cudaError_t attr = cudaFuncSetAttribute(flash_tf32_kernel<DH, STATS>,
-                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  constexpr int kSmem = kSmemBytes<DS, CL>;
+  const auto kernel = flash_tf32_kernel<DS, STATS, CL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  split_kv_kernel<DH><<<dim3(n_kt, b * heads), 256, 0, stream>>>(static_cast<const float*>(k),
-                                                                 static_cast<const float*>(v), kv, nk, heads);
+  split_kv_kernel<DS><<<dim3(n_kt, b * heads * HS), 256, 0, stream>>>(static_cast<const float*>(k),
+                                                                     static_cast<const float*>(v), kv, nk, heads * HS);
   if (const cudaError_t err = cudaGetLastError(); err != cudaSuccess) return static_cast<int>(err);
-  flash_tf32_kernel<DH, STATS><<<dim3((nq + kRows - 1) / kRows, b * heads), kThreads, kSmem, stream>>>(
-      tkv, static_cast<const float*>(q), static_cast<float*>(o), m, l, nq, nk, heads, scale);
+  if constexpr (CL) {  // a cluster of two CTAs per 128 query rows
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(2 * n_qt, b * heads);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kSmem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attrs[1];
+    attrs[0].id = cudaLaunchAttributeClusterDimension;
+    attrs[0].val.clusterDim.x = 2;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    cfg.attrs = attrs;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, tkv, static_cast<const float*>(q),
+                                               static_cast<float*>(o), m, l, nq, nk, heads, scale);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    flash_tf32_kernel<DS, STATS, CL><<<dim3(n_qt, b * heads), kThreads, kSmem, stream>>>(
+        tkv, static_cast<const float*>(q), static_cast<float*>(o), m, l, nq, nk, heads, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool STATS>
 int dispatch_f32(const void* q, const void* k, const void* v, void* o, void* m, void* l, void* kv, int b, int nq,
-                 int nk, int heads, int dh, float scale, void* stream) {
+                 int nk, int heads, int dh, float scale, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float *mm = static_cast<float*>(m), *ll = static_cast<float*>(l), *kk = static_cast<float*>(kv);
-  if (nq < 1 || nk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nq < 1 || nk < 1 || (cluster && dh != 160)) return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 16: return launch<16, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     case 32: return launch<32, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     case 40: return launch<40, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     case 80: return launch<80, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
-    case 160: return launch<160, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
+    case 160:
+      return cluster ? launch<160, STATS, true>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st)
+                     : launch<160, STATS>(q, k, v, o, mm, ll, kk, b, nq, nk, heads, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -437,21 +548,23 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, void* m, 
 
 // q, o: (b, nq, heads * dh); k, v: (b, nk, heads * dh); contiguous and 16-byte
 // aligned; kv: the split pass's scratch, b * heads * ceil(nk / 64) * 4 * 64 *
-// dh fp32 values. Each launches the split pass, then the attention kernel,
-// and returns cudaGetLastError() after them.
+// dh fp32 values; cluster: 1 runs dh 160 on clusters of two CTAs, each over
+// half of dh's columns (0 at every other width). Each launches the split
+// pass, then the attention kernel, and returns cudaGetLastError() after them.
 
 // fp32, dh one of 16, 32, 40, 80, 160.
 extern "C" int vface_flash_attention_v1_f32(const void* q, const void* k, const void* v, void* o, void* kv, int b,
-                                            int nq, int nk, int heads, int dh, float scale, void* stream) {
-  return dispatch_f32<false>(q, k, v, o, nullptr, nullptr, kv, b, nq, nk, heads, dh, scale, stream);
+                                            int nq, int nk, int heads, int dh, float scale, int cluster,
+                                            void* stream) {
+  return dispatch_f32<false>(q, k, v, o, nullptr, nullptr, kv, b, nq, nk, heads, dh, scale, cluster, stream);
 }
 
 // fp32 that also writes m, l: (b * heads, nq) fp32, each row's final running
 // max (of the scaled scores) and softmax denominator.
 extern "C" int vface_flash_attention_v1_stats_f32(const void* q, const void* k, const void* v, void* o, void* m,
                                                   void* l, void* kv, int b, int nq, int nk, int heads, int dh,
-                                                  float scale, void* stream) {
-  return dispatch_f32<true>(q, k, v, o, m, l, kv, b, nq, nk, heads, dh, scale, stream);
+                                                  float scale, int cluster, void* stream) {
+  return dispatch_f32<true>(q, k, v, o, m, l, kv, b, nq, nk, heads, dh, scale, cluster, stream);
 }
 
 // Dynamic shared memory of the attention kernel at head width dh, in bytes (0 if none is built).

@@ -2,14 +2,16 @@
 // flash_attention.cu (K1, K4, K6, K7, K12), flash_attention_bwd.cu (K5),
 // flash_attention_f32.cu (K7, K8, K10-K12 on fp32), flash_attention_bwd_f32.cu
 // (K5 on fp32) and geglu_ff.cu (K2, K9, K13): mbarriers, TMA loads and 1-D bulk
-// copies, a cluster's distributed shared memory (stores and mbarrier arrivals
-// into a peer CTA), wgmma descriptors and instructions (bf16, and
-// tf32 for fp32 operands split into hi + lo), register pins, the bf16 and
+// copies, a cluster's distributed shared memory (stores, bulk copies and
+// mbarrier arrivals into a peer CTA), wgmma descriptors and instructions (bf16,
+// and tf32 for fp32 operands split into hi + lo), register pins, the bf16 and
 // tf32 splits of fp32 values, the attention forward's online softmax, and the
 // host's tensor maps. Every operand lands in shared memory as TMA's 32-byte
 // swizzle of 32-byte boxes, [column block][row][32 bytes], which is wgmma's
 // K-major (and, for 16-bit types, MN-major) operand layout of that swizzle:
-// one block is one k16 step of bf16 (16 columns) or one k8 step of tf32 (8).
+// one block is one k16 step of bf16 (16 columns) or one k8 step of tf32 (8);
+// the bf16 forward at dh 160 takes 64-byte boxes in the 64-byte swizzle
+// (sdesc64), the GEGLU kernels 128-byte ones (sdesc128).
 // _native.lib_path hashes this header with each source that includes it, so
 // an edit here rebuilds every library that includes it.
 
@@ -106,6 +108,18 @@ __device__ __forceinline__ void st_async_peer(uint32_t addr, float4 v, uint32_t 
                : "memory");
 }
 
+// `bytes` (a multiple of 16) of this CTA's shared memory at `src` copied into a
+// peer CTA's at `dst`, completing on the peer's mbarrier `bar` (both
+// peer_addr) as a bulk copy's bytes complete: one transaction on `bar` where
+// st_async_peer makes one per 16 bytes. The generic-proxy writes of `src`
+// need a fence_proxy_async (and a barrier) before it.
+__device__ __forceinline__ void bulk_copy_peer(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   dst),
+               "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
 // Programmatic dependent launch: a kernel lets the next one on its stream,
 // launched with cudaLaunchAttributeProgrammaticStreamSerialization, start
 // once every CTA of it has called dependents_may_start (or exited); the next
@@ -146,6 +160,15 @@ __device__ __forceinline__ uint64_t sdesc(const void* p, uint32_t lbo, uint32_t 
 __device__ __forceinline__ uint64_t sdesc128(const void* p) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | static_cast<uint64_t>(1) << 16 |
          static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// wgmma shared-memory matrix descriptor, 64-byte swizzle: rows of 32 bf16
+// columns (64 bytes), 8-row groups 512 bytes apart (sbo). K-major: lbo
+// unused, a k16 step inside the 32 columns adds 32 bytes (2 in the
+// descriptor's units); MN-major: lbo between 32-column blocks.
+__device__ __forceinline__ uint64_t sdesc64(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(2) << 62;
 }
 
 // generic-proxy writes to shared memory made visible to wgmma and TMA
@@ -317,6 +340,41 @@ __device__ __forceinline__ void wgmma_ss_n160(float (&d)[80], uint64_t da, uint6
         "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(da), "l"(db), "r"(one));
+}
+
+// d += A . B^T (ZERO: d = A . B^T, the accumulators' old values unread),
+// m64n64k16: A (four bf16-pair registers, the m64k16 A fragment) from
+// registers, B K-major in shared memory; `flag` holds 1 (0 for ZERO)
+template <bool ZERO>
+__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32], const uint32_t* a, uint64_t db, uint32_t flag) {
+  if constexpr (ZERO)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+          "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+          "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+          "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(flag));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(flag));
 }
 
 // d += A . B, m64n16k16: A (bf16 pairs) from registers, B from shared memory, MN-major; `one` holds 1

@@ -155,6 +155,17 @@ def k1_consumers(rows: int, nq: int, device: torch.device, split: bool, dh: int)
     return 3 if 3 in tiles and -(-nq // 192) * rows >= 2 * _sm_count(torch.device(device)) else 2
 
 
+def f32_cluster(rows: int, nq: int, dh: int, device: torch.device) -> bool:
+    """Whether the tf32 kernel runs ``rows`` = B*H heads of ``nq`` queries at
+    head width ``dh`` on clusters of two CTAs, each over half of dh's columns,
+    which exchange their partial S: at dh 160 where the clusters' grid (two
+    CTAs per 128 query rows) fits in one wave of the card's SMs. Where it does
+    not, the SMs are full either way and one CTA per 128 rows over all of dh
+    is faster (PERF.md §6, PR 19: at (1, 1024, 1280) the clusters take 0.136
+    ms against 0.193, at (12, 576, 1280) 0.534 against 0.487)."""
+    return dh == 160 and 2 * -(-nq // 128) * rows <= _sm_count(torch.device(device))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     """The device's SM count, read once: the query happens on every launch of a host-bound path."""
@@ -476,10 +487,11 @@ def _launch_f32(kernel: str, stats: bool, q, k, v, num_heads: int, outs) -> None
     # allocator hands the memory only to work queued after the kernels on this stream
     kv = torch.empty(b * num_heads * -(-nk // BLOCK_K) * 4 * BLOCK_K * dh, dtype=torch.float32, device=q.device)
     symbol = "vface_flash_attention_v1_" + ("stats_" if stats else "") + "f32"
-    fn = _native.function("flash_attention_f32", symbol, [_P] * (4 + len(outs)) + [_I] * 5 + [_F, _P])
+    fn = _native.function("flash_attention_f32", symbol, [_P] * (4 + len(outs)) + [_I] * 5 + [_F, _I, _P])
     ptrs = [t.data_ptr() for t in (q, k, v, *outs, kv)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), stream), kernel)
+    cluster = f32_cluster(b * num_heads, nq, dh, q.device)
+    _native.check(fn(*ptrs, b, nq, nk, num_heads, dh, float(dh**-0.5), int(cluster), stream), kernel)
     _count(kernel, dh)
 
 
